@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""Card smoke test of the PyTorch/CUDA port (qkd_ldpc_v_tpu_torch).
+
+Run from the root of a checkout on a machine with one CUDA device:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, and the script then exits non-zero):
+
+1. Device and build: the card's name and power limit (nvidia-smi), the
+   torch and CUDA versions, and the build of every kernel from csrc/.
+2. Kernel vs plain: the fused QC kernel against its plain torch version on
+   the same device-made keys, 512 frames each, at the headline code
+   (N=10240, Z=512) and the 1k QC code (N=1024, Z=128): trial and decode
+   modes, flooding and layered, NMSA/OMSA/ANMSA/AOMSA, QBER 0.03 and a
+   harder QBER where some frames fail, plus cases with the message clamp.
+   Conv, keys, iterations and decisions must be exactly equal.
+3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
+   in-process) on copies of configs/example_qc_layered.json and of its
+   flooding variant, 65536 trials in 16384-frame chunks each, over the
+   committed headline asset. Each CSV must carry the JAX package's columns
+   and FER <= 0.01; the kernel's launch counter must be > 0 and the plain
+   version must not have run on the card; on the first 1024 frames of
+   chunk 0 the kernel's statistics must equal the plain version's.
+4. Result: one JSON line of kernel figures, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+It imports no JAX. Without a CUDA device, or outside a checkout, it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+QC_DIR = REPO / "sparse_matrices" / "matrices_qc"
+HEADLINE = QC_DIR / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"
+QC1K = QC_DIR / "(N=1024,M=384,R=0.62,CW=3,Z=128,SEED=33).mtrx"
+FRAMES = 512
+THRESHOLD = 2.5
+FACTORS = {"NMSA": (0.65, 1.0), "OMSA": (0.3, 1.0),
+           "ANMSA": (0.88, 0.5), "AOMSA": (0.3, 0.6)}
+# JAX package columns for a fixed-rate NMSA run with throughput measurement
+# (qkd_ldpc_v_tpu/simulation.py::write_file).
+CSV_COLUMNS = (
+    "#;MATRIX_FILENAME;TYPE;R;M;N;CONFIG_QBER;ACCURATE_QBER;"
+    "ITER_SUCCESS_MEAN;ITER_SUCCESS_STD;ITER_SUCCESS_MIN;ITER_SUCCESS_MAX;"
+    "RATIO_SUCCESS_DEC;RATIO_SUCCESS_LDPC;FER;THROUGHPUT_MEAN;"
+    "THROUGHPUT_STD;THROUGHPUT_MIN;THROUGHPUT_MAX;ALPHA"
+)
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn, torch, reps=1):
+    """(result of the last call, mean ms per call) between synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def max_abs_diff(got, want, torch) -> int:
+    diff = 0
+    for g, w in zip(got, want):
+        d = (g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
+        diff = max(diff, int(d))
+    return diff
+
+
+def phase_kernel_vs_plain(torch, card):
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio, qc_syndrome)
+    from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+        make_fused_qc_decoder, make_fused_qc_trial)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
+    dev = torch.device("cuda")
+    # The second QBER of each code sits in its waterfall, so some frames
+    # converge and some run to the cap.
+    codes = [("headline", read_qc_matrix(HEADLINE), (0.03, 0.036)),
+             ("qc1k", read_qc_matrix(QC1K), (0.03, 0.045))]
+    cases = []
+    for code_name, qc, qbers in codes:
+        for qber in qbers:
+            for schedule in ("flooding", "layered"):
+                for alg in FACTORS:
+                    for mode in ("trial", "decode"):
+                        cases.append((code_name, qc, qber, schedule, alg,
+                                      mode, False))
+        # The message clamp, once per mode and schedule.
+        for schedule in ("flooding", "layered"):
+            for mode in ("trial", "decode"):
+                cases.append((code_name, qc, qbers[1], schedule, "NMSA",
+                              mode, True))
+
+    keys = {}
+    worst = 0
+    headline_times = None
+    failing = {}
+    for i, (code_name, qc, qber, schedule, alg, mode, clamp) in enumerate(cases):
+        n = qc.num_bit_nodes
+        if (code_name, qber) not in keys:
+            alice, bits = default_key_source(7, dev)(0, len(keys), FRAMES, n)
+            ne = exact_error_count(n, qber)
+            keys[(code_name, qber)] = (
+                alice, inject_errors(bits, alice, ne, wide=True),
+                log_ratio(ne / n))
+        alice, bob, lp = keys[(code_name, qber)]
+        f1, f2 = FACTORS[alg]
+        thr = THRESHOLD if clamp else 0.0
+        algorithm = DecodingAlgorithm[alg]
+        if mode == "trial":
+            fn = make_fused_qc_trial(qc, algorithm, 100, clamp, schedule)
+            args = (alice, bob, lp, f1, f2, thr)
+        else:
+            fn = make_fused_qc_decoder(qc, algorithm, 100, clamp, schedule)
+            lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
+            args = (torch.where(bob == 1, -lpt, lpt), qc_syndrome(qc, alice),
+                    f1, f2, thr)
+        fn(*args)  # first launch of this configuration, untimed
+        got, ms = timed(lambda: fn(*args), torch, reps=3)
+        want, plain_ms = timed(lambda: fn.plain(*args), torch)
+        got, want = tuple(got), tuple(want)
+        diff = max_abs_diff(got, want, torch)
+        worst = max(worst, diff)
+        conv = got[0] if mode == "trial" else got[1]
+        n_fail = int((~conv).sum().item())
+        failing[(code_name, qber)] = failing.get((code_name, qber), 0) + n_fail
+        print(f"case {i:02d} {code_name} N={n} {mode} {schedule} {alg} "
+              f"qber={qber} clamp={clamp}: unconverged={n_fail}/{FRAMES} "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} max_abs_err={diff}",
+              flush=True)
+        check(diff == 0, f"kernel != plain in case {i}")
+        if (code_name, qber, schedule, alg, mode, clamp) == (
+                "headline", 0.03, "layered", "NMSA", "trial", False):
+            headline_times = (ms, plain_ms)
+    for code_name, _, qbers in codes:
+        check(failing[(code_name, qbers[1])] > 0,
+              f"{code_name}: no frame failed at QBER {qbers[1]}")
+    print(f"phase 2: {len(cases)} cases, kernel == plain exactly ({card})")
+    return worst, headline_times
+
+
+def read_csv(results_dir: Path):
+    csvs = sorted(results_dir.glob("*.csv"))
+    check(len(csvs) == 1, f"expected one CSV in {results_dir}, got {csvs}")
+    lines = csvs[0].read_text().splitlines()
+    check(len(lines) == 2, f"expected header + one row in {csvs[0]}")
+    header = lines[0]
+    check(header == CSV_COLUMNS, f"CSV columns differ: {header}")
+    row = dict(zip(header.split(";"), lines[1].split(";")))
+    return csvs[0], row
+
+
+def phase_main_path(torch, card):
+    from qkd_ldpc_v_tpu_torch import cli
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.ops import fused_qc
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        default_key_source, prepare_sim_inputs)
+
+    work = REPO / "build" / "chip_smoke"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_qc"
+    matrices.mkdir(parents=True)
+    (matrices / HEADLINE.name).symlink_to(HEADLINE)
+    base = json.loads((REPO / "configs" / "example_qc_layered.json").read_text())
+    runs = {}
+    for schedule in ("layered", "flooding"):
+        cfg = json.loads(json.dumps(base))
+        cfg["trials_number"] = 65536
+        cfg["tpu"]["batch_size"] = 16384
+        cfg["tpu"]["schedule"] = schedule
+        cdir = work / f"configs_{schedule}"
+        cdir.mkdir()
+        (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+        runs[schedule] = cdir
+
+    fused_qc.reset_counts()
+    walls = {}
+    for schedule, cdir in runs.items():
+        t0 = time.perf_counter()
+        rc = cli.main(["--configs", str(cdir), "--matrices",
+                       str(work / "sparse_matrices"), "--results",
+                       str(work / f"results_{schedule}"), "--device", "cuda",
+                       "--quiet"])
+        walls[schedule] = time.perf_counter() - t0
+        check(rc == 0, f"CLI ({schedule}) returned {rc}")
+    launches, plain_on_cuda = fused_qc.counts()
+    print(f"main path: kernel launches={launches} "
+          f"plain calls on the card={plain_on_cuda}")
+    check(launches > 0, "the main path launched no kernel")
+    check(plain_on_cuda == 0, "the main path ran the plain version on the card")
+
+    worst = 0
+    dev = torch.device("cuda")
+    for schedule, cdir in runs.items():
+        path, row = read_csv(work / f"results_{schedule}")
+        check(row["N"] == "10240", f"N = {row['N']}")
+        fer = float(row["FER"].replace(",", "."))
+        check(fer <= 0.01, f"{schedule}: FER {fer} > 0.01")
+        cfg = parse_config_data(cdir / "run.json")
+        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+        tp_mean = float(row["THROUGHPUT_MEAN"])
+        us_per_frame = 10240 * 1e6 / tp_mean - rtt_us
+        print(f"main path {schedule}: FER={fer} "
+              f"iter_mean={row['ITER_SUCCESS_MEAN']} "
+              f"decode_frames_per_s={1e6 / us_per_frame:.0f} "
+              f"(chunk timers, RTT removed) "
+              f"cli_wall_frames_per_s={cfg.trials_number / walls[schedule]:.0f} "
+              f"(whole CLI call, {walls[schedule]:.1f} s) card={card}",
+              flush=True)
+
+        # Chunk 0 of combination 0 again: kernel on the whole chunk as the
+        # main path ran it, plain on its first 1024 frames.
+        sim_in = prepare_sim_inputs([HEADLINE], cfg)[0]
+        comb = sim_in.combinations[0]
+        qc = sim_in.matrix.qc
+        n = qc.num_bit_nodes
+        ne = exact_error_count(n, comb.config_qber)
+        (alice, bits), keys_ms = timed(
+            lambda: default_key_source(cfg.simulation_seed, dev)(
+                0, 0, cfg.batch_size, n), torch)
+        bob, errors_ms = timed(
+            lambda: inject_errors(bits, alice, ne, wide=True), torch)
+        trial = fused_qc.make_fused_qc_trial(
+            qc, cfg.decoding_algorithm, cfg.decoding_alg_max_iterations,
+            cfg.enable_msg_llr_threshold, cfg.schedule)
+        args = (log_ratio(ne / n), comb.scaling_factors.primary,
+                comb.scaling_factors.secondary, cfg.msg_llr_threshold)
+        full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
+        print(f"main path {schedule}: one {cfg.batch_size}-frame chunk: "
+              f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
+              f"fused_qc kernel {kernel_ms:.2f} ms (card={card})")
+        got = [t[:1024] for t in full]
+        want = trial.plain(alice[:1024].contiguous(), bob[:1024].contiguous(),
+                           *args)
+        diff = max_abs_diff(got, want, torch)
+        worst = max(worst, diff)
+        check(diff == 0, f"{schedule}: chunk-0 kernel stats != plain")
+        print(f"main path {schedule}: chunk 0 frames 0-1023 kernel == plain "
+              f"({path.name})")
+    return launches, worst
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (REPO / "qkd_ldpc_v_tpu_torch").is_dir():
+        print(f"chip_smoke: no qkd_ldpc_v_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from qkd_ldpc_v_tpu_torch import kernels
+
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    kernels.library()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {kernels.build_seconds:.1f} s): {kernels.library_path().name}",
+          flush=True)
+
+    worst2, headline_times = phase_kernel_vs_plain(torch, card)
+    launches, worst3 = phase_main_path(torch, card)
+    check("jax" not in sys.modules, "jax was imported")
+
+    ms, plain_ms = headline_times
+    print(json.dumps({"kernels": [{
+        "name": "fused_qc",
+        "route": "cuda",
+        "source": "qkd_ldpc_v_tpu_torch/csrc/fused_qc.cu",
+        "replaces": "qkd_ldpc_v_tpu/ops/pallas_qc.py:249",
+        "launches": launches,
+        "max_abs_err": max(worst2, worst3),
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

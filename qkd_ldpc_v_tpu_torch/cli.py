@@ -1,0 +1,166 @@
+"""Command-line entry point: batch-process config files into CSV results.
+
+Counterpart of ``qkd_ldpc_v_tpu/cli.py`` (reference contract:
+src/main.cpp:6-203): every ``*.json`` in the config directory is one run,
+the matrix directory is chosen by the config's ``matrix_format``, and each
+run writes one self-describing CSV into the results directory.
+
+``--device`` picks where trials run: ``cuda`` (the default) launches the
+hand-written kernels and raises when no CUDA device is present; ``cpu``
+runs their plain torch versions. There is no profile option and no
+checkpoint/resume yet.
+
+    python -m qkd_ldpc_v_tpu_torch --configs D --matrices D --results D \\
+        [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from qkd_ldpc_v_tpu_torch.config import format_config_info, parse_config_data
+from qkd_ldpc_v_tpu_torch.simulation import (
+    prepare_sim_inputs,
+    qkd_ldpc_batch_simulation,
+    write_file,
+)
+from qkd_ldpc_v_tpu_torch.utils import (
+    format_duration,
+    get_file_paths_in_directory,
+)
+
+CONFIG_HELP = """\
+CONFIG FILE REFERENCE (JSON; one file = one simulation run)
+===========================================================
+
+The schema is the one of qkd_ldpc_v_tpu (python -m qkd_ldpc_v_tpu
+--help-config prints it in full). This package runs the part of it that is
+ported so far:
+
+  matrix_format                 4 (quasi-cyclic base-graph shifts, directory
+                                matrices_qc).
+  decoding_algorithm            2 NMSA, 3 OMSA, 4 ANMSA, 5 AOMSA.
+  enable_code_rate_adaptation   false.
+  enable_privacy_maintenance    false.
+  trace_*                       false.
+  tpu.use_pallas                true: the fused QC kernel (CUDA) or its
+                                plain torch version (CPU).
+  tpu.batch_size                frames per device batch (0 = all trials).
+  tpu.schedule                  flooding | layered.
+  tpu.dtype                     float32.
+
+Anything else raises NotImplementedError naming the port step that brings
+it. Results: one CSV per config, semicolon-separated with comma decimal
+marks, byte-compatible with qkd_ldpc_v_tpu's.
+"""
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="qkd-ldpc-torch",
+        description=(
+            "Monte-Carlo simulator of LDPC information reconciliation for "
+            "QKD on PyTorch and CUDA."
+        ),
+    )
+    p.add_argument("--configs", type=Path, default=Path("configs"),
+                   help="directory of *.json run configs (default: ./configs)")
+    p.add_argument("--matrices", type=Path, default=Path("sparse_matrices"),
+                   help="root directory of matrix assets; the per-format "
+                        "subdirectory is chosen by each config "
+                        "(default: ./sparse_matrices)")
+    p.add_argument("--results", type=Path, default=Path("results"),
+                   help="output directory for CSV results (default: ./results)")
+    p.add_argument("--matrix-ext", default=".mtrx",
+                   help="matrix file extension filter (default: .mtrx)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda: the hand-written kernels (raises without a "
+                        "CUDA device); cpu: their plain torch versions")
+    p.add_argument("--help-config", action="store_true",
+                   help="print the config-file reference and exit")
+    p.add_argument("--quiet", action="store_true", help="suppress progress output")
+    return p
+
+
+def _progress_printer(quiet: bool):
+    state = {"done": 0, "last": -1.0, "t0": time.monotonic()}
+
+    def cb(inc: int, total: int) -> None:
+        if quiet:
+            return
+        now = time.monotonic()
+        state["done"] += inc
+        if now - state["last"] >= 0.5 or state["done"] >= total:
+            state["last"] = now
+            pct = 100.0 * state["done"] / total
+            elapsed = now - state["t0"]
+            eta = elapsed * (total - state["done"]) / max(state["done"], 1)
+            print(
+                f"\rPROGRESS [{state['done']}/{total}] {pct:5.1f}% "
+                f"elapsed {elapsed:5.0f}s eta {eta:5.0f}s",
+                end="", flush=True,
+            )
+            if state["done"] >= total:
+                print()
+
+    return cb
+
+
+def _color(code: str, text: str) -> str:
+    if not sys.stdout.isatty():
+        return text
+    return f"\033[{code}m{text}\033[0m"
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    if args.help_config:
+        print(CONFIG_HELP)
+        return 0
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda: no CUDA device is available (use --device cpu "
+            "for the plain torch path)"
+        )
+    device = torch.device(args.device)
+
+    logging.basicConfig(level=logging.WARNING, format="%(message)s")
+    try:
+        config_paths = get_file_paths_in_directory(args.configs, ".json")
+        if not config_paths:
+            print(f"No *.json configs found in {args.configs}", file=sys.stderr)
+            return 1
+        for i, config_path in enumerate(config_paths):
+            cfg = parse_config_data(config_path)
+            print(_color("96", format_config_info(cfg, config_path.name, i + 1)))
+            matrix_dir = args.matrices / cfg.matrix_format.directory_name
+            matrix_paths = get_file_paths_in_directory(matrix_dir, args.matrix_ext)
+            if not matrix_paths:
+                raise FileNotFoundError(
+                    f"No *{args.matrix_ext} matrices found in {matrix_dir}"
+                )
+            sim_inputs = prepare_sim_inputs(matrix_paths, cfg)
+
+            start = time.monotonic()
+            results = qkd_ldpc_batch_simulation(
+                sim_inputs, cfg, device, progress=_progress_printer(args.quiet),
+            )
+            duration = format_duration(time.monotonic() - start)
+            result_path = write_file(results, cfg, duration, args.results)
+            print(_color("92", f"The results are written to the file: {result_path}")
+                  + "\n")
+    except Exception as e:  # noqa: BLE001 — the reference's catch-all
+        print(_color("91", f"ERROR: {type(e).__name__}: {e}"), file=sys.stderr)
+        return 1
+    print(_color("92", "Simulations successfully completed!"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,365 @@
+// Fused QC-LDPC decoder for Hopper (sm_90a): one thread block decodes one
+// frame, from raw keys (trial mode) or from LLRs and a syndrome (decode
+// mode) to its per-frame statistics or decisions.
+//
+// Replaces the TPU kernel qkd_ldpc_v_tpu/ops/pallas_qc.py::_build.kernel
+// (trial and decode modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA; the
+// flooding and layered schedules). The plain torch versions it is held to,
+// bit for bit, are in qkd_ldpc_v_tpu_torch/ops/qc_decoder.py.
+//
+// Circulant convention: check-aligned index z of block edge (r, c, s) is
+// bit (c, (z + s) mod Z).
+//
+// Design.
+//   * Launch shape: grid = frames, block = Z threads. Thread z owns check z
+//     of every block-row; its bit->check (flooding) or check->bit (layered)
+//     messages for all num_be block edges live in a per-thread array
+//     (local memory: 80 floats at the N=10240, Z=512 headline code).
+//   * Bit totals (nb*Z f32) live in shared memory, plus the channel LLRs
+//     for flooding, which rebuilds the totals every iteration; layered
+//     updates them in place. Decisions are read from the totals
+//     (total <= 0 -> 1), so no decision plane is kept. Alice's syndrome is
+//     one bit per block-row in a 64-bit mask per thread. The block-edge
+//     table is staged in shared memory and read by broadcast.
+//   * Order makes it exact: block-rows are processed in storage order with
+//     a barrier between rows. Within a row each column appears once and a
+//     circulant maps distinct z to distinct bits, so a row updates the
+//     totals without races, and across rows the sequential order gives the
+//     llr-first association ((llr + e_r0) + e_r1) + ... in base-row order
+//     that the TPU kernel's bit pass uses. Layered writes t + (val - E).
+//     Built with -fmad=false, no fast math and no flush-to-zero.
+//   * Early exit per frame: a block leaves its loop as soon as its frame
+//     satisfies the syndrome (block-wide __syncthreads_or), with the
+//     decisions of that moment, which equals the TPU kernel's frozen
+//     decision planes.
+//
+// What bounds it on this card: per-frame shared memory (2*N*4 bytes
+// flooding, N*4 layered: about 80 KB / 40 KB at the headline code, so 2
+// blocks of 512 threads per SM flooding; layered fits 5 by shared memory
+// and is capped at 4 by the 2048-thread SM limit). ptxas reports 32
+// registers per thread, so registers do not bind; the per-thread message
+// array is indexed at run time and lives in local memory (a 1 KB stack
+// frame per thread, cached in L1/L2). The decode is latency bound:
+// keys are read from HBM once per frame, while every iteration makes
+// O(num_be) dependent shared and local accesses per thread and mb+3
+// barriers. The design keeps all per-iteration state on chip and lets each
+// frame leave on its own; making the message array register-resident
+// (code-specialised kernels) is later work.
+
+#include <cfloat>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxZ = 1024;
+constexpr int kMaxBlockEdges = 256;
+constexpr int kMaxBaseChecks = 64;
+
+struct Params {
+  const int8_t* alice;    // trial: [B, N] 0/1
+  const int8_t* bob;      // trial: [B, N] 0/1
+  const float* llr;       // decode: [B, N]
+  const int8_t* syn;      // decode: [B, M] 0/1
+  const int32_t* table;   // row_ptr[mb+1], cols[num_be], shifts[num_be]
+  int mb, nb, z, num_be, max_iter, use_threshold, trial;
+  float log_p, primary, secondary, threshold;
+  int8_t* dec_out;        // decode: [B, N]
+  int8_t* conv;           // [B]
+  int8_t* keys;           // trial: [B]
+  int32_t* iters;         // [B]
+};
+
+__device__ __forceinline__ float clamp_msg(float x, const Params& p) {
+  return p.use_threshold ? fminf(fmaxf(x, -p.threshold), p.threshold) : x;
+}
+
+__device__ __forceinline__ int bit_index(int c, int s, int z, int Z) {
+  int j = z + s;
+  if (j >= Z) j -= Z;
+  return c * Z + j;
+}
+
+// Bit r set where check (r, z) is unsatisfied by the decisions total <= 0.
+__device__ __forceinline__ unsigned long long mismatch_mask(
+    const float* tot, const int* row_ptr, const int* cols, const int* shifts,
+    unsigned long long syn_mask, int mb, int z, int Z) {
+  unsigned long long mask = 0;
+  for (int r = 0; r < mb; ++r) {
+    int par = (int)((syn_mask >> r) & 1ull);
+    for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
+      par ^= tot[bit_index(cols[e], shifts[e], z, Z)] <= 0.f;
+    mask |= (unsigned long long)par << r;
+  }
+  return mask;
+}
+
+template <bool OFFSET>
+__device__ __forceinline__ float minsum_value(float mm, float min1, float min2,
+                                              float row_sign, float f) {
+  float av = fabsf(mm);
+  float excl = mm > 0.f ? 1.f : -1.f;
+  float eabs = (av == min1) ? min2 : min1;
+  if (OFFSET) return row_sign * excl * fmaxf(eabs - f, 0.f);
+  return f * row_sign * excl * eabs;
+}
+
+template <bool LAYERED, bool ADAPTIVE, bool OFFSET>
+__global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
+  extern __shared__ int smem[];
+  const int Z = p.z, mb = p.mb, nb = p.nb, num_be = p.num_be;
+  const int N = nb * Z;
+  const int z = threadIdx.x;
+  const size_t frame = blockIdx.x;
+  int* row_ptr = smem;
+  int* cols = row_ptr + mb + 1;
+  int* shifts = cols + num_be;
+  float* tot = reinterpret_cast<float*>(shifts + num_be);
+  float* llr = tot + N;  // flooding only
+
+  for (int i = z; i < mb + 1 + 2 * num_be; i += Z) smem[i] = p.table[i];
+  for (int c = 0; c < nb; ++c) {
+    const int j = c * Z + z;
+    float v;
+    if (p.trial) {
+      v = p.bob[frame * N + j] == 1 ? -p.log_p : p.log_p;
+    } else {
+      v = p.llr[frame * N + j];
+    }
+    tot[j] = v;
+    if (!LAYERED) llr[j] = v;
+  }
+  __syncthreads();
+
+  unsigned long long syn_mask = 0;
+  for (int r = 0; r < mb; ++r) {
+    int bit = 0;
+    if (p.trial) {
+      for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
+        bit ^= p.alice[frame * N + bit_index(cols[e], shifts[e], z, Z)] & 1;
+    } else {
+      bit = p.syn[frame * (size_t)(mb * Z) + r * Z + z] == 1;
+    }
+    syn_mask |= (unsigned long long)bit << r;
+  }
+
+  // Flooding: bit->check messages (channel LLRs at first); layered:
+  // check->bit extrinsics (zero before the first sweep).
+  float msg[kMaxBlockEdges];
+  for (int e = 0; e < num_be; ++e)
+    msg[e] = LAYERED ? 0.f : tot[bit_index(cols[e], shifts[e], z, Z)];
+
+  int converged = 0;
+  int iters = p.max_iter;
+  for (int it = 0; it < p.max_iter; ++it) {
+    if (LAYERED) {
+      for (int r = 0; r < mb; ++r) {
+        const int b = row_ptr[r], end = row_ptr[r + 1];
+        const int sbit = (int)((syn_mask >> r) & 1ull);
+        float min1 = 0.f, min2 = FLT_MAX;
+        int neg = 0, par = sbit;
+        for (int e = b; e < end; ++e) {
+          const float t = tot[bit_index(cols[e], shifts[e], z, Z)];
+          const float mm = t - msg[e];
+          const float av = fabsf(mm);
+          if (e == b) {
+            min1 = av;
+          } else {
+            min2 = fminf(min2, fmaxf(min1, av));
+            min1 = fminf(min1, av);
+          }
+          neg += mm < 0.f;
+          if (ADAPTIVE) par ^= t <= 0.f;
+        }
+        const float row_sign =
+            (sbit ? -1.f : 1.f) * ((neg & 1) == 0 ? 1.f : -1.f);
+        const float f = (ADAPTIVE && par) ? p.secondary : p.primary;
+        for (int e = b; e < end; ++e) {
+          const int idx = bit_index(cols[e], shifts[e], z, Z);
+          const float t = tot[idx];
+          const float mm = t - msg[e];
+          const float val =
+              clamp_msg(minsum_value<OFFSET>(mm, min1, min2, row_sign, f), p);
+          tot[idx] = t + (val - msg[e]);
+          msg[e] = val;
+        }
+        __syncthreads();
+      }
+      const unsigned long long mism =
+          mismatch_mask(tot, row_ptr, cols, shifts, syn_mask, mb, z, Z);
+      if (!__syncthreads_or(mism != 0)) {
+        converged = 1;
+        iters = it + 1;
+        break;
+      }
+    } else {
+      unsigned long long factor_rows = 0;
+      if (ADAPTIVE) {
+        // Convergence on the previous decisions; the same per-check
+        // mismatch picks the factor.
+        factor_rows =
+            mismatch_mask(tot, row_ptr, cols, shifts, syn_mask, mb, z, Z);
+        if (!__syncthreads_or(factor_rows != 0)) {
+          converged = 1;
+          iters = it + 1;
+          break;
+        }
+      }
+      // Check pass: bit->check messages -> check->bit extrinsics.
+      for (int r = 0; r < mb; ++r) {
+        const int b = row_ptr[r], end = row_ptr[r + 1];
+        const int sbit = (int)((syn_mask >> r) & 1ull);
+        float min1 = 0.f, min2 = FLT_MAX;
+        int neg = 0;
+        for (int e = b; e < end; ++e) {
+          const float av = fabsf(msg[e]);
+          if (e == b) {
+            min1 = av;
+          } else {
+            min2 = fminf(min2, fmaxf(min1, av));
+            min1 = fminf(min1, av);
+          }
+          neg += msg[e] < 0.f;
+        }
+        const float row_sign =
+            (sbit ? -1.f : 1.f) * ((neg & 1) == 0 ? 1.f : -1.f);
+        const float f =
+            (ADAPTIVE && ((factor_rows >> r) & 1ull)) ? p.secondary : p.primary;
+        for (int e = b; e < end; ++e)
+          msg[e] = clamp_msg(
+              minsum_value<OFFSET>(msg[e], min1, min2, row_sign, f), p);
+      }
+      // Bit pass: totals llr-first in base-row order, then new messages.
+      __syncthreads();
+      for (int c = 0; c < nb; ++c) tot[c * Z + z] = llr[c * Z + z];
+      __syncthreads();
+      for (int r = 0; r < mb; ++r) {
+        for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
+          tot[bit_index(cols[e], shifts[e], z, Z)] += msg[e];
+        __syncthreads();
+      }
+      for (int e = 0; e < num_be; ++e)
+        msg[e] = clamp_msg(tot[bit_index(cols[e], shifts[e], z, Z)] - msg[e], p);
+      if (!ADAPTIVE) {
+        const unsigned long long mism =
+            mismatch_mask(tot, row_ptr, cols, shifts, syn_mask, mb, z, Z);
+        if (!__syncthreads_or(mism != 0)) {
+          converged = 1;
+          iters = it + 1;
+          break;
+        }
+      }
+    }
+  }
+
+  if (p.trial) {
+    int ok = 1;
+    for (int c = 0; c < nb; ++c) {
+      const int j = c * Z + z;
+      ok &= (tot[j] <= 0.f ? 1 : 0) == (p.alice[frame * N + j] & 1);
+    }
+    ok = __syncthreads_and(ok);
+    if (z == 0) p.keys[frame] = (int8_t)ok;
+  } else {
+    for (int c = 0; c < nb; ++c) {
+      const int j = c * Z + z;
+      p.dec_out[frame * N + j] = tot[j] <= 0.f ? 1 : 0;
+    }
+  }
+  if (z == 0) {
+    p.conv[frame] = (int8_t)converged;
+    p.iters[frame] = iters;
+  }
+}
+
+template <bool LAYERED, bool ADAPTIVE, bool OFFSET>
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  const size_t table_bytes = sizeof(int) * (p.mb + 1 + 2 * p.num_be);
+  const size_t plane_bytes = sizeof(float) * (size_t)p.nb * p.z;
+  const size_t smem = table_bytes + (LAYERED ? 1 : 2) * plane_bytes;
+  auto kernel = fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, p.z, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// flags: bit 0 layered, bit 1 adaptive, bit 2 offset (OMSA/AOMSA).
+int dispatch(const Params& p, int batch, int flags, cudaStream_t stream) {
+  if (p.z < 1 || p.z > kMaxZ || p.num_be > kMaxBlockEdges ||
+      p.mb > kMaxBaseChecks || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  switch (flags & 7) {
+    case 0: return launch<false, false, false>(p, batch, stream);
+    case 1: return launch<true, false, false>(p, batch, stream);
+    case 2: return launch<false, true, false>(p, batch, stream);
+    case 3: return launch<true, true, false>(p, batch, stream);
+    case 4: return launch<false, false, true>(p, batch, stream);
+    case 5: return launch<true, false, true>(p, batch, stream);
+    case 6: return launch<false, true, true>(p, batch, stream);
+    default: return launch<true, true, true>(p, batch, stream);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Limits the wrapper checks before a launch.
+int fused_qc_max_lifting() { return kMaxZ; }
+int fused_qc_max_block_edges() { return kMaxBlockEdges; }
+int fused_qc_max_base_checks() { return kMaxBaseChecks; }
+
+int fused_qc_trial(const int8_t* alice, const int8_t* bob, int batch,
+                   const int32_t* table, int mb, int nb, int z, int num_be,
+                   int flags, int use_threshold, int max_iter, float log_p,
+                   float primary, float secondary, float threshold,
+                   int8_t* conv, int8_t* keys, int32_t* iters, void* stream) {
+  Params p{};
+  p.alice = alice;
+  p.bob = bob;
+  p.table = table;
+  p.mb = mb;
+  p.nb = nb;
+  p.z = z;
+  p.num_be = num_be;
+  p.max_iter = max_iter;
+  p.use_threshold = use_threshold;
+  p.trial = 1;
+  p.log_p = log_p;
+  p.primary = primary;
+  p.secondary = secondary;
+  p.threshold = threshold;
+  p.conv = conv;
+  p.keys = keys;
+  p.iters = iters;
+  return dispatch(p, batch, flags, static_cast<cudaStream_t>(stream));
+}
+
+int fused_qc_decode(const float* llr, const int8_t* syn, int batch,
+                    const int32_t* table, int mb, int nb, int z, int num_be,
+                    int flags, int use_threshold, int max_iter, float primary,
+                    float secondary, float threshold, int8_t* dec,
+                    int8_t* conv, int32_t* iters, void* stream) {
+  Params p{};
+  p.llr = llr;
+  p.syn = syn;
+  p.table = table;
+  p.mb = mb;
+  p.nb = nb;
+  p.z = z;
+  p.num_be = num_be;
+  p.max_iter = max_iter;
+  p.use_threshold = use_threshold;
+  p.trial = 0;
+  p.primary = primary;
+  p.secondary = secondary;
+  p.threshold = threshold;
+  p.dec_out = dec;
+  p.conv = conv;
+  p.iters = iters;
+  return dispatch(p, batch, flags, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

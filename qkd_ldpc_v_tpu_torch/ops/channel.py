@@ -1,0 +1,125 @@
+"""Batched channel model in plain torch.
+
+Counterpart of ``qkd_ldpc_v_tpu/ops/channel.py`` (reference semantics:
+src/array_and_matrix_operations.cpp:889-950):
+
+  * Alice keys: uniform bits per frame.
+  * Bob keys: Alice's key with an **exact** count of ``floor(N * QBER)``
+    errors at uniformly random distinct positions per frame, chosen as the
+    ranks of the smallest per-position sort keys.
+  * Syndrome of a QC code: XOR of rolled key blocks per check block.
+
+Random numbers are inputs. ``inject_errors`` takes its per-position random
+bits from the caller, so tests can feed the exact bits JAX draws.
+``simulation.run_combination`` draws keys and bits from one
+``torch.Generator`` per decode chunk, seeded by ``chunk_seed`` — the
+port's replacement for JAX's threefry ``trial_keys``. The two packages therefore agree statistically, and
+exactly only when given the same keys.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+
+
+def exact_error_count(num_bits: int, qber: float) -> int:
+    """floor(N * QBER) (reference: src/array_and_matrix_operations.cpp:913)."""
+    return int(num_bits * qber)
+
+
+def log_ratio(qber: float) -> float:
+    """``log((1 - q) / q)`` as the float32 channel-LLR magnitude.
+
+    Computed once on the host, the same way for every device, so that the
+    kernel and its plain version always see the same bits: the ratio in
+    float32 (as the JAX wrapper forms it from a float32 QBER), then a
+    double-precision log rounded to float32. Transcendental f32 ``log``
+    differs by an ulp between XLA, NumPy and torch at some QBERs; this rule
+    agrees with JAX's XLA log at the QBERs the tests use, which assert it.
+    """
+    q = np.float32(qber)
+    ratio = np.float32(np.float32(1.0) - q) / q
+    return float(np.float32(math.log(float(ratio))))
+
+
+def chunk_seed(simulation_seed: int, sim_number: int, chunk_index: int) -> int:
+    """Seed of the generator for one decode chunk.
+
+    Rule: the first 64-bit word of NumPy's ``SeedSequence([seed, sim_number,
+    chunk_index])``, masked to 63 bits. Distinct (seed, combination, chunk)
+    triples get independent streams, like the reference's per-trial seeding
+    (src/simulation.cpp:713-719). It replaces JAX's threefry ``trial_keys``,
+    whose bits torch cannot reproduce.
+    """
+    ss = np.random.SeedSequence([int(simulation_seed), int(sim_number),
+                                 int(chunk_index)])
+    return int(ss.generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
+
+
+def generate_keys(
+    generator: torch.Generator, batch: int, num_bits: int, device
+) -> torch.Tensor:
+    """Alice's keys: uniform bits, shape [batch, num_bits] int8."""
+    return torch.randint(0, 2, (batch, num_bits), generator=generator,
+                         dtype=torch.int8, device=device)
+
+
+def random_bits(
+    generator: torch.Generator, batch: int, num_bits: int, device
+) -> torch.Tensor:
+    """Uniform 32-bit values per position, held in int64: the random input
+    of ``inject_errors``."""
+    return torch.randint(0, 1 << 32, (batch, num_bits), generator=generator,
+                         dtype=torch.int64, device=device)
+
+
+def inject_errors(
+    rand_bits: torch.Tensor, alice: torch.Tensor, num_errors: int, wide: bool
+) -> torch.Tensor:
+    """Bob's keys: flip exactly ``num_errors`` distinct positions per frame.
+
+    ``rand_bits`` [B, N] holds uniform 32-bit values (0 .. 2**32-1) in an
+    integer dtype. Sort keys are random high bits with the position in the
+    low bits, so all keys are distinct and the flip count is exact; the
+    flipped positions are those with the ``num_errors`` smallest keys.
+
+    ``wide`` selects the key width, as JAX selects it by its x64 flag:
+      * True: 64-bit keys, the 32 random bits above a 32-bit position. JAX
+        forms them unsigned; torch sorts signed int64, so the high word is
+        offset by -2**31, which keeps the order and fits int64.
+      * False: 32-bit keys, the random bits with their low
+        ``ceil(log2 N)`` bits replaced by the position.
+    """
+    batch, n = alice.shape
+    if num_errors <= 0:
+        return alice.clone()
+    bits = rand_bits.to(torch.int64)
+    pos = torch.arange(n, dtype=torch.int64, device=alice.device)[None, :]
+    if wide:
+        keys = ((bits - (1 << 31)) << 32) | pos
+    else:
+        idx_bits = max(1, (n - 1).bit_length())
+        keys = ((bits >> idx_bits) << idx_bits) | pos
+    kth = torch.kthvalue(keys, num_errors, dim=1).values
+    flips = (keys <= kth[:, None]).to(torch.int8)
+    return alice ^ flips
+
+
+def qc_syndrome(qc: QCMatrix, bits: torch.Tensor) -> torch.Tensor:
+    """Syndrome [B, M] int8 of keys [B, N] (0/1) under a QC code: check
+    ``(r, z)`` is the parity of bits ``(c, (z + s) mod Z)`` over the block
+    edges ``(r, c, s)`` (reference: src/array_and_matrix_operations.cpp:
+    936-950)."""
+    z = qc.lifting
+    batch = bits.shape[0]
+    out = torch.zeros((batch, qc.num_check_nodes), dtype=torch.int8,
+                      device=bits.device)
+    for r, c, s in qc.block_edges:
+        block = bits[:, c * z:(c + 1) * z].to(torch.int8)
+        out[:, r * z:(r + 1) * z] ^= torch.roll(block, -s, dims=1)
+    return out

@@ -1,0 +1,638 @@
+"""Monte-Carlo sweep (fixed rate): sweep combinations, batched
+trials through the fused QC kernel, statistics, and the CSV writer.
+
+Counterpart of ``qkd_ldpc_v_tpu/simulation.py``. The combination sweep,
+the rate-based lookups, ``SimResult``, ``process_trials_results``,
+``result_filename`` and ``write_file`` are copies of the JAX package's
+NumPy code (importing that package imports JAX); the CSV is byte-identical
+for identical statistics.
+
+Engine (what ``run_combination`` decodes with):
+  * a QC matrix, ``tpu.use_pallas = true``, a min-sum algorithm, float32:
+    the fused QC trial — the CUDA kernel for tensors on a CUDA device, its
+    plain torch version for tensors on the CPU;
+  * everything else raises ``NotImplementedError`` naming the later port
+    step: ``use_pallas = false`` (the generic torch decoder), non-QC
+    matrices, SPA/SPA-lin, other dtypes, rate adaptation, privacy
+    maintenance and the traced decode path.
+
+Random numbers: one ``torch.Generator`` per decode chunk, seeded by
+``channel.chunk_seed(seed, sim_number, chunk_index)``, draws Alice's keys
+and then the error-position bits. ``key_source`` replaces it, e.g. with
+the JAX package's threefry streams in the cross-package tests.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from qkd_ldpc_v_tpu_torch.config import (
+    Config,
+    DecodingAlgorithm,
+    RAdaptationParametersRange,
+    RQBERAdaptationParametersMap,
+    RQBERRange,
+    RScalingFactorMap,
+    ScalingFactorRange,
+)
+from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix, read_matrix
+from qkd_ldpc_v_tpu_torch.ops.channel import (
+    chunk_seed,
+    exact_error_count,
+    generate_keys,
+    inject_errors,
+    log_ratio,
+    random_bits,
+)
+from qkd_ldpc_v_tpu_torch.ops.fused_qc import make_fused_qc_trial
+from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
+from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams
+
+# (sim_number, chunk_index, batch, num_bits) -> (alice int8 [B,N],
+# rand_bits [B,N] uniform 32-bit values), as tensors or arrays.
+KeySource = Callable[[int, int, int, int], Tuple[object, object]]
+
+
+class SimulationError(RuntimeError):
+    """Raised on unrecoverable sweep-construction or trial errors."""
+
+
+# ---------------------------------------------------------------------------
+# Rate-based lookups (reference: src/simulation.cpp:182-368). Convention: the
+# first entry (ascending code_rate sort) whose code_rate >= matrix rate wins.
+# ---------------------------------------------------------------------------
+
+
+def rate_based_qber_range(
+    code_rate: float, ranges: Sequence[RQBERRange]
+) -> Tuple[float, ...]:
+    """(reference: src/simulation.cpp:182-214)"""
+    for r in ranges:
+        if code_rate <= r.code_rate:
+            return r.qber_values()
+    raise SimulationError(
+        "An error occurred while generating a QBER range based on code "
+        f"rate(R). Matrix code rate, R = {code_rate}."
+    )
+
+
+def rate_based_adapt_parameters_ranges(
+    code_rate: float, ranges: Sequence[RAdaptationParametersRange]
+) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    """Returns (delta values, efficiency values)
+    (reference: src/simulation.cpp:220-282)."""
+    for r in ranges:
+        if code_rate <= r.code_rate:
+            return r.delta_values(), r.efficiency_values()
+    raise SimulationError(
+        "An error occurred while generating a delta range based on code "
+        f"rate(R). Matrix code rate, R = {code_rate}."
+    )
+
+
+def rate_based_qber_adapt_parameters_maps(
+    code_rate: float, maps: Sequence[RQBERAdaptationParametersMap]
+):
+    """All map entries sharing the first code_rate >= matrix rate
+    (reference: src/simulation.cpp:287-321)."""
+    out = []
+    target = None
+    for m in maps:
+        if target is None:
+            if code_rate <= m.code_rate:
+                target = m.code_rate
+                out.append(m.params)
+        elif m.code_rate == target:
+            out.append(m.params)
+        else:
+            break
+    if not out:
+        raise SimulationError(
+            "An error occurred while generating a QBER - delta - "
+            "efficiency(f_EC) maps based on code rate(R). Matrix code rate, "
+            f"R = {code_rate}."
+        )
+    return out
+
+
+def rate_based_scaling_factor_value(
+    code_rate: float, maps: Sequence[RScalingFactorMap]
+) -> float:
+    """(reference: src/simulation.cpp:348-368)"""
+    for m in maps:
+        if code_rate <= m.code_rate:
+            return m.scaling_factor
+    raise SimulationError(
+        "An error occurred while searching scaling factor value based on "
+        f"code rate(R). Matrix code rate, R = {code_rate}."
+    )
+
+
+def scaling_factor_range_values(rng: ScalingFactorRange) -> Tuple[float, ...]:
+    """(reference: src/simulation.cpp:325-343)"""
+    return rng.values()
+
+
+# ---------------------------------------------------------------------------
+# Sweep combinations
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ScalingFactors:
+    """(reference: src/qkd_ldpc_algorithm.hpp scaling factors pair)"""
+
+    primary: float = 0.0
+    secondary: float = 0.0
+
+
+@dataclass
+class SimCombination:
+    """One sweep point (reference: ``sim_combination``, src/simulation.hpp:27-33)."""
+
+    config_qber: float
+    matrix_params: HMatrixParams
+    scaling_factors: ScalingFactors
+
+
+@dataclass
+class SimInput:
+    """All sweep points for one matrix (reference: ``sim_input``,
+    src/simulation.hpp:22-26)."""
+
+    matrix: HMatrix
+    matrix_path: Path
+    combinations: List[SimCombination] = field(default_factory=list)
+
+
+def _scaling_values(params, code_rate: float) -> Tuple[float, ...]:
+    if params.use_range:
+        return scaling_factor_range_values(params.range)
+    return (rate_based_scaling_factor_value(code_rate, params.maps),)
+
+
+def prepare_sim_inputs(matrix_paths: Sequence, cfg: Config) -> List[SimInput]:
+    """Build the (matrix x QBER x scaling-factor) sweep, fixed rate
+    (reference: src/simulation.cpp:371-537)."""
+    if cfg.enable_code_rate_adaptation:
+        raise NotImplementedError(
+            "code-rate adaptation is not ported yet: it needs the fused QC "
+            "kernel's frame mode (ROADMAP, port queue)."
+        )
+    if cfg.enable_privacy_maintenance:
+        raise NotImplementedError(
+            "privacy maintenance is not ported yet (ROADMAP, port queue)."
+        )
+    sim_inputs: List[SimInput] = []
+    for matrix_path in matrix_paths:
+        matrix = read_matrix(matrix_path, cfg.matrix_format)
+        code_rate = matrix.code_rate
+        mat_params = HMatrixParams()
+        qber_mat_params = [
+            (qber, mat_params)
+            for qber in rate_based_qber_range(code_rate, cfg.r_qber_ranges)
+        ]
+
+        # Scaling-factor cross (reference :469-520)
+        alg = cfg.decoding_algorithm
+        if alg in (DecodingAlgorithm.NMSA, DecodingAlgorithm.OMSA):
+            scaling = [ScalingFactors(primary=p)
+                       for p in _scaling_values(cfg.primary, code_rate)]
+        elif alg.is_adaptive:
+            scaling = [
+                ScalingFactors(primary=p, secondary=s)
+                for p in _scaling_values(cfg.primary, code_rate)
+                for s in _scaling_values(cfg.secondary, code_rate)
+            ]
+        else:
+            scaling = [ScalingFactors()]
+
+        combinations = [
+            SimCombination(q, mp, sf) for (q, mp) in qber_mat_params for sf in scaling
+        ]
+        sim_inputs.append(
+            SimInput(matrix=matrix, matrix_path=Path(matrix_path),
+                     combinations=combinations)
+        )
+    return sim_inputs
+
+
+# ---------------------------------------------------------------------------
+# Statistics and results
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SimResult:
+    """Per-combination statistics (reference: ``sim_result``,
+    src/simulation.hpp:43-68)."""
+
+    sim_number: int = 0
+    matrix_filename: str = ""
+    is_regular: bool = True
+    num_bit_nodes: int = 0
+    num_check_nodes: int = 0
+    config_qber: float = 0.0
+    accurate_qber: float = 0.0
+    delta: float = 0.0
+    efficiency: float = 0.0
+    punctured_fraction: float = 0.0
+    shortened_fraction: float = 0.0
+    adapted_code_rate: float = 0.0
+    scaling_factors: ScalingFactors = field(default_factory=ScalingFactors)
+    iter_success_max: int = 0
+    iter_success_min: int = 0
+    iter_success_mean: float = 0.0
+    iter_success_std: float = 0.0
+    ratio_trials_success_decoding: float = 0.0
+    ratio_trials_success_ldpc: float = 0.0
+    throughput_max: int = 0
+    throughput_min: int = 0
+    throughput_mean: int = 0
+    throughput_std: int = 0
+
+
+def process_trials_results(
+    cfg: Config,
+    syndromes_match: np.ndarray,
+    keys_match: np.ndarray,
+    iterations: np.ndarray,
+    runtimes_us: Optional[np.ndarray],
+    out_key_length: int,
+    result: SimResult,
+) -> None:
+    """Aggregate one combination's per-trial outcomes into ``result``
+    (reference: src/simulation.cpp:580-690: iteration stats over
+    syndrome-successful trials only, population std-dev, throughput in
+    bits/s from out-key length over per-trial runtime plus optional RTT)."""
+    trials = len(syndromes_match)
+    ok = syndromes_match.astype(bool)
+    n_dec = int(ok.sum())
+    n_ldpc = int((ok & keys_match.astype(bool)).sum())
+
+    if n_dec > 0:
+        it_ok = iterations[ok].astype(np.float64)
+        result.iter_success_max = int(it_ok.max())
+        result.iter_success_min = int(it_ok.min())
+        result.iter_success_mean = float(it_ok.mean())
+        result.iter_success_std = float(it_ok.std())  # population (ref :622)
+    else:
+        result.iter_success_max = 0
+        result.iter_success_min = 0
+        result.iter_success_mean = 0.0
+        result.iter_success_std = 0.0
+
+    if cfg.enable_throughput_measurement and runtimes_us is not None:
+        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+        tp = out_key_length * 1e6 / (runtimes_us.astype(np.float64) + rtt_us)
+        result.throughput_max = int(tp.max())
+        result.throughput_min = int(tp.min())
+        result.throughput_mean = int(tp.mean())
+        result.throughput_std = int(tp.std())
+
+    result.ratio_trials_success_decoding = n_dec / trials
+    result.ratio_trials_success_ldpc = n_ldpc / trials
+
+
+# ---------------------------------------------------------------------------
+# Batched trial execution
+# ---------------------------------------------------------------------------
+
+
+def check_engine(matrix: HMatrix, cfg: Config) -> None:
+    """Raise ``NotImplementedError`` unless the fused QC trial serves this
+    (matrix, config): the only engine ported so far."""
+    reasons = []
+    if cfg.enable_code_rate_adaptation:
+        reasons.append("code-rate adaptation (needs the QC kernel's frame mode)")
+    if cfg.enable_privacy_maintenance:
+        reasons.append("privacy maintenance")
+    if cfg.trace_qkd_ldpc or cfg.trace_decoding_alg or cfg.trace_decoding_alg_llr:
+        reasons.append("the traced f64 decode path")
+    if not cfg.use_pallas:
+        reasons.append("tpu.use_pallas = false (the generic torch decoder)")
+    if matrix.qc is None:
+        reasons.append("non-QC matrices (the generic kernels)")
+    if cfg.decoding_algorithm not in MIN_SUM:
+        reasons.append(f"{cfg.decoding_algorithm.display_name} (the SPA pair "
+                       "of the fused QC kernel)")
+    if cfg.dtype != "float32":
+        reasons.append(f"tpu.dtype = {cfg.dtype}")
+    if reasons:
+        raise NotImplementedError(
+            "not ported to qkd_ldpc_v_tpu_torch yet: " + "; ".join(reasons)
+            + " (see ROADMAP.md, port queue)"
+        )
+
+
+def default_key_source(seed: int, device) -> KeySource:
+    """Keys from one torch generator per chunk (see ``chunk_seed``): Alice's
+    key bits first, then the error-position bits."""
+    device = torch.device(device)
+
+    def source(sim_number, chunk_index, batch, num_bits):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(chunk_seed(seed, sim_number, chunk_index))
+        alice = generate_keys(gen, batch, num_bits, device)
+        bits = random_bits(gen, batch, num_bits, device)
+        return alice, bits
+
+    return source
+
+
+def _as_tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).contiguous()
+    return torch.tensor(np.asarray(x), device=device).to(dtype).contiguous()
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_combination(
+    matrix: HMatrix,
+    comb: SimCombination,
+    cfg: Config,
+    sim_number: int,
+    device,
+    progress: Optional[Callable[[int], None]] = None,
+    key_source: Optional[KeySource] = None,
+) -> SimResult:
+    """Execute all trials of one combination as device batches of
+    ``tpu.batch_size`` frames (all trials when 0).
+
+    Each chunk draws a full batch of keys, injects exactly
+    ``floor(N * QBER)`` errors with 64-bit sort keys, and runs the fused QC
+    trial; a short last chunk keeps its first ``take`` frames. With
+    throughput measurement on, chunk 0 is run once untimed first, so the
+    kernel build and first-call costs stay out of the timings; each chunk's
+    timed region starts after a device synchronize and ends when its
+    results are on the host.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available")
+    check_engine(matrix, cfg)
+    n_bits = matrix.num_bit_nodes
+    num_errors = exact_error_count(n_bits, comb.config_qber)
+    if num_errors == 0:
+        raise SimulationError(f"Key size '{n_bits}' is too small for QBER.")
+    accurate_qber = num_errors / n_bits
+
+    trials = cfg.trials_number
+    batch = cfg.batch_size if cfg.batch_size > 0 else trials
+    batch = min(batch, trials)
+    trial = make_fused_qc_trial(
+        matrix.qc, cfg.decoding_algorithm, cfg.decoding_alg_max_iterations,
+        cfg.enable_msg_llr_threshold, schedule=cfg.schedule,
+    )
+    log_p = log_ratio(accurate_qber)
+    scalars = (
+        comb.scaling_factors.primary,
+        comb.scaling_factors.secondary,
+        cfg.msg_llr_threshold,
+    )
+    source = key_source or default_key_source(cfg.simulation_seed, device)
+
+    def run_chunk(chunk_index):
+        alice, bits = source(sim_number, chunk_index, batch, n_bits)
+        alice = _as_tensor(alice, torch.int8, device)
+        bob = inject_errors(_as_tensor(bits, torch.int64, device), alice,
+                            num_errors, wide=True)
+        conv, keys, iters = trial(alice, bob, log_p, *scalars)
+        return conv.cpu().numpy(), keys.cpu().numpy(), iters.cpu().numpy()
+
+    if cfg.enable_throughput_measurement:
+        run_chunk(0)
+
+    syn_parts: List[np.ndarray] = []
+    key_parts: List[np.ndarray] = []
+    iter_parts: List[np.ndarray] = []
+    runtime_parts: List[np.ndarray] = []
+    done = 0
+    chunk_index = 0
+    while done < trials:
+        take = min(batch, trials - done)
+        _synchronize(device)
+        t0 = time.perf_counter()
+        syn, keys, iters = run_chunk(chunk_index)
+        elapsed_us = (time.perf_counter() - t0) * 1e6
+        # Per-trial runtime = batch wall time / batch size, as in the JAX
+        # package: the batch is the unit of device work.
+        runtime_parts.append(np.full(take, elapsed_us / batch))
+        syn_parts.append(syn[:take])
+        key_parts.append(keys[:take])
+        iter_parts.append(iters[:take])
+        done += take
+        chunk_index += 1
+        if progress is not None:
+            progress(take)
+
+    result = SimResult(
+        sim_number=sim_number,
+        matrix_filename=Path(matrix.source_path).name if matrix.source_path else "",
+        is_regular=matrix.is_regular,
+        num_bit_nodes=matrix.num_bit_nodes,
+        num_check_nodes=matrix.num_check_nodes,
+        config_qber=comb.config_qber,
+        accurate_qber=accurate_qber,
+        delta=comb.matrix_params.delta,
+        efficiency=comb.matrix_params.efficiency,
+        punctured_fraction=comb.matrix_params.punctured_fraction,
+        shortened_fraction=comb.matrix_params.shortened_fraction,
+        adapted_code_rate=comb.matrix_params.adapted_code_rate,
+        scaling_factors=comb.scaling_factors,
+    )
+    process_trials_results(
+        cfg,
+        np.concatenate(syn_parts),
+        np.concatenate(key_parts),
+        np.concatenate(iter_parts),
+        np.concatenate(runtime_parts) if cfg.enable_throughput_measurement else None,
+        n_bits,
+        result,
+    )
+    return result
+
+
+def qkd_ldpc_batch_simulation(
+    sim_inputs: Sequence[SimInput],
+    cfg: Config,
+    device,
+    progress: Optional[Callable[[int, int], None]] = None,
+    key_source: Optional[KeySource] = None,
+) -> List[SimResult]:
+    """Run the full sweep (reference: src/simulation.cpp:693-768).
+    ``progress(trials_done_increment, trials_total)`` ticks per chunk."""
+    sim_total = sum(len(s.combinations) for s in sim_inputs)
+    trials_total = sim_total * cfg.trials_number
+    results: List[SimResult] = []
+    sim_number = 0
+    cb = (lambda inc: progress(inc, trials_total)) if progress else None
+    for sim_in in sim_inputs:
+        for comb in sim_in.combinations:
+            res = run_combination(
+                sim_in.matrix, comb, cfg, sim_number, device,
+                progress=cb, key_source=key_source,
+            )
+            res.matrix_filename = sim_in.matrix_path.name
+            results.append(res)
+            sim_number += 1
+    return results
+
+
+# ---------------------------------------------------------------------------
+# CSV results writer
+# ---------------------------------------------------------------------------
+
+
+def _num(value: float, prec: int) -> str:
+    """Fixed-precision number with comma decimal separator (the reference
+    writes with a custom ru-style locale, src/simulation.cpp:10-23)."""
+    return f"{value:.{prec}f}".replace(".", ",")
+
+
+def _gen(value: float) -> str:
+    """General formatting ({:L} in the reference) with comma separator."""
+    s = repr(float(value)) if not float(value).is_integer() else str(int(value))
+    return s.replace(".", ",")
+
+
+def result_filename(cfg: Config, sim_duration: str) -> str:
+    """Self-describing base filename (reference: src/simulation.cpp:81-91)."""
+    alg_names = {
+        DecodingAlgorithm.SPA: "SPA",
+        DecodingAlgorithm.SPA_APPROX: "SPA-LIN-APPROX",
+        DecodingAlgorithm.NMSA: "NMSA",
+        DecodingAlgorithm.OMSA: "OMSA",
+        DecodingAlgorithm.ANMSA: "ANMSA",
+        DecodingAlgorithm.AOMSA: "AOMSA",
+    }
+    if cfg.enable_code_rate_adaptation:
+        punct = "untainted" if cfg.enable_untainted_puncturing else "random"
+        rate_adapt = f"ON[punct={punct}]"
+    else:
+        rate_adapt = "OFF"
+    rtt_part = ""
+    if cfg.enable_throughput_measurement and cfg.consider_rtt:
+        rtt_part = f",RTT={cfg.rtt_ms:.3f}ms"
+    return (
+        "ldpc("
+        f"trial_num={cfg.trials_number},"
+        f"dec_alg={alg_names[cfg.decoding_algorithm]},"
+        f"max_dec_alg_iters={cfg.decoding_alg_max_iterations},"
+        f"priv_maint={'ON' if cfg.enable_privacy_maintenance else 'OFF'},"
+        f"rate_adapt={rate_adapt}"
+        f"{rtt_part},"
+        f"seed={cfg.simulation_seed},"
+        f"sim_duration={sim_duration}"
+        ")"
+    )
+
+
+def write_file(
+    results: Sequence[SimResult],
+    cfg: Config,
+    sim_duration: str,
+    directory,
+) -> Path:
+    """Write the per-combination CSV (reference: src/simulation.cpp:4-176):
+    same filename scheme with collision ``_k`` suffix, semicolon-separated
+    columns, comma decimal separator, FER rounded to trial granularity.
+    With throughput measurement on, a sidecar ``.THROUGHPUT_NOTE.txt``
+    records that per-trial runtime is chunk wall time over chunk size."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+
+    base = result_filename(cfg, sim_duration)
+    path = directory / f"{base}.csv"
+    count = 1
+    while path.exists():
+        path = directory / f"{base}_{count}.csv"
+        count += 1
+
+    scaling_header = {
+        DecodingAlgorithm.NMSA: ";ALPHA",
+        DecodingAlgorithm.OMSA: ";BETA",
+        DecodingAlgorithm.ANMSA: ";ALPHA;NU",
+        DecodingAlgorithm.AOMSA: ";BETA;SIGMA",
+    }.get(cfg.decoding_algorithm, "")
+
+    header = (
+        "#;MATRIX_FILENAME;TYPE;R;M;N;CONFIG_QBER;ACCURATE_QBER;"
+        "ITER_SUCCESS_MEAN;ITER_SUCCESS_STD;ITER_SUCCESS_MIN;"
+        "ITER_SUCCESS_MAX;RATIO_SUCCESS_DEC;RATIO_SUCCESS_LDPC;FER"
+    )
+    if cfg.enable_code_rate_adaptation:
+        header += ";DELTA;EFFICIENCY;PUNCT_FRACTION;SHORT_FRACTION;R_ADAPTED"
+    if cfg.enable_throughput_measurement:
+        header += ";THROUGHPUT_MEAN;THROUGHPUT_STD;THROUGHPUT_MIN;THROUGHPUT_MAX"
+    header += scaling_header
+
+    lines = [header]
+    for r in results:
+        fer = 1.0 - r.ratio_trials_success_ldpc
+        fer = round(fer * cfg.trials_number) / cfg.trials_number
+        code_rate = 1.0 - r.num_check_nodes / r.num_bit_nodes
+        line = ";".join(
+            [
+                str(r.sim_number),
+                r.matrix_filename,
+                "regular" if r.is_regular else "irregular",
+                _num(code_rate, 3),
+                str(r.num_check_nodes),
+                str(r.num_bit_nodes),
+                _num(r.config_qber, 4),
+                _num(r.accurate_qber, 4),
+                _num(r.iter_success_mean, 2),
+                _num(r.iter_success_std, 2),
+                str(r.iter_success_min),
+                str(r.iter_success_max),
+                _gen(r.ratio_trials_success_decoding),
+                _gen(r.ratio_trials_success_ldpc),
+                _gen(fer),
+            ]
+        )
+        if cfg.enable_code_rate_adaptation:
+            line += ";" + ";".join(
+                [
+                    _num(r.delta, 3),
+                    _num(r.efficiency, 3),
+                    _num(r.punctured_fraction, 3),
+                    _num(r.shortened_fraction, 3),
+                    _num(r.adapted_code_rate, 3),
+                ]
+            )
+        if cfg.enable_throughput_measurement:
+            line += ";" + ";".join(
+                [
+                    str(r.throughput_mean),
+                    str(r.throughput_std),
+                    str(r.throughput_min),
+                    str(r.throughput_max),
+                ]
+            )
+        if cfg.decoding_algorithm.uses_scaling_factors:
+            line += ";" + _num(r.scaling_factors.primary, 3)
+        if cfg.decoding_algorithm.is_adaptive:
+            line += ";" + _num(r.scaling_factors.secondary, 3)
+        lines.append(line)
+
+    path.write_text("\n".join(lines) + "\n")
+    if cfg.enable_throughput_measurement:
+        path.with_suffix(".THROUGHPUT_NOTE.txt").write_text(
+            "THROUGHPUT_* columns in the sibling CSV are computed from "
+            "device-batch wall times (per-trial runtime = chunk wall time / "
+            "chunk size), not per-trial timers as in the reference "
+            "implementation; MIN/MAX/STD therefore reflect chunk-level "
+            "variation. Means are directly comparable. See PARITY.md §3.\n"
+        )
+    return path

@@ -1,0 +1,102 @@
+"""Port channel (qkd_ldpc_v_tpu_torch/ops/channel.py) against the JAX
+package's channel on the same random bits.
+
+``inject_errors`` must flip exactly the positions JAX flips when both get
+the bits of ``jax.random.bits(ke, (B, N), uint32)``: the 64-bit sort keys
+against JAX with x64 on (as the test conftest sets it), the 32-bit keys
+against JAX inside ``jax.enable_x64(False)``. ``log_ratio`` must give JAX's
+float32 bits at the QBERs the cross-package tests use.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qkd_ldpc_v_tpu.models.layout import layout_for
+from qkd_ldpc_v_tpu.models.qc import generate_qc_ldpc, generate_qc_peg
+from qkd_ldpc_v_tpu.ops import channel as jch
+from qkd_ldpc_v_tpu_torch.convert import qc_from_arrays
+from qkd_ldpc_v_tpu_torch.ops import channel as tch
+
+torch.set_num_threads(2)
+
+
+def _jax_bits(seed, batch, n):
+    ka, ke, _ = jch.trial_keys(seed, 0, 0)
+    alice = np.asarray(jch.generate_keys(ka, batch, n))
+    bits = np.asarray(jax.random.bits(ke, (batch, n), jnp.uint32))
+    return ka, ke, alice, bits
+
+
+@pytest.mark.parametrize("n,num_errors", [(1024, 30), (10240, 307), (4096, 1)])
+def test_inject_errors_wide_matches_jax(n, num_errors):
+    _, ke, alice, bits = _jax_bits(11, 6, n)
+    assert jax.config.jax_enable_x64
+    want = np.asarray(jch.inject_errors(ke, jnp.asarray(alice), num_errors))
+    got = tch.inject_errors(torch.tensor(bits.astype(np.int64)),
+                            torch.tensor(alice), num_errors, wide=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ((got.numpy() ^ alice).sum(axis=1) == num_errors).all()
+
+
+@pytest.mark.parametrize("n,num_errors", [(1024, 30), (10240, 307)])
+def test_inject_errors_narrow_matches_jax_without_x64(n, num_errors):
+    _, ke, alice, bits = _jax_bits(12, 6, n)
+    with jax.enable_x64(False):
+        assert not jax.config.jax_enable_x64
+        want = np.asarray(jch.inject_errors(ke, jnp.asarray(alice), num_errors))
+    got = tch.inject_errors(torch.tensor(bits.astype(np.int64)),
+                            torch.tensor(alice), num_errors, wide=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wide_keys_keep_unsigned_order():
+    """Random words at or above 2**31 must still rank above smaller ones:
+    a plain signed ``bits << 32`` would put them first."""
+    n = 8
+    bits = np.array([[2**32 - 1, 5, 2**31, 7, 2**31 - 1, 0, 3, 2**31 + 9]],
+                    dtype=np.int64)
+    alice = torch.zeros((1, n), dtype=torch.int8)
+    bob = tch.inject_errors(torch.tensor(bits), alice, 4, wide=True)
+    order = np.argsort(bits[0].astype(np.uint64), kind="stable")
+    want = np.zeros(n, np.int8)
+    want[order[:4]] = 1
+    np.testing.assert_array_equal(bob.numpy()[0], want)
+
+
+def test_qc_syndrome_matches_calculate_syndrome():
+    jqc = generate_qc_peg(20, 6, 128, 4, seed=9)
+    tqc = qc_from_arrays(jqc.shifts, jqc.lifting)
+    _, _, alice, _ = _jax_bits(5, 4, jqc.num_bit_nodes)
+    want = np.asarray(jch.calculate_syndrome(layout_for(jqc.to_hmatrix()),
+                                             jnp.asarray(alice)))
+    got = tch.qc_syndrome(tqc, torch.tensor(alice))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,qber", [
+    (1024, 0.02), (1024, 0.03), (1024, 0.04), (1024, 0.045), (1024, 0.075),
+    (10240, 0.02), (10240, 0.03), (10240, 0.04), (10240, 0.045),
+])
+def test_log_ratio_matches_jax_bits(n, qber):
+    acc = tch.exact_error_count(n, qber) / n
+    jlog = jax.jit(lambda q: jnp.log((1.0 - q) / q))
+    want = np.float32(jlog(jnp.float32(acc)))
+    assert np.float32(tch.log_ratio(acc)).tobytes() == want.tobytes()
+
+
+def test_exact_error_count_and_keys():
+    assert tch.exact_error_count(10240, 0.03) == jch.exact_error_count(10240, 0.03)
+    gen = torch.Generator().manual_seed(tch.chunk_seed(42, 0, 0))
+    alice = tch.generate_keys(gen, 4, 256, "cpu")
+    bits = tch.random_bits(gen, 4, 256, "cpu")
+    assert alice.dtype == torch.int8 and set(alice.unique().tolist()) <= {0, 1}
+    assert bits.min() >= 0 and bits.max() < 2**32
+    seeds = {tch.chunk_seed(42, s, c) for s in range(3) for c in range(3)}
+    assert len(seeds) == 9
+    assert tch.chunk_seed(42, 1, 2) == tch.chunk_seed(42, 1, 2)
+    qc = qc_from_arrays(generate_qc_ldpc(8, 4, 128, 3, seed=5).shifts, 128)
+    assert qc.num_bit_nodes == 1024
