@@ -15,6 +15,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    modes, flooding and layered, NMSA/OMSA/ANMSA/AOMSA, QBER 0.03 and a
    harder QBER where some frames fail, plus cases with the message clamp.
    Conv, keys, iterations and decisions must be exactly equal.
+2b. Generic kernel vs plain: the fused generic kernel against its plain
+   torch version (the generic torch decoder in float32), 512 frames each,
+   on the 10k alist code (N=10240, check degrees 14-15), the 1k alist code
+   with check degrees 62-63, a seeded irregular code with bit degrees 2-5
+   and, at the gate's edge, a degree-2 code with N=32768 whose messages
+   live in global memory: trial and decode modes, NMSA/OMSA/ANMSA/AOMSA,
+   an easy QBER and a waterfall QBER where some frames fail, plus cases
+   with the message clamp. Conv, keys, iterations and decisions must be
+   exactly equal.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
@@ -22,6 +31,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    and FER <= 0.01; the kernel's launch counter must be > 0 and the plain
    version must not have run on the card; on the first 1024 frames of
    chunk 0 the kernel's statistics must equal the plain version's.
+3b. Generic main path: the same on a copy of
+   configs/campaign_fer_1k_alist.json narrowed to QBER 0.025 (its R=0.78
+   bracket, NMSA alpha 0.70, cap 100, flooding), over the committed 10k
+   alist asset, through the fused generic kernel.
 4. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -42,6 +55,9 @@ REPO = Path(__file__).resolve().parent
 QC_DIR = REPO / "sparse_matrices" / "matrices_qc"
 HEADLINE = QC_DIR / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"
 QC1K = QC_DIR / "(N=1024,M=384,R=0.62,CW=3,Z=128,SEED=33).mtrx"
+ALIST_DIR = REPO / "sparse_matrices" / "matrices_alist"
+ALIST10K = ALIST_DIR / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"
+ALIST1K_DEG63 = ALIST_DIR / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"
 FRAMES = 512
 THRESHOLD = 2.5
 FACTORS = {"NMSA": (0.65, 1.0), "OMSA": (0.3, 1.0),
@@ -166,6 +182,192 @@ def phase_kernel_vs_plain(torch, card):
               f"{code_name}: no frame failed at QBER {qbers[1]}")
     print(f"phase 2: {len(cases)} cases, kernel == plain exactly ({card})")
     return worst, headline_times
+
+
+def irregular_code():
+    """tests/test_pallas_generic.py::irregular_matrix: N=288, M=144, column
+    weights 2..5 (seeded)."""
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import from_dense
+
+    rng = np.random.default_rng(11)
+    dense = np.zeros((144, 288), dtype=np.int8)
+    for col in range(288):
+        dense[rng.choice(144, size=2 + (col % 4), replace=False), col] = 1
+    for row in range(144):
+        if dense[row].sum() == 0:
+            dense[row, rng.integers(0, 288)] = 1
+    return from_dense(dense)
+
+
+def phase_generic_vs_plain(torch, card):
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        calculate_syndrome, exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
+    dev = torch.device("cuda")
+    factors = dict(FACTORS, NMSA=(0.7, 1.0))
+    # (name, code, QBERs, waterfall must fail some frames): the second QBER
+    # of the first three codes sits in their waterfall.
+    codes = [
+        ("alist10k", read_sparse_matrix_alist(ALIST10K), (0.025, 0.032), True),
+        ("alist1k_deg63", read_sparse_matrix_alist(ALIST1K_DEG63),
+         (0.002, 0.004), True),
+        ("irregular", irregular_code(), (0.04, 0.07), True),
+        ("gate_deg2", generate_regular_ldpc(32768, 16384, 2, seed=1), (0.01,),
+         False),
+    ]
+    cases = []
+    for code_name, matrix, qbers, _ in codes:
+        for qber in qbers:
+            for alg in factors:
+                for mode in ("trial", "decode"):
+                    cases.append((code_name, matrix, qber, alg, mode, False))
+        for mode in ("trial", "decode"):
+            cases.append((code_name, matrix, qbers[-1], "NMSA", mode, True))
+
+    keys = {}
+    worst = 0
+    times = None
+    failing = {}
+    for i, (code_name, matrix, qber, alg, mode, clamp) in enumerate(cases):
+        n = matrix.num_bit_nodes
+        if (code_name, qber) not in keys:
+            alice, bits = default_key_source(11, dev)(0, len(keys), FRAMES, n)
+            ne = exact_error_count(n, qber)
+            keys[(code_name, qber)] = (
+                alice, inject_errors(bits, alice, ne, wide=True),
+                log_ratio(ne / n))
+        alice, bob, lp = keys[(code_name, qber)]
+        f1, f2 = factors[alg]
+        thr = THRESHOLD if clamp else 0.0
+        algorithm = DecodingAlgorithm[alg]
+        if mode == "trial":
+            fn = fused_generic.make_fused_generic_trial(matrix, algorithm, 100,
+                                                        clamp)
+            args = (alice, bob, lp, f1, f2, thr)
+        else:
+            fn = fused_generic.make_fused_generic_decoder(matrix, algorithm,
+                                                          100, clamp)
+            lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
+            args = (torch.where(bob == 1, -lpt, lpt),
+                    calculate_syndrome(layout_for(matrix), alice), f1, f2, thr)
+        fn(*args)  # first launch of this configuration, untimed
+        got, ms = timed(lambda: fn(*args), torch, reps=3)
+        fn.plain(*args)  # first call: index tables to the card, untimed
+        want, plain_ms = timed(lambda: fn.plain(*args), torch)
+        got, want = tuple(got), tuple(want)
+        diff = max_abs_diff(got, want, torch)
+        worst = max(worst, diff)
+        conv = got[0] if mode == "trial" else got[1]
+        n_fail = int((~conv).sum().item())
+        failing[(code_name, qber)] = failing.get((code_name, qber), 0) + n_fail
+        print(f"case 2b-{i:02d} {code_name} N={n} {mode} flooding {alg} "
+              f"qber={qber} clamp={clamp}: unconverged={n_fail}/{FRAMES} "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} max_abs_err={diff}",
+              flush=True)
+        check(diff == 0, f"generic kernel != plain in case 2b-{i}")
+        if (code_name, qber, alg, mode, clamp) == (
+                "alist10k", 0.025, "NMSA", "trial", False):
+            times = (ms, plain_ms)
+    for code_name, _, qbers, waterfall in codes:
+        if waterfall:
+            check(failing[(code_name, qbers[-1])] > 0,
+                  f"{code_name}: no frame failed at QBER {qbers[-1]}")
+    print(f"phase 2b: {len(cases)} cases, generic kernel == plain exactly "
+          f"({card})")
+    return worst, times
+
+
+def phase_generic_main_path(torch, card):
+    from qkd_ldpc_v_tpu_torch import cli
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        default_key_source, prepare_sim_inputs)
+
+    work = REPO / "build" / "chip_smoke_generic"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_alist"
+    matrices.mkdir(parents=True)
+    (matrices / ALIST10K.name).symlink_to(ALIST10K)
+    cfg = json.loads((REPO / "configs" / "campaign_fer_1k_alist.json").read_text())
+    cfg["trials_number"] = 65536
+    cfg["tpu"]["batch_size"] = 16384
+    for bracket in cfg["code_rate_QBER_ranges"]:
+        if bracket["code_rate"] == 0.78:
+            bracket["QBER"] = {"begin": 0.025, "end": 0.025, "step": 0.0028}
+    cdir = work / "configs"
+    cdir.mkdir()
+    (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+
+    fused_generic.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["--configs", str(cdir), "--matrices",
+                   str(work / "sparse_matrices"), "--results",
+                   str(work / "results"), "--device", "cuda", "--quiet"])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"CLI (alist) returned {rc}")
+    launches, plain_on_cuda = fused_generic.counts()
+    print(f"generic main path: kernel launches={launches} "
+          f"plain calls on the card={plain_on_cuda}")
+    check(launches > 0, "the generic main path launched no kernel")
+    check(plain_on_cuda == 0,
+          "the generic main path ran the plain version on the card")
+
+    path, row = read_csv(work / "results")
+    check(row["N"] == "10240", f"N = {row['N']}")
+    check(row["CONFIG_QBER"] == "0,0250", f"QBER = {row['CONFIG_QBER']}")
+    check(row["ALPHA"] == "0,700", f"alpha = {row['ALPHA']}")
+    fer = float(row["FER"].replace(",", "."))
+    check(fer <= 0.01, f"alist: FER {fer} > 0.01")
+    run_cfg = parse_config_data(cdir / "run.json")
+    rtt_us = run_cfg.rtt_ms * 1000.0 if run_cfg.consider_rtt else 0.0
+    us_per_frame = 10240 * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
+    print(f"generic main path: FER={fer} iter_mean={row['ITER_SUCCESS_MEAN']} "
+          f"decode_frames_per_s={1e6 / us_per_frame:.0f} "
+          f"(chunk timers, RTT removed) "
+          f"cli_wall_frames_per_s={run_cfg.trials_number / wall:.0f} "
+          f"(whole CLI call, {wall:.1f} s) card={card}", flush=True)
+
+    # Chunk 0 of combination 0 again: kernel on the whole chunk as the main
+    # path ran it, plain on its first 1024 frames.
+    dev = torch.device("cuda")
+    sim_in = prepare_sim_inputs([ALIST10K], run_cfg)[0]
+    comb = sim_in.combinations[0]
+    matrix = sim_in.matrix
+    n = matrix.num_bit_nodes
+    ne = exact_error_count(n, comb.config_qber)
+    (alice, bits), keys_ms = timed(
+        lambda: default_key_source(run_cfg.simulation_seed, dev)(
+            0, 0, run_cfg.batch_size, n), torch)
+    bob, errors_ms = timed(
+        lambda: inject_errors(bits, alice, ne, wide=True), torch)
+    trial = fused_generic.make_fused_generic_trial(
+        matrix, run_cfg.decoding_algorithm, run_cfg.decoding_alg_max_iterations,
+        run_cfg.enable_msg_llr_threshold)
+    args = (log_ratio(ne / n), comb.scaling_factors.primary,
+            comb.scaling_factors.secondary, run_cfg.msg_llr_threshold)
+    full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
+    print(f"generic main path: one {run_cfg.batch_size}-frame chunk: "
+          f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
+          f"fused_generic kernel {kernel_ms:.2f} ms (card={card})")
+    got = [t[:1024] for t in full]
+    want = trial.plain(alice[:1024].contiguous(), bob[:1024].contiguous(),
+                       *args)
+    diff = max_abs_diff(got, want, torch)
+    check(diff == 0, "alist: chunk-0 kernel stats != plain")
+    print(f"generic main path: chunk 0 frames 0-1023 kernel == plain "
+          f"({path.name})")
+    return launches, diff
 
 
 def read_csv(results_dir: Path):
@@ -298,10 +500,13 @@ def main() -> int:
           flush=True)
 
     worst2, headline_times = phase_kernel_vs_plain(torch, card)
+    worst2b, generic_times = phase_generic_vs_plain(torch, card)
     launches, worst3 = phase_main_path(torch, card)
+    generic_launches, worst3b = phase_generic_main_path(torch, card)
     check("jax" not in sys.modules, "jax was imported")
 
     ms, plain_ms = headline_times
+    generic_ms, generic_plain_ms = generic_times
     print(json.dumps({"kernels": [{
         "name": "fused_qc",
         "route": "cuda",
@@ -311,6 +516,15 @@ def main() -> int:
         "max_abs_err": max(worst2, worst3),
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_generic",
+        "route": "cuda",
+        "source": "qkd_ldpc_v_tpu_torch/csrc/fused_generic.cu",
+        "replaces": "qkd_ldpc_v_tpu/ops/pallas_generic.py:395",
+        "launches": generic_launches,
+        "max_abs_err": max(worst2b, worst3b),
+        "ms": generic_ms,
+        "plain_ms": generic_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,14 @@
 """qkd_ldpc_v_tpu_torch — the PyTorch and CUDA port of qkd_ldpc_v_tpu.
 
 QKD LDPC information reconciliation on an NVIDIA H100: the fixed-rate
-Monte-Carlo sweep over quasi-cyclic codes with the min-sum decoders
-(NMSA, OMSA, ANMSA, AOMSA), flooding or layered, through a hand-written
-fused QC decoder kernel (``csrc/fused_qc.cu``). CPU tensors run the
-kernel's plain torch version. The JAX package ``qkd_ldpc_v_tpu`` is the
+Monte-Carlo sweep over codes in all five matrix formats (alist, format 1,
+format 2, dense, quasi-cyclic). The min-sum decoders (NMSA, OMSA, ANMSA,
+AOMSA) run through two hand-written fused kernels: the QC decoder
+(``csrc/fused_qc.cu``, flooding or layered) and the generic decoder for
+arbitrary sparse codes (``csrc/fused_generic.cu``, flooding). The generic
+torch decoder (``ops/decoders.py``) runs all six algorithms in float32,
+float64 or bfloat16 when ``tpu.use_pallas`` is false. CPU tensors run the
+kernels' plain torch versions. The JAX package ``qkd_ldpc_v_tpu`` is the
 reference this package is tested against; this package never imports it
 or JAX.
 """
@@ -18,6 +22,7 @@ from qkd_ldpc_v_tpu_torch.config import (  # noqa: F401
     parse_config_data,
 )
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix, read_matrix  # noqa: F401
+from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, compile_layout  # noqa: F401
 from qkd_ldpc_v_tpu_torch.models.qc import (  # noqa: F401
     QCMatrix,
     generate_qc_ldpc,
@@ -29,5 +34,6 @@ from qkd_ldpc_v_tpu_torch.simulation import (  # noqa: F401
     prepare_sim_inputs,
     qkd_ldpc_batch_simulation,
     run_combination,
+    select_engine,
     write_file,
 )

@@ -43,21 +43,36 @@ The schema is the one of qkd_ldpc_v_tpu (python -m qkd_ldpc_v_tpu
 --help-config prints it in full). This package runs the part of it that is
 ported so far:
 
-  matrix_format                 4 (quasi-cyclic base-graph shifts, directory
-                                matrices_qc).
-  decoding_algorithm            2 NMSA, 3 OMSA, 4 ANMSA, 5 AOMSA.
+  matrix_format                 0 uncompressed (matrices_uncompressed),
+                                1 alist (matrices_alist), 2 format 1
+                                (matrices_1), 3 format 2 (matrices_2),
+                                4 quasi-cyclic base-graph shifts
+                                (matrices_qc).
+  decoding_algorithm            0 SPA, 1 SPA-lin-approx, 2 NMSA, 3 OMSA,
+                                4 ANMSA, 5 AOMSA. The SPA pair runs with
+                                tpu.use_pallas = false only.
   enable_code_rate_adaptation   false.
   enable_privacy_maintenance    false.
   trace_*                       false.
-  tpu.use_pallas                true: the fused QC kernel (CUDA) or its
-                                plain torch version (CPU).
+  tpu.use_pallas                true: the fused kernels (CUDA) or their
+                                plain torch versions (CPU) — the QC kernel
+                                for QC codes, the generic kernel for the
+                                other codes inside its gate; false: the
+                                generic torch decoder.
   tpu.batch_size                frames per device batch (0 = all trials).
-  tpu.schedule                  flooding | layered.
-  tpu.dtype                     float32.
+  tpu.schedule                  flooding | layered (layered: QC codes with
+                                a min-sum algorithm; elsewhere it warns and
+                                floods).
+  tpu.dtype                     float32 (all engines) | float64 | bfloat16
+                                (the generic torch decoder).
+  tpu.force_engine              "" | qc | generic | xla (qc_stream and
+                                stream are not ported).
 
-Anything else raises NotImplementedError naming the port step that brings
-it. Results: one CSV per config, semicolon-separated with comma decimal
-marks, byte-compatible with qkd_ldpc_v_tpu's.
+Codes too large for both fused kernels (the JAX package's qc_stream and
+stream engines) and anything else not listed raise NotImplementedError
+naming the port step that brings it. Results: one CSV per config,
+semicolon-separated with comma decimal marks, byte-compatible with
+qkd_ldpc_v_tpu's.
 """
 
 

@@ -5,6 +5,8 @@ Both sides of a cross-package test are built from the same plain data:
 
   * ``qc_from_arrays(shifts, lifting)`` — a ``QCMatrix`` from a base-graph
     shift table (-1 = no block), e.g. ``jax_qc.shifts``.
+  * ``hmatrix_from_rows(check_nodes, num_bits)`` — an ``HMatrix`` from the
+    check rows of any code, e.g. ``jax_matrix.check_nodes``.
   * ``config_from_dict(d)`` — a ``Config`` from ``dataclasses.asdict`` of
     the JAX package's ``Config``; enums are taken by value.
 """
@@ -27,6 +29,10 @@ from qkd_ldpc_v_tpu_torch.config import (
     ScalingFactorParams,
     ScalingFactorRange,
 )
+from qkd_ldpc_v_tpu_torch.models.hmatrix import (
+    HMatrix,
+    bit_nodes_from_check_nodes,
+)
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 
 
@@ -38,6 +44,25 @@ def qc_from_arrays(shifts: np.ndarray, lifting: int) -> QCMatrix:
     if lifting <= 0 or (shifts < -1).any() or (shifts >= lifting).any():
         raise ValueError("shifts must be -1 or in [0, lifting)")
     return QCMatrix(shifts=shifts, lifting=lifting)
+
+
+def hmatrix_from_rows(check_nodes, num_bits: int) -> HMatrix:
+    """The code whose check row j holds the bit indices ``check_nodes[j]``
+    (any order; rows are kept sorted ascending), e.g.
+    ``jax_matrix.check_nodes``. Regular when every row and every column has
+    one weight."""
+    num_bits = int(num_bits)
+    rows = [np.array(sorted(int(b) for b in row), dtype=np.int32)
+            for row in check_nodes]
+    for j, row in enumerate(rows):
+        if len(row) and (row[0] < 0 or row[-1] >= num_bits):
+            raise ValueError(f"check row {j}: bit index outside [0, {num_bits})")
+        if len(np.unique(row)) != len(row):
+            raise ValueError(f"check row {j}: repeated bit index")
+    cols = bit_nodes_from_check_nodes(rows, num_bits)
+    is_regular = (len({len(r) for r in rows}) <= 1
+                  and len({len(c) for c in cols}) <= 1)
+    return HMatrix(cols, rows, is_regular)
 
 
 def _scaling(d) -> ScalingFactorParams:

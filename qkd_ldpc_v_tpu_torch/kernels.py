@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 At first use, every ``csrc/*.cu`` of this package is compiled by ``nvcc``
-into one shared library with a plain C interface, which is loaded with
+(one compiler process per source, all started together) and linked into
+one shared library with a plain C interface, which is loaded with
 ``ctypes``. The library lands in ``build/qkd_ldpc_v_tpu_torch/`` beside the
 package (``build/`` is git-ignored), named by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -28,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "qkd_ldpc_v_tpu_t
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _LIBRARY: Optional[ctypes.CDLL] = None
@@ -67,27 +69,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libqkd_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> subprocess.CompletedProcess:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    return proc
+
+
 def _build(target: Path) -> None:
     global build_seconds, build_log
     target.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    # Compile to a private name, then rename: concurrent builds never see
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[str(s) for s in sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmpdir:
+        objects = [Path(tmpdir) / f"{src.stem}.o" for src in sources()]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objects)
+        ]
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            procs = list(pool.map(_run, compiles))
+        # Link to a private name, then rename: concurrent builds never see
+        # a half-written library.
+        tmp = Path(tmpdir) / target.name
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+              *[str(o) for o in objects]])
+        os.replace(tmp, target)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(p.stdout + p.stderr for p in procs)
 
 
 def library() -> ctypes.CDLL:

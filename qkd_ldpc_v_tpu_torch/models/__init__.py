@@ -1,1 +1,2 @@
-"""Parity-check matrix models (host-side NumPy)."""
+"""Parity-check matrix models, readers, edge layout and code generators
+(host-side NumPy)."""

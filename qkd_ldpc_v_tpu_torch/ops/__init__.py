@@ -1,1 +1,2 @@
-"""Device operations: channel, plain QC decoders and the fused QC kernel."""
+"""Device operations: channel, the generic torch decoder, plain QC decoders
+and the fused QC and generic kernels."""

@@ -8,6 +8,9 @@ src/array_and_matrix_operations.cpp:889-950):
     errors at uniformly random distinct positions per frame, chosen as the
     ranks of the smallest per-position sort keys.
   * Syndrome of a QC code: XOR of rolled key blocks per check block.
+  * Syndrome of any code: a gather of key bits over the edge layout's
+    check-major edges and a parity per check (``calculate_syndrome``).
+  * Channel LLRs ``+/- log((1-q)/q)`` (``llr_from_bits``, ``log_ratio``).
 
 Random numbers are inputs. ``inject_errors`` takes its per-position random
 bits from the caller, so tests can feed the exact bits JAX draws.
@@ -24,7 +27,9 @@ import math
 import numpy as np
 import torch
 
+from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+from qkd_ldpc_v_tpu_torch.utils import PlanCache
 
 
 def exact_error_count(num_bits: int, qber: float) -> int:
@@ -32,19 +37,30 @@ def exact_error_count(num_bits: int, qber: float) -> int:
     return int(num_bits * qber)
 
 
-def log_ratio(qber: float) -> float:
-    """``log((1 - q) / q)`` as the float32 channel-LLR magnitude.
+def log_ratio(qber: float, dtype: torch.dtype = torch.float32) -> float:
+    """``log((1 - q) / q)``, the channel-LLR magnitude, as a value exactly
+    representable in ``dtype``.
 
     Computed once on the host, the same way for every device, so that the
-    kernel and its plain version always see the same bits: the ratio in
-    float32 (as the JAX wrapper forms it from a float32 QBER), then a
+    kernels and their plain versions always see the same bits. float32: the
+    ratio in float32 (as the JAX sweep forms it from a float32 QBER), then a
     double-precision log rounded to float32. Transcendental f32 ``log``
     differs by an ulp between XLA, NumPy and torch at some QBERs; this rule
     agrees with JAX's XLA log at the QBERs the tests use, which assert it.
+    float64: the ratio and the log in double precision, as the JAX sweep
+    forms them from a float64 QBER. bfloat16: the float32 value rounded to
+    bfloat16 (no exactness claim: JAX rounds its bfloat16 intermediates
+    elsewhere).
     """
+    if dtype == torch.float64:
+        q = float(qber)
+        return float(np.log((1.0 - q) / q))
     q = np.float32(qber)
     ratio = np.float32(np.float32(1.0) - q) / q
-    return float(np.float32(math.log(float(ratio))))
+    value = float(np.float32(math.log(float(ratio))))
+    if dtype == torch.float32:
+        return value
+    return float(torch.tensor(value).to(dtype))
 
 
 def chunk_seed(simulation_seed: int, sim_number: int, chunk_index: int) -> int:
@@ -108,6 +124,56 @@ def inject_errors(
     kth = torch.kthvalue(keys, num_errors, dim=1).values
     flips = (keys <= kth[:, None]).to(torch.int8)
     return alice ^ flips
+
+
+def llr_from_bits(bits: torch.Tensor, qber: float,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Channel LLRs: +/- log((1-q)/q) by Bob's bit value (reference:
+    src/qkd_ldpc_algorithm.cpp:1043-1049). The log is taken in double
+    precision of the double ratio and rounded to ``dtype``, as the JAX
+    package's ``llr_from_bits`` does with 64-bit floats enabled."""
+    log_p = torch.tensor(math.log((1.0 - qber) / qber), dtype=dtype,
+                         device=bits.device)
+    return torch.where(bits == 1, -log_p, log_p)
+
+
+def syndrome_internal(layout: EdgeLayout, bits_int: torch.Tensor) -> torch.Tensor:
+    """Syndrome in internal (degree-sorted) check order: bits_int [B, N] in
+    internal bit order -> [B, M] int8."""
+    edge_bit = layout_tensor(layout, "check_edge_bit", bits_int.device)
+    edges = bits_int.to(torch.int32).index_select(1, edge_bit)
+    parts = []
+    for g in layout.check_groups:
+        size = g.count * g.degree
+        grp = edges[:, g.edge_offset:g.edge_offset + size].reshape(
+            bits_int.shape[0], g.count, g.degree)
+        parts.append(grp.sum(dim=-1) & 1)
+    return torch.cat(parts, dim=1).to(torch.int8)
+
+
+def calculate_syndrome(layout: EdgeLayout, bits_ext: torch.Tensor) -> torch.Tensor:
+    """Syndrome [B, M] int8 in external check order of keys [B, N] in
+    external bit order (reference: src/array_and_matrix_operations.cpp:
+    936-950)."""
+    dev = bits_ext.device
+    bits_int = bits_ext.index_select(1, layout_tensor(layout, "bit_order", dev))
+    syn_int = syndrome_internal(layout, bits_int)
+    return syn_int.index_select(1, layout_tensor(layout, "check_inv", dev))
+
+
+_LAYOUT_TENSORS = PlanCache()
+
+
+def layout_tensor(layout: EdgeLayout, name: str, device) -> torch.Tensor:
+    """One index table of ``layout`` as an int64 tensor on ``device``,
+    made once per (layout, table, device)."""
+    key = (name, str(torch.device(device)))
+    t = _LAYOUT_TENSORS.get(layout, extra=key)
+    if t is None:
+        t = torch.as_tensor(np.asarray(getattr(layout, name), dtype=np.int64),
+                            device=device)
+        _LAYOUT_TENSORS.put(layout, t, extra=key)
+    return t
 
 
 def qc_syndrome(qc: QCMatrix, bits: torch.Tensor) -> torch.Tensor:

@@ -148,7 +148,7 @@ def _flags(algorithm: DecodingAlgorithm, layered: bool) -> int:
     return int(layered) | (int(algorithm.is_adaptive) << 1) | (int(offset) << 2)
 
 
-def _check_tensor(name, t, dtype, shape, device):
+def check_tensor(name, t, dtype, shape, device):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
@@ -159,7 +159,7 @@ def _check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _raise_on_error(code: int, what: str) -> None:
+def raise_on_error(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
@@ -196,8 +196,8 @@ def make_fused_qc_trial(
     def trial(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
         global LAUNCHES
         b = alice.shape[0]
-        _check_tensor("alice", alice, torch.int8, (b, n), alice.device)
-        _check_tensor("bob", bob, torch.int8, (b, n), alice.device)
+        check_tensor("alice", alice, torch.int8, (b, n), alice.device)
+        check_tensor("bob", bob, torch.int8, (b, n), alice.device)
         if alice.device.type == "cpu":
             return plain(alice, bob, log_p, primary, secondary, threshold)
         if alice.device.type != "cuda":
@@ -217,7 +217,7 @@ def make_fused_qc_trial(
             conv.data_ptr(), keys.data_ptr(), iters.data_ptr(),
             torch.cuda.current_stream(alice.device).cuda_stream,
         )
-        _raise_on_error(code, "fused_qc_trial")
+        raise_on_error(code, "fused_qc_trial")
         LAUNCHES += 1
         return conv.bool(), keys.bool(), iters
 
@@ -248,8 +248,8 @@ def make_fused_qc_decoder(
     def decode(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
         global LAUNCHES
         b = llr.shape[0]
-        _check_tensor("llr", llr, torch.float32, (b, n), llr.device)
-        _check_tensor("syndrome", syndrome, torch.int8, (b, m), llr.device)
+        check_tensor("llr", llr, torch.float32, (b, n), llr.device)
+        check_tensor("syndrome", syndrome, torch.int8, (b, m), llr.device)
         if llr.device.type == "cpu":
             return plain(llr, syndrome, primary, secondary, threshold)
         if llr.device.type != "cuda":
@@ -269,7 +269,7 @@ def make_fused_qc_decoder(
             conv.data_ptr(), iters.data_ptr(),
             torch.cuda.current_stream(llr.device).cuda_stream,
         )
-        _raise_on_error(code, "fused_qc_decode")
+        raise_on_error(code, "fused_qc_decode")
         LAUNCHES += 1
         return DecodeResult(dec, conv.bool(), iters)
 

@@ -1,5 +1,5 @@
-"""Monte-Carlo sweep (fixed rate): sweep combinations, batched
-trials through the fused QC kernel, statistics, and the CSV writer.
+"""Monte-Carlo sweep (fixed rate): sweep combinations, batched trials
+through the engine cascade, statistics, and the CSV writer.
 
 Counterpart of ``qkd_ldpc_v_tpu/simulation.py``. The combination sweep,
 the rate-based lookups, ``SimResult``, ``process_trials_results``,
@@ -7,14 +7,25 @@ the rate-based lookups, ``SimResult``, ``process_trials_results``,
 NumPy code (importing that package imports JAX); the CSV is byte-identical
 for identical statistics.
 
-Engine (what ``run_combination`` decodes with):
-  * a QC matrix, ``tpu.use_pallas = true``, a min-sum algorithm, float32:
-    the fused QC trial — the CUDA kernel for tensors on a CUDA device, its
-    plain torch version for tensors on the CPU;
-  * everything else raises ``NotImplementedError`` naming the later port
-    step: ``use_pallas = false`` (the generic torch decoder), non-QC
-    matrices, SPA/SPA-lin, other dtypes, rate adaptation, privacy
-    maintenance and the traced decode path.
+Engines (``select_engine`` names them as the JAX package's
+``pallas_engine`` does, from the same gates; ``tpu.force_engine`` pins
+one):
+  * ``qc``: a QC matrix, ``tpu.use_pallas = true``, float32 — the fused QC
+    trial (``ops/fused_qc.py``);
+  * ``generic``: any other code inside ``fused_generic.generic_feasible``
+    with ``use_pallas`` and float32 — the fused generic trial
+    (``ops/fused_generic.py``);
+  * ``qc_stream`` / ``stream``: codes too large for both fused kernels —
+    not ported yet, ``NotImplementedError``;
+  * ``xla``: ``use_pallas = false`` or dtype float64/bfloat16 — the generic
+    torch decoder (``ops/decoders.py``), all six algorithms.
+The fused trials launch their CUDA kernels for tensors on a CUDA device
+and run their plain torch versions for tensors on the CPU; the ``xla``
+engine runs on the requested device. The SPA pair needs the ``xla``
+engine; code-rate adaptation, privacy maintenance and the traced decode
+path are not ported yet. ``tpu.schedule = layered`` is honoured by the
+``qc`` engine with a min-sum algorithm; elsewhere it warns and floods, as
+in the JAX package.
 
 Random numbers: one ``torch.Generator`` per decode chunk, seeded by
 ``channel.chunk_seed(seed, sim_number, chunk_index)``, draws Alice's keys
@@ -24,6 +35,7 @@ the JAX package's threefry streams in the cross-package tests.
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -42,6 +54,8 @@ from qkd_ldpc_v_tpu_torch.config import (
     ScalingFactorRange,
 )
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix, read_matrix
+from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.channel import (
     chunk_seed,
     exact_error_count,
@@ -50,9 +64,19 @@ from qkd_ldpc_v_tpu_torch.ops.channel import (
     log_ratio,
     random_bits,
 )
+from qkd_ldpc_v_tpu_torch.ops.decoders import make_trial
+from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
+    generic_feasible,
+    make_fused_generic_trial,
+)
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import make_fused_qc_trial
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
 from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 # (sim_number, chunk_index, batch, num_bits) -> (alice int8 [B,N],
 # rand_bits [B,N] uniform 32-bit values), as tensors or arrays.
@@ -305,30 +329,122 @@ def process_trials_results(
 # ---------------------------------------------------------------------------
 
 
-def check_engine(matrix: HMatrix, cfg: Config) -> None:
-    """Raise ``NotImplementedError`` unless the fused QC trial serves this
-    (matrix, config): the only engine ported so far."""
+# The JAX package's engine gates, copied as predicates so that
+# ``select_engine`` names the engine the JAX package would run
+# (ops/pallas_qc.py::feasible_batch_tile > 0 at its smallest tile,
+# ops/pallas_qc_stream.py::qc_stream_feasible, ops/pallas_stream.py::
+# stream_feasible). The byte budgets are the TPU kernels' on-chip memory and
+# say nothing about this port's kernels, which check their own bounds.
+_QC_MAX_BLOCK_EDGES = 420
+_QC_BUDGET = 84 * 1024 * 1024
+_QC_STREAM_BUDGET = 72 * 1024 * 1024
+_QC_MIN_TILE = 8
+
+
+def _qc_blocks(qc: QCMatrix):
+    present = qc.shifts >= 0
+    return int(present.sum()), [int(k) for k in present.sum(axis=1)]
+
+
+def _qc_fused_gate(qc: QCMatrix) -> bool:
+    num_be, _ = _qc_blocks(qc)
+    if qc.lifting % 128 or num_be > _QC_MAX_BLOCK_EDGES:
+        return False
+    nb, mb = qc.base_bits, qc.base_checks
+    planes = num_be + 3 * nb + mb + 2 * nb
+    return planes * qc.lifting * 4 * _QC_MIN_TILE <= _QC_BUDGET
+
+
+def _qc_stream_gate(qc: QCMatrix) -> bool:
+    num_be, row_degrees = _qc_blocks(qc)
+    if qc.lifting % 128 or num_be == 0 or num_be > _QC_MAX_BLOCK_EDGES:
+        return False
+    if min(row_degrees) == 0:
+        return False
+    units = 3 * qc.base_bits + qc.base_checks + 2 * max(row_degrees) + 6
+    return units * _QC_MIN_TILE * qc.lifting * 4 <= _QC_STREAM_BUDGET
+
+
+def _stream_gate(matrix: HMatrix) -> bool:
+    if not matrix.bit_nodes or not matrix.check_nodes:
+        return False
+    dmax_b = max(len(r) for r in matrix.bit_nodes)
+    dmax_c = max(len(r) for r in matrix.check_nodes)
+    return dmax_b * -(-matrix.num_bit_nodes // 128) > 256 and dmax_c < 64
+
+
+def select_engine(matrix: HMatrix, cfg: Config) -> str:
+    """The engine for this (matrix, config): "qc" | "qc_stream" | "generic"
+    | "stream" | "xla", chosen as ``qkd_ldpc_v_tpu.simulation.pallas_engine``
+    chooses it. ``tpu.force_engine`` pins one; a pinned engine that cannot
+    serve the matrix raises ``ValueError``."""
+    if not cfg.use_pallas or cfg.dtype != "float32":
+        return "xla"
+    force = cfg.force_engine
+    if matrix.qc is not None:
+        if force in ("", "qc") and _qc_fused_gate(matrix.qc):
+            return "qc"
+        if force in ("", "qc_stream") and _qc_stream_gate(matrix.qc):
+            return "qc_stream"
+    if force in ("", "generic") and generic_feasible(matrix):
+        return "generic"
+    if force in ("", "stream") and _stream_gate(matrix):
+        return "stream"
+    if force and force != "xla":
+        raise ValueError(
+            f"tpu.force_engine = {force!r} cannot serve this matrix"
+        )
+    return "xla"
+
+
+_UNPORTED_ENGINES = {
+    "qc_stream": "the streamed QC kernel (ops/pallas_qc_stream.py)",
+    "stream": "the HBM-streamed generic kernels (ops/pallas_stream.py)",
+}
+
+
+def check_engine(matrix: HMatrix, cfg: Config) -> str:
+    """The engine ``run_combination`` will run (see ``select_engine``), or
+    ``NotImplementedError`` naming what is not ported yet."""
     reasons = []
     if cfg.enable_code_rate_adaptation:
-        reasons.append("code-rate adaptation (needs the QC kernel's frame mode)")
+        reasons.append("code-rate adaptation (needs the fused kernels' frame mode)")
     if cfg.enable_privacy_maintenance:
         reasons.append("privacy maintenance")
     if cfg.trace_qkd_ldpc or cfg.trace_decoding_alg or cfg.trace_decoding_alg_llr:
         reasons.append("the traced f64 decode path")
-    if not cfg.use_pallas:
-        reasons.append("tpu.use_pallas = false (the generic torch decoder)")
-    if matrix.qc is None:
-        reasons.append("non-QC matrices (the generic kernels)")
-    if cfg.decoding_algorithm not in MIN_SUM:
-        reasons.append(f"{cfg.decoding_algorithm.display_name} (the SPA pair "
-                       "of the fused QC kernel)")
-    if cfg.dtype != "float32":
-        reasons.append(f"tpu.dtype = {cfg.dtype}")
+    engine = select_engine(matrix, cfg)
+    if engine in _UNPORTED_ENGINES:
+        reasons.append(f"the {engine} engine: {_UNPORTED_ENGINES[engine]}")
+    if engine in ("qc", "generic") and cfg.decoding_algorithm not in MIN_SUM:
+        reasons.append(f"{cfg.decoding_algorithm.display_name} in the fused "
+                       f"{engine} kernel (its SPA mode; tpu.use_pallas = false "
+                       "runs it in the generic torch decoder)")
     if reasons:
         raise NotImplementedError(
             "not ported to qkd_ldpc_v_tpu_torch yet: " + "; ".join(reasons)
             + " (see ROADMAP.md, port queue)"
         )
+    return engine
+
+
+def _make_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
+    alg = cfg.decoding_algorithm
+    cap = cfg.decoding_alg_max_iterations
+    use_thr = cfg.enable_msg_llr_threshold
+    layered = engine == "qc" and cfg.schedule == "layered"
+    if cfg.schedule == "layered" and not layered:
+        logger.warning(
+            "tpu.schedule = layered needs a QC engine and a min-sum "
+            "algorithm; using the flooding schedule for this combination."
+        )
+    if engine == "qc":
+        return make_fused_qc_trial(matrix.qc, alg, cap, use_thr,
+                                   schedule="layered" if layered else "flooding")
+    if engine == "generic":
+        return make_fused_generic_trial(matrix, alg, cap, use_thr)
+    return make_trial(layout_for(matrix), alg, cap, use_thr,
+                      _DTYPES[cfg.dtype])
 
 
 def default_key_source(seed: int, device) -> KeySource:
@@ -370,8 +486,9 @@ def run_combination(
     ``tpu.batch_size`` frames (all trials when 0).
 
     Each chunk draws a full batch of keys, injects exactly
-    ``floor(N * QBER)`` errors with 64-bit sort keys, and runs the fused QC
-    trial; a short last chunk keeps its first ``take`` frames. With
+    ``floor(N * QBER)`` errors with 64-bit sort keys, and runs the engine's
+    trial (see ``check_engine``); a short last chunk keeps its first
+    ``take`` frames. With
     throughput measurement on, chunk 0 is run once untimed first, so the
     kernel build and first-call costs stay out of the timings; each chunk's
     timed region starts after a device synchronize and ends when its
@@ -380,7 +497,7 @@ def run_combination(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is available")
-    check_engine(matrix, cfg)
+    engine = check_engine(matrix, cfg)
     n_bits = matrix.num_bit_nodes
     num_errors = exact_error_count(n_bits, comb.config_qber)
     if num_errors == 0:
@@ -390,11 +507,8 @@ def run_combination(
     trials = cfg.trials_number
     batch = cfg.batch_size if cfg.batch_size > 0 else trials
     batch = min(batch, trials)
-    trial = make_fused_qc_trial(
-        matrix.qc, cfg.decoding_algorithm, cfg.decoding_alg_max_iterations,
-        cfg.enable_msg_llr_threshold, schedule=cfg.schedule,
-    )
-    log_p = log_ratio(accurate_qber)
+    trial = _make_trial(engine, matrix, cfg)
+    log_p = log_ratio(accurate_qber, _DTYPES[cfg.dtype])
     scalars = (
         comb.scaling_factors.primary,
         comb.scaling_factors.secondary,

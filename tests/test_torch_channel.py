@@ -100,3 +100,49 @@ def test_exact_error_count_and_keys():
     assert tch.chunk_seed(42, 1, 2) == tch.chunk_seed(42, 1, 2)
     qc = qc_from_arrays(generate_qc_ldpc(8, 4, 128, 3, seed=5).shifts, 128)
     assert qc.num_bit_nodes == 1024
+
+
+@pytest.mark.parametrize("n,qber", [(1024, 0.05), (10240, 0.025), (10240, 0.032)])
+def test_log_ratio_f64_matches_jax_bits(n, qber):
+    """The float64 engine's channel LLR: JAX's f64 log of the f64 ratio."""
+    acc = tch.exact_error_count(n, qber) / n
+    want = np.float64(jax.jit(lambda q: jnp.log((1.0 - q) / q))(
+        jnp.asarray(acc, jnp.float64)))
+    got = tch.log_ratio(acc, torch.float64)
+    assert np.float64(got).tobytes() == want.tobytes()
+
+
+def _irregular_matrices():
+    from qkd_ldpc_v_tpu.models.hmatrix import from_dense as jfrom_dense
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import from_dense as tfrom_dense
+
+    rng = np.random.default_rng(11)
+    dense = (rng.random((40, 100)) < 0.08).astype(np.int8)
+    dense[np.arange(40), rng.integers(0, 100, 40)] = 1
+    dense[rng.integers(0, 40, 100), np.arange(100)] = 1
+    return jfrom_dense(dense), tfrom_dense(dense)
+
+
+def test_layout_syndromes_match_jax():
+    from qkd_ldpc_v_tpu_torch.models.layout import compile_layout
+
+    jm, tm = _irregular_matrices()
+    jl, tl = layout_for(jm), compile_layout(tm)
+    _, _, alice, _ = _jax_bits(6, 5, tm.num_bit_nodes)
+    want = np.asarray(jch.calculate_syndrome(jl, jnp.asarray(alice)))
+    got = tch.calculate_syndrome(tl, torch.tensor(alice))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    bits_int = alice[:, jl.bit_order]
+    np.testing.assert_array_equal(
+        tch.syndrome_internal(tl, torch.tensor(bits_int)).numpy(),
+        np.asarray(jch.syndrome_internal(jl, jnp.asarray(bits_int))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_llr_from_bits_matches_jax(dtype):
+    _, _, alice, _ = _jax_bits(7, 3, 64)
+    want = np.asarray(jch.llr_from_bits(jnp.asarray(alice), 0.031, jnp.dtype(dtype)))
+    got = tch.llr_from_bits(torch.tensor(alice), 0.031, getattr(torch, dtype))
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -1,0 +1,314 @@
+"""Fused generic wrappers (qkd_ldpc_v_tpu_torch/ops/fused_generic.py).
+
+On the CPU the wrappers run their plain torch versions. Those must equal
+the JAX float32 XLA decoder plus ``calculate_syndrome`` and the key
+comparison exactly (conv, keys, iterations and, in decode mode, decisions)
+for the min-sum family with and without the clamp, and hold to the JAX
+fused Pallas decoder (interpret mode, f32 transport) at the tolerance of
+tests/test_pallas_generic.py::test_matches_xla_decoder. The launch counter
+stays 0 on the CPU, and the engine gate equals the JAX package's.
+
+Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
+card and skip without one. They import no JAX, so on a machine without JAX
+they run with the conftest left out:
+
+    python -m pytest tests/test_torch_fused_generic.py -m cuda --noconftest -q
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
+from qkd_ldpc_v_tpu_torch.convert import hmatrix_from_rows
+from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
+from qkd_ldpc_v_tpu_torch.models.hmatrix import from_dense, read_sparse_matrix_alist
+from qkd_ldpc_v_tpu_torch.ops import fused_generic
+from qkd_ldpc_v_tpu_torch.ops.channel import (
+    calculate_syndrome,
+    inject_errors,
+    log_ratio,
+)
+from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+ALIST = REPO / "sparse_matrices" / "matrices_alist"
+CAP = 30
+THRESHOLD = 4.0
+FACTORS = {"NMSA": (0.8, 1.0), "OMSA": (0.3, 1.0), "ANMSA": (0.88, 0.5),
+           "AOMSA": (0.3, 0.6)}
+
+
+def irregular_dense():
+    """tests/test_pallas_generic.py::irregular_matrix: column weights 2..5,
+    mixed row weights."""
+    rng = np.random.default_rng(11)
+    n, m = 288, 144
+    dense = np.zeros((m, n), dtype=np.int8)
+    for col in range(n):
+        rows = rng.choice(m, size=2 + (col % 4), replace=False)
+        dense[rows, col] = 1
+    for row in range(m):
+        if dense[row].sum() == 0:
+            dense[row, rng.integers(0, n)] = 1
+    return dense
+
+
+def _keys(n, batch, num_errors, seed, device="cpu"):
+    rng = np.random.default_rng(seed)
+    alice = torch.tensor(rng.integers(0, 2, (batch, n)), dtype=torch.int8,
+                         device=device)
+    bits = torch.tensor(rng.integers(0, 2**32, (batch, n)), dtype=torch.int64,
+                        device=device)
+    return alice, inject_errors(bits, alice, num_errors, wide=True)
+
+
+@pytest.fixture(scope="module")
+def medium():
+    """The conftest's medium code (N=512, column weight 3) and 16 frames
+    with 40 errors (QBER 0.078), in its waterfall: some frames fail within
+    the cap."""
+    matrix = generate_regular_ldpc(num_bits=512, num_checks=256,
+                                   column_weight=3, seed=3)
+    alice, bob = _keys(512, 16, 40, seed=3)
+    return matrix, alice, bob, log_ratio(40 / 512)
+
+
+def _jax_reference(matrix, alg, use_thr, alice, bob, lp, f1, f2, thr):
+    """JAX float32 XLA decoder + calculate_syndrome + key compare."""
+    import jax.numpy as jnp
+    from qkd_ldpc_v_tpu.config import DecodingAlgorithm as JAlg
+    from qkd_ldpc_v_tpu.models.layout import compile_layout
+    from qkd_ldpc_v_tpu.ops.channel import calculate_syndrome as jsyn
+    from qkd_ldpc_v_tpu.ops.decoders import get_decoder
+    from qkd_ldpc_v_tpu.models.hmatrix import HMatrix as JHMatrix
+
+    jm = JHMatrix([np.asarray(c) for c in matrix.bit_nodes],
+                  [np.asarray(r) for r in matrix.check_nodes],
+                  matrix.is_regular)
+    layout = compile_layout(jm)
+    a = jnp.asarray(alice.numpy())
+    llr = jnp.where(jnp.asarray(bob.numpy()) == 1, -np.float32(lp),
+                    np.float32(lp)).astype(jnp.float32)
+    syn = jsyn(layout, a)
+    res = get_decoder(layout, JAlg[alg], CAP, use_thr, dtype=jnp.float32)(
+        llr, syn, f1, f2, thr)
+    keys = np.all(np.asarray(res.decision) == alice.numpy(), axis=1)
+    return (np.asarray(res.syndromes_match), keys, np.asarray(res.iterations),
+            np.asarray(res.decision), np.asarray(llr), np.asarray(syn))
+
+
+@pytest.mark.parametrize("alg", list(FACTORS))
+@pytest.mark.parametrize("use_thr", [False, True])
+def test_plain_trial_and_decode_equal_jax_xla(medium, alg, use_thr):
+    matrix, alice, bob, lp = medium
+    f1, f2 = FACTORS[alg]
+    thr = THRESHOLD if use_thr else 0.0
+    jconv, jkeys, jiters, jdec, jllr, jsyn = _jax_reference(
+        matrix, alg, use_thr, alice, bob, lp, f1, f2, thr)
+    assert 0 < jconv.sum() < len(jconv)
+    fused_generic.reset_counts()
+    trial = fused_generic.make_fused_generic_trial(matrix, TAlg[alg], CAP,
+                                                   use_thr)
+    conv, keys, iters = trial(alice, bob, lp, f1, f2, thr)
+    np.testing.assert_array_equal(conv.numpy(), jconv)
+    np.testing.assert_array_equal(keys.numpy(), jkeys)
+    np.testing.assert_array_equal(iters.numpy(), jiters)
+    decode = fused_generic.make_fused_generic_decoder(matrix, TAlg[alg], CAP,
+                                                      use_thr)
+    res = decode(torch.tensor(jllr), torch.tensor(jsyn), f1, f2, thr)
+    np.testing.assert_array_equal(res.decision.numpy(), jdec)
+    np.testing.assert_array_equal(res.syndromes_match.numpy(), jconv)
+    np.testing.assert_array_equal(res.iterations.numpy(), jiters)
+    assert fused_generic.counts() == (0, 0)
+
+
+@pytest.mark.parametrize("alg", list(FACTORS))
+def test_plain_decode_holds_to_pallas_generic(medium, alg):
+    """The JAX fused Pallas decoder (interpret mode, f32 transport) and the
+    plain decode: equal convergence; non-adaptive iterations and converged
+    decisions equal; adaptive iterations within 4 (the TPU kernel's
+    decision-in-LSB perturbation), decisions equal where both converge at
+    the same iteration. QBER 0.03, as in that test."""
+    import jax
+    from qkd_ldpc_v_tpu.config import DecodingAlgorithm as JAlg
+    from qkd_ldpc_v_tpu.models.hmatrix import HMatrix as JHMatrix
+    from qkd_ldpc_v_tpu.ops.pallas_generic import make_pallas_generic_decoder
+
+    matrix = medium[0]
+    alice, bob = _keys(512, 8, 15, seed=5)
+    lp = log_ratio(15 / 512)
+    f1, f2 = FACTORS[alg]
+    layout = layout_for(matrix)
+    lpt = torch.tensor(lp)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    syn = calculate_syndrome(layout, alice)
+    jm = JHMatrix([np.asarray(c) for c in matrix.bit_nodes],
+                  [np.asarray(r) for r in matrix.check_nodes],
+                  matrix.is_regular)
+    fused = make_pallas_generic_decoder(jm, JAlg[alg], CAP, True,
+                                        batch_tile=4, interpret=True,
+                                        transport="f32")
+    rk = jax.device_get(fused(llr.numpy(), syn.numpy(), f1, f2, 60.0))
+    res = fused_generic.make_fused_generic_decoder(matrix, TAlg[alg], CAP,
+                                                   True)(llr, syn, f1, f2, 60.0)
+    conv = res.syndromes_match.numpy()
+    np.testing.assert_array_equal(conv, np.asarray(rk.syndromes_match))
+    iters = res.iterations.numpy()
+    if not TAlg[alg].is_adaptive:
+        np.testing.assert_array_equal(iters, rk.iterations)
+        np.testing.assert_array_equal(res.decision.numpy()[conv],
+                                      np.asarray(rk.decision)[conv])
+    else:
+        assert np.abs(iters - rk.iterations).max() <= 4
+        same = conv & (iters == rk.iterations)
+        np.testing.assert_array_equal(res.decision.numpy()[same],
+                                      np.asarray(rk.decision)[same])
+
+
+def test_odd_batch_and_irregular_code():
+    """Bit degrees 2..5 and an odd batch of 5 frames: the plain trial equals
+    the plain decode plus the key compare, and every frame decodes at an
+    easy point."""
+    matrix = from_dense(irregular_dense())
+    assert len(layout_for(matrix).bit_groups) == 4
+    alice, bob = _keys(matrix.num_bit_nodes, 5, 5, seed=19)
+    lp = log_ratio(5 / matrix.num_bit_nodes)
+    trial = fused_generic.make_fused_generic_trial(matrix, TAlg.NMSA, 40, False)
+    conv, keys, iters = trial(alice, bob, lp, 0.8, 1.0, 0.0)
+    assert conv.shape == keys.shape == iters.shape == (5,)
+    assert bool(conv.all()) and bool(keys.all())
+    lpt = torch.tensor(lp)
+    res = fused_generic.make_fused_generic_decoder(matrix, TAlg.NMSA, 40, False)(
+        torch.where(bob == 1, -lpt, lpt),
+        calculate_syndrome(layout_for(matrix), alice), 0.8, 1.0, 0.0)
+    assert res.decision.shape == (5, matrix.num_bit_nodes)
+    assert torch.equal(res.iterations, iters)
+    assert torch.equal((res.decision == alice).all(dim=1), keys)
+
+
+def _staircase(n):
+    """Bit j on checks 0..j (degree j + 1), n bits and n checks: every
+    degree class holds one node, so each pads to a full 128-lane block and
+    the TPU layout's edge rows are sum(1..n)."""
+    dense = np.zeros((n, n), dtype=np.int8)
+    for j in range(n):
+        dense[:j + 1, j] = 1
+    return dense
+
+
+def test_gate_equals_jax_generic_plan_feasible(monkeypatch):
+    from qkd_ldpc_v_tpu.models.hmatrix import from_dense as jfrom_dense
+    from qkd_ldpc_v_tpu.ops import pallas_generic
+    from qkd_ldpc_v_tpu.ops.pallas_generic import generic_plan_feasible
+
+    # The Clos regroup tables come after JAX's tile check and do not bear
+    # on its verdict.
+    monkeypatch.setattr(pallas_generic, "build_permute_plan", lambda g: None)
+    # 15 classes: 120 edge rows, 1 tile; 33 classes: 561 rows, 5 tiles.
+    denses = [irregular_dense(), _staircase(15), _staircase(33)]
+    verdicts = [fused_generic.generic_feasible(from_dense(d)) for d in denses]
+    assert verdicts == [generic_plan_feasible(jfrom_dense(d)) for d in denses]
+    assert verdicts == [True, True, False]
+    # 31 classes: 496 rows, the last code inside 4 tiles.
+    assert fused_generic.generic_feasible(from_dense(_staircase(31)))
+    # More than MAX_TILES * 128 * 128 edges: out before any row count.
+    big = hmatrix_from_rows([np.arange(8 * k, 8 * k + 8) for k in range(8193)],
+                            8 * 8193)
+    assert big.num_edges > 65536
+    assert not fused_generic.generic_feasible(big)
+
+
+def test_wrappers_check_inputs(medium):
+    matrix, alice, bob, lp = medium
+    trial = fused_generic.make_fused_generic_trial(matrix, TAlg.NMSA, CAP, False)
+    with pytest.raises(TypeError):
+        trial(alice.to(torch.int32), bob, lp)
+    with pytest.raises(ValueError):
+        trial(alice[:, :100], bob[:, :100], lp)
+    with pytest.raises(NotImplementedError, match="SPA"):
+        fused_generic.make_fused_generic_trial(matrix, TAlg.SPA, CAP, False)
+    alice_meta = torch.empty(alice.shape, dtype=torch.int8, device="meta")
+    fused_generic.reset_counts()
+    with pytest.raises(NotImplementedError, match="meta"):
+        trial(alice_meta, alice_meta, lp)
+    assert fused_generic.counts() == (0, 0)
+
+
+def test_launch_tables_address_every_edge_once(medium):
+    """The kernel's tables: check-major and bit-major offsets tile the E
+    edges, and the bit-major slots of each bit point at check-major edges
+    whose bit is that bit, in ascending check order."""
+    matrix = medium[0]
+    layout = layout_for(matrix)
+    n, m, e = layout.num_bits, layout.num_checks, layout.num_edges
+    t = fused_generic.launch_tables(layout)
+    assert t.shape == (2 * e + 2 * n + 2 * m + 2,)
+    cptr, t = t[:m + 1], t[m + 1:]
+    cbit, t = t[:e], t[e:]
+    bptr, t = t[:n + 1], t[n + 1:]
+    bedge, t = t[:e], t[e:]
+    bit_ext, chk_ext = t[:n], t[n:]
+    assert cptr[-1] == bptr[-1] == e
+    assert sorted(bedge.tolist()) == list(range(e))
+    check_of_edge = np.repeat(np.arange(m), np.diff(cptr))
+    for i in range(n):
+        edges = bedge[bptr[i]:bptr[i + 1]]
+        assert (cbit[edges] == i).all()
+        ext_checks = chk_ext[check_of_edge[edges]]
+        np.testing.assert_array_equal(ext_checks,
+                                      matrix.bit_nodes[bit_ext[i]])
+
+
+# ---------------------------------------------------------------------------
+# On the card: kernel == plain, exactly.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused generic kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", list(FACTORS))
+@pytest.mark.parametrize("use_thr", [False, True])
+def test_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
+    codes = [
+        (from_dense(irregular_dense()), 0.06),
+        (read_sparse_matrix_alist(ALIST / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"),
+         0.012),
+        (read_sparse_matrix_alist(ALIST / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"),
+         0.032),
+        # At the gate's edge (E = 65536): the messages live in global memory.
+        (generate_regular_ldpc(32768, 16384, 2, seed=1), 0.01),
+    ]
+    f1, f2 = FACTORS[alg]
+    thr = THRESHOLD if use_thr else 0.0
+    for matrix, qber in codes:
+        n = matrix.num_bit_nodes
+        ne = int(n * qber)
+        alice, bob = _keys(n, 63, ne, seed=7, device=cuda_device)
+        lp = log_ratio(ne / n)
+        trial = fused_generic.make_fused_generic_trial(matrix, TAlg[alg], CAP,
+                                                       use_thr)
+        got = trial(alice, bob, lp, f1, f2, thr)
+        want = trial.plain(alice, bob, lp, f1, f2, thr)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        lpt = torch.tensor(lp, device=cuda_device)
+        llr = torch.where(bob == 1, -lpt, lpt)
+        syn = calculate_syndrome(layout_for(matrix), alice)
+        dec = fused_generic.make_fused_generic_decoder(matrix, TAlg[alg], CAP,
+                                                       use_thr)
+        got = dec(llr, syn, f1, f2, thr)
+        want = dec.plain(llr, syn, f1, f2, thr)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())

@@ -132,9 +132,12 @@ def test_qc_assets_read_identically(path):
         t.qc.shifts.tolist()
 
 
-def test_other_matrix_formats_are_not_ported():
-    with pytest.raises(NotImplementedError, match="alist"):
+def test_qc_file_read_as_alist_raises_in_both_packages():
+    with pytest.raises(jhmatrix.MatrixFormatError) as jerr:
+        jhmatrix.read_matrix(HEADLINE, jconfig.MatrixFormat.ALIST)
+    with pytest.raises(thmatrix.MatrixFormatError) as terr:
         thmatrix.read_matrix(HEADLINE, tconfig.MatrixFormat.ALIST)
+    assert str(terr.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("code_rate", [0.35, 0.5, 0.62, 0.7, 0.85, 0.93, 0.995])

@@ -3,14 +3,24 @@ against the JAX package's.
 
 With a ``key_source`` that replays JAX's chunk streams (``trial_keys`` ->
 ``generate_keys`` -> ``jax.random.bits``), the port's ``run_combination``
-on the CPU must equal JAX's ``run_combination`` (``use_pallas = true``:
-the fused Pallas trial kernel in interpret mode) field by field, in both
-schedules, and ``write_file`` must write the same bytes. The CLI runs end
-to end with ``--device cpu``.
+on the CPU must equal JAX's ``run_combination`` field by field, and
+``write_file`` must write the same bytes:
+  * on a QC code, against JAX with ``use_pallas = true`` (the fused Pallas
+    QC trial in interpret mode), in both schedules;
+  * on a 1k alist code, the port's ``generic`` engine and its ``xla``
+    engine in float32 and float64, each against JAX with ``use_pallas =
+    false`` (its XLA decoder; JAX's own generic Pallas kernel is only
+    statistically equal to it).
+The engine cascade names the JAX package's engine on every committed
+asset. The CLI runs end to end with ``--device cpu`` on QC and alist
+workspaces.
 """
 
 import dataclasses
 import json
+import logging
+import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,18 +30,29 @@ import torch
 
 from qkd_ldpc_v_tpu import simulation as jsim
 from qkd_ldpc_v_tpu.config import Config, DecodingAlgorithm, MatrixFormat, RQBERRange
+from qkd_ldpc_v_tpu.models.hmatrix import read_matrix as jread_matrix
 from qkd_ldpc_v_tpu.models.qc import generate_qc_ldpc, write_qc_matrix
 from qkd_ldpc_v_tpu.ops import channel as jch
 from qkd_ldpc_v_tpu.rate_adapt import HMatrixParams as JParams
 from qkd_ldpc_v_tpu_torch import cli as tcli
 from qkd_ldpc_v_tpu_torch import simulation as tsim
-from qkd_ldpc_v_tpu_torch.convert import config_from_dict, qc_from_arrays
-from qkd_ldpc_v_tpu_torch.ops import fused_qc
+from qkd_ldpc_v_tpu_torch.config import MatrixFormat as TFormat
+from qkd_ldpc_v_tpu_torch.convert import (
+    config_from_dict,
+    hmatrix_from_rows,
+    qc_from_arrays,
+)
+from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix as tread_matrix
+from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc
 from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams as TParams
 
 torch.set_num_threads(2)
 
+REPO = Path(__file__).resolve().parent.parent
 QBER = 0.075  # 76 errors in 1024 bits: some frames fail within the cap
+ALIST_DIR = REPO / "sparse_matrices" / "matrices_alist"
+ALIST_1K = ALIST_DIR / "(N=1024,M=384,R=0.62,CW=3,SEED=62).mtrx"
+ALIST_QBER = 0.05  # 51 errors: about half the frames fail within the cap
 
 
 def _jax_cfg(schedule, **kw):
@@ -116,18 +137,140 @@ def test_write_file_matches_jax_with_throughput(tmp_path):
             == jpath.with_suffix(note).read_bytes())
 
 
+def _stream_sized_code():
+    """N=22000, column weight 3, row weight 6: 66000 edges, beyond the
+    generic engine's gate and inside the JAX package's stream gate."""
+    m = 11000
+    rows = [[j, j + m, (j - 3667) % m, (j - 3667) % m + m,
+             (j - 7333) % m, (j - 7333) % m + m] for j in range(m)]
+    return hmatrix_from_rows(rows, 2 * m)
+
+
 @pytest.mark.parametrize("change,match", [
-    (dict(use_pallas=False), "use_pallas"),
+    (dict(enable_code_rate_adaptation=True), "rate adaptation"),
     (dict(decoding_algorithm=DecodingAlgorithm.SPA), "SPA"),
-    (dict(dtype="float64"), "float64"),
+    ("stream-sized", "stream engine"),
     (dict(trace_decoding_alg=True), "traced"),
 ])
 def test_unported_engines_raise(matrices, change, match):
     _, tm = matrices
+    if change == "stream-sized":
+        tm, change = _stream_sized_code(), {}
     tcfg = config_from_dict(dataclasses.asdict(_jax_cfg("flooding", **change)))
     comb = tsim.SimCombination(QBER, TParams(), tsim.ScalingFactors(0.8))
     with pytest.raises(NotImplementedError, match=match):
         tsim.run_combination(tm, comb, tcfg, 0, "cpu")
+
+
+def _alist_cfg(**kw):
+    base = dict(
+        trials_number=24,
+        simulation_seed=5,
+        decoding_algorithm=DecodingAlgorithm.NMSA,
+        decoding_alg_max_iterations=30,
+        matrix_format=MatrixFormat.ALIST,
+        r_qber_ranges=(RQBERRange(0.99, ALIST_QBER, ALIST_QBER, 0.01),),
+        batch_size=16,  # two chunks, the second one short
+        use_pallas=False,
+    )
+    base.update(kw)
+    return Config(**base)
+
+
+@pytest.fixture(scope="module")
+def alist_1k():
+    return (jread_matrix(ALIST_1K, MatrixFormat.ALIST),
+            tread_matrix(ALIST_1K, TFormat.ALIST))
+
+
+@pytest.mark.parametrize("engine,dtype,alg", [
+    ("generic", "float32", DecodingAlgorithm.NMSA),
+    ("xla", "float32", DecodingAlgorithm.NMSA),
+    ("xla", "float64", DecodingAlgorithm.NMSA),
+    ("xla", "float64", DecodingAlgorithm.SPA),
+])
+def test_generic_codes_match_jax_xla(alist_1k, engine, dtype, alg, tmp_path):
+    jm, tm = alist_1k
+    jcfg = _alist_cfg(dtype=dtype, decoding_algorithm=alg)
+    tcfg = config_from_dict(dataclasses.asdict(
+        _alist_cfg(dtype=dtype, decoding_algorithm=alg,
+                   use_pallas=engine == "generic")))
+    assert tsim.select_engine(tm, tcfg) == engine
+    assert jsim.pallas_engine(jm, jcfg) == "xla"
+    jcomb = jsim.SimCombination(ALIST_QBER, JParams(), jsim.ScalingFactors(0.8))
+    tcomb = tsim.SimCombination(ALIST_QBER, TParams(), tsim.ScalingFactors(0.8))
+    want = jsim.run_combination(jm, jcomb, jcfg, sim_number=2)
+    fused_generic.reset_counts()
+    got = tsim.run_combination(tm, tcomb, tcfg, 2, "cpu",
+                               key_source=_jax_key_source(jcfg.simulation_seed))
+    assert fused_generic.counts() == (0, 0)
+    assert 0.0 < got.ratio_trials_success_ldpc < 1.0
+    assert _asdict(got) == _asdict(want)
+    jpath = jsim.write_file([want], jcfg, "00h-00m-01s", tmp_path / "jax")
+    tpath = tsim.write_file([got], tcfg, "00h-00m-01s", tmp_path / "torch")
+    assert tpath.name == jpath.name
+    assert tpath.read_bytes() == jpath.read_bytes()
+
+
+def test_layered_on_a_generic_code_warns_and_floods(alist_1k, caplog):
+    _, tm = alist_1k
+    comb = tsim.SimCombination(ALIST_QBER, TParams(), tsim.ScalingFactors(0.8))
+    results = {}
+    for schedule in ("flooding", "layered"):
+        tcfg = config_from_dict(dataclasses.asdict(
+            _alist_cfg(use_pallas=True, schedule=schedule, trials_number=8,
+                       batch_size=8)))
+        with caplog.at_level(logging.WARNING):
+            results[schedule] = _asdict(tsim.run_combination(tm, comb, tcfg, 0,
+                                                             "cpu"))
+    assert results["layered"] == results["flooding"]
+    assert "using the flooding schedule" in caplog.text
+    forced = config_from_dict(dataclasses.asdict(
+        _alist_cfg(use_pallas=True, force_engine="qc")))
+    with pytest.raises(ValueError, match="force_engine"):
+        tsim.select_engine(tm, forced)
+
+
+def test_cascade_on_the_headline_codes():
+    """qc on the headline QC code, generic on the 10k alist code, stream on
+    the 100k alist code, where the run raises."""
+    cfg = config_from_dict(dataclasses.asdict(_alist_cfg(use_pallas=True)))
+    headline = tread_matrix(
+        REPO / "sparse_matrices" / "matrices_qc"
+        / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx", TFormat.QC)
+    alist_10k = tread_matrix(ALIST_DIR / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx",
+                             TFormat.ALIST)
+    alist_100k = tread_matrix(
+        ALIST_DIR / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx", TFormat.ALIST)
+    assert [tsim.select_engine(m, cfg) for m in (headline, alist_10k, alist_100k)] \
+        == ["qc", "generic", "stream"]
+    comb = tsim.SimCombination(0.03, TParams(), tsim.ScalingFactors(0.8))
+    with pytest.raises(NotImplementedError, match="stream"):
+        tsim.run_combination(alist_100k, comb, cfg, 0, "cpu")
+
+
+_ASSETS = sorted(
+    (path, fmt)
+    for fmt in (MatrixFormat.ALIST, MatrixFormat.SPARSE_1, MatrixFormat.SPARSE_2,
+                MatrixFormat.UNCOMPRESSED, MatrixFormat.QC)
+    for path in (REPO / "sparse_matrices" / fmt.directory_name).glob("*.mtrx")
+)
+
+
+@pytest.mark.parametrize("path,fmt", _ASSETS,
+                         ids=[f"{f.name}-{p.stem}" for p, f in _ASSETS])
+def test_engine_equals_jax_on_every_asset(path, fmt, monkeypatch):
+    # JAX's generic gate compiles the TPU kernel's Clos regroup tables after
+    # its tile check; they take seconds at N=10240 and do not bear on the
+    # verdict.
+    from qkd_ldpc_v_tpu.ops import pallas_generic
+
+    monkeypatch.setattr(pallas_generic, "build_permute_plan", lambda g: None)
+    jm = jread_matrix(path, fmt)
+    tm = tread_matrix(path, TFormat(int(fmt)))
+    jcfg = Config(use_pallas=True)
+    assert tsim.select_engine(tm, config_from_dict(dataclasses.asdict(jcfg))) \
+        == jsim.pallas_engine(jm, jcfg)
 
 
 def test_cuda_request_without_gpu_raises(matrices):
@@ -231,3 +374,37 @@ def test_cli_reports_unported_config(workspace, capsys):
 def test_cli_help_config(capsys):
     assert tcli.main(["--help-config"]) == 0
     assert "tpu.use_pallas" in capsys.readouterr().out
+
+
+@pytest.fixture
+def alist_workspace(tmp_path):
+    configs = tmp_path / "configs"
+    matrices = tmp_path / "sparse_matrices" / "matrices_alist"
+    configs.mkdir(parents=True)
+    matrices.mkdir(parents=True)
+    cfg = _cli_config(matrix_format=1, tpu={"batch_size": 8, "use_pallas": True})
+    cfg["code_rate_QBER_ranges"] = [
+        {"code_rate": 0.99, "QBER": {"begin": 0.04, "end": 0.05, "step": 0.01}}]
+    (configs / "run.json").write_text(json.dumps(cfg))
+    shutil.copy(ALIST_1K, matrices / ALIST_1K.name)
+    return tmp_path
+
+
+def test_cli_end_to_end_on_alist(alist_workspace, capsys):
+    fused_generic.reset_counts()
+    rc = tcli.main([
+        "--configs", str(alist_workspace / "configs"),
+        "--matrices", str(alist_workspace / "sparse_matrices"),
+        "--results", str(alist_workspace / "results"),
+        "--device", "cpu", "--quiet",
+    ])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    csvs = list((alist_workspace / "results").glob("*.csv"))
+    assert len(csvs) == 1
+    lines = csvs[0].read_text().splitlines()
+    assert len(lines) == 3  # header + 2 QBER points
+    assert lines[1].split(";")[1:6] == [ALIST_1K.name, "regular", "0,625",
+                                         "384", "1024"]
+    assert "successfully completed" in out.out
+    assert fused_generic.counts() == (0, 0)
