@@ -24,6 +24,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    an easy QBER and a waterfall QBER where some frames fail, plus cases
    with the message clamp. Conv, keys, iterations and decisions must be
    exactly equal.
+2c. Streamed QC kernel vs plain: the streamed QC kernel against its plain
+   torch version (the same plain versions as the fused QC kernel's), 128
+   frames each, at the N=102400 flagship (Z=2048, 150 block edges): trial
+   and decode modes, flooding and layered, NMSA/OMSA/ANMSA/AOMSA, QBER 0.03
+   and 0.0375 (its waterfall: some frames must fail), plus cases with the
+   message clamp; the 400-block-edge N=102400 code (Z=1024) at QBER 0.03,
+   NMSA and AOMSA; and the headline code forced through the streamed kernel,
+   512 frames, where its outputs must also equal the fused QC kernel's.
+   Conv, keys, iterations and decisions must be exactly equal.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
@@ -35,8 +44,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    configs/campaign_fer_1k_alist.json narrowed to QBER 0.025 (its R=0.78
    bracket, NMSA alpha 0.70, cap 100, flooding), over the committed 10k
    alist asset, through the fused generic kernel.
+3c. 100k QC main path: the CLI on a copy of
+   configs/campaign_fer_sweep_100k.json narrowed to the flagship asset,
+   NMSA alpha 0.8, QBER 0.03, cap 100, 16384 trials in 4096-frame chunks,
+   in both schedules, through the streamed QC kernel (the engine is ``qc``;
+   ``simulation.qc_kernel`` picks the streamed kernel because the fused one
+   cannot hold the code). Each CSV must carry the JAX package's columns and
+   FER <= 0.01; the streamed kernel must have launched, the fused QC kernel
+   not, and no plain version may have run on the card; chunk 0's first 256
+   frames must equal the plain version.
 4. Result: one JSON line of kernel figures, then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
+   (the least time the card could take for the same work) are those of one
+   main-path chunk of phase 3, 3b or 3c (``frames`` frames, layered where
+   the kernel has it); ``plain_ms`` is its plain version on the timed
+   case of phase 2, 2b or 2c (``plain_frames`` frames); ``launches`` is the
+   main path's count.
 
 It imports no JAX. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -55,6 +78,8 @@ REPO = Path(__file__).resolve().parent
 QC_DIR = REPO / "sparse_matrices" / "matrices_qc"
 HEADLINE = QC_DIR / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"
 QC1K = QC_DIR / "(N=1024,M=384,R=0.62,CW=3,Z=128,SEED=33).mtrx"
+FLAGSHIP = QC_DIR / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx"
+QC100K_400BE = QC_DIR / "(N=102400,M=30720,R=0.70,CW=4,Z=1024,SEED=53).mtrx"
 ALIST_DIR = REPO / "sparse_matrices" / "matrices_alist"
 ALIST10K = ALIST_DIR / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"
 ALIST1K_DEG63 = ALIST_DIR / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"
@@ -70,6 +95,23 @@ CSV_COLUMNS = (
     "RATIO_SUCCESS_DEC;RATIO_SUCCESS_LDPC;FER;THROUGHPUT_MEAN;"
     "THROUGHPUT_STD;THROUGHPUT_MIN;THROUGHPUT_MAX;ALPHA"
 )
+
+
+# The least time the card could take for a decode (bound_ms): the larger of
+# the bytes it must move (keys in, statistics out, each once) over the HBM
+# rate and its f32 operations over the f32 rate without FMA (NVIDIA's H100
+# SXM data sheet: 3.35 TB/s; its 67 TFLOP/s of f32 counts an FMA as two
+# operations, so 33.5 T simple operations/s). Operations per edge and
+# iteration that normalized min-sum needs (not the kernels' own loops, which
+# do more): the bit->check message T - E 1; the two-minimum update on |m|
+# 3 (max, min, min; the magnitude is an operand modifier); the sign parity
+# 1 (xor of m's sign bit); the excluded minimum 2 (compare |m| with min1,
+# select); the scale 1; the output sign 2 (row sign xor m's sign bit, applied
+# to the magnitude); the total 1 (flooding: accumulate) or 2 (layered:
+# t + (val - E)); the decision's parity 2 (total <= 0, xor).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+OPS_PER_EDGE = {"flooding": 13, "layered": 14}
 
 
 class SmokeError(RuntimeError):
@@ -98,6 +140,14 @@ def timed(fn, torch, reps=1):
         out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def bound(frames, n, edges, iterations, schedule):
+    """(bound_ms, bound_by) of a trial-mode decode of ``frames`` frames whose
+    iteration counts sum to ``iterations``."""
+    byte_ms = (2 * frames * n + 6 * frames) / HBM_BYTES_PER_S * 1e3
+    op_ms = OPS_PER_EDGE[schedule] * edges * iterations / F32_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
 def max_abs_diff(got, want, torch) -> int:
@@ -176,7 +226,7 @@ def phase_kernel_vs_plain(torch, card):
         check(diff == 0, f"kernel != plain in case {i}")
         if (code_name, qber, schedule, alg, mode, clamp) == (
                 "headline", 0.03, "layered", "NMSA", "trial", False):
-            headline_times = (ms, plain_ms)
+            headline_times = (plain_ms, FRAMES)
     for code_name, _, qbers in codes:
         check(failing[(code_name, qbers[1])] > 0,
               f"{code_name}: no frame failed at QBER {qbers[1]}")
@@ -274,13 +324,106 @@ def phase_generic_vs_plain(torch, card):
         check(diff == 0, f"generic kernel != plain in case 2b-{i}")
         if (code_name, qber, alg, mode, clamp) == (
                 "alist10k", 0.025, "NMSA", "trial", False):
-            times = (ms, plain_ms)
+            times = (plain_ms, FRAMES)
     for code_name, _, qbers, waterfall in codes:
         if waterfall:
             check(failing[(code_name, qbers[-1])] > 0,
                   f"{code_name}: no frame failed at QBER {qbers[-1]}")
     print(f"phase 2b: {len(cases)} cases, generic kernel == plain exactly "
           f"({card})")
+    return worst, times
+
+
+def phase_stream_vs_plain(torch, card):
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio, qc_syndrome)
+    from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+        make_fused_qc_decoder, make_fused_qc_trial)
+    from qkd_ldpc_v_tpu_torch.ops.qc_stream import (
+        make_qc_stream_decoder, make_qc_stream_trial)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
+    dev = torch.device("cuda")
+    flagship, wide, headline = (read_qc_matrix(p) for p in
+                                (FLAGSHIP, QC100K_400BE, HEADLINE))
+    factors = dict(FACTORS, NMSA=(0.8, 1.0))  # alpha 0.8: the flagship's
+    # (name, code, frames, QBER, schedule, alg, mode, clamp); QBER 0.0375 is
+    # in the flagship's waterfall and 0.036 in the headline code's.
+    cases = []
+    for qber in (0.03, 0.0375):
+        for schedule in ("flooding", "layered"):
+            for alg in factors:
+                for mode in ("trial", "decode"):
+                    cases.append(("flagship", flagship, 128, qber, schedule,
+                                  alg, mode, False))
+    for schedule in ("flooding", "layered"):
+        for mode in ("trial", "decode"):
+            cases.append(("flagship", flagship, 128, 0.0375, schedule,
+                          "NMSA", mode, True))
+    for schedule in ("flooding", "layered"):
+        for alg in ("NMSA", "AOMSA"):
+            cases.append(("qc100k_400be", wide, 128, 0.03, schedule, alg,
+                          "trial", False))
+    for qber in (0.03, 0.036):
+        for schedule in ("flooding", "layered"):
+            for mode in ("trial", "decode"):
+                cases.append(("headline", headline, FRAMES, qber, schedule,
+                              "NMSA", mode, False))
+
+    keys = {}
+    worst = 0
+    times = None
+    failing = {}
+    for i, (code_name, qc, frames, qber, schedule, alg, mode,
+            clamp) in enumerate(cases):
+        n = qc.num_bit_nodes
+        if (code_name, qber) not in keys:
+            alice, bits = default_key_source(13, dev)(0, len(keys), frames, n)
+            ne = exact_error_count(n, qber)
+            keys[(code_name, qber)] = (
+                alice, inject_errors(bits, alice, ne, wide=True),
+                log_ratio(ne / n))
+        alice, bob, lp = keys[(code_name, qber)]
+        f1, f2 = factors[alg]
+        thr = THRESHOLD if clamp else 0.0
+        algorithm = DecodingAlgorithm[alg]
+        if mode == "trial":
+            fn = make_qc_stream_trial(qc, algorithm, 100, clamp, schedule)
+            fused = make_fused_qc_trial
+            args = (alice, bob, lp, f1, f2, thr)
+        else:
+            fn = make_qc_stream_decoder(qc, algorithm, 100, clamp, schedule)
+            fused = make_fused_qc_decoder
+            lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
+            args = (torch.where(bob == 1, -lpt, lpt), qc_syndrome(qc, alice),
+                    f1, f2, thr)
+        fn(*args)  # first launch of this configuration, untimed
+        got, ms = timed(lambda: fn(*args), torch, reps=3)
+        want, plain_ms = timed(lambda: fn.plain(*args), torch)
+        got, want = tuple(got), tuple(want)
+        diff = max_abs_diff(got, want, torch)
+        if code_name == "headline":
+            other = fused(qc, algorithm, 100, clamp, schedule)(*args)
+            diff = max(diff, max_abs_diff(got, tuple(other), torch))
+        worst = max(worst, diff)
+        conv = got[0] if mode == "trial" else got[1]
+        n_fail = int((~conv).sum().item())
+        failing[(code_name, qber)] = failing.get((code_name, qber), 0) + n_fail
+        print(f"case 2c-{i:02d} {code_name} N={n} {mode} {schedule} {alg} "
+              f"qber={qber} clamp={clamp}: unconverged={n_fail}/{frames} "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} max_abs_err={diff}",
+              flush=True)
+        check(diff == 0, f"streamed kernel != plain (or fused) in case 2c-{i}")
+        if (code_name, qber, schedule, alg, mode, clamp) == (
+                "flagship", 0.03, "layered", "NMSA", "trial", False):
+            times = (plain_ms, frames)
+    for code_name, qber in (("flagship", 0.0375), ("headline", 0.036)):
+        check(failing[(code_name, qber)] > 0,
+              f"{code_name}: no frame failed at QBER {qber}")
+    print(f"phase 2c: {len(cases)} cases, streamed kernel == plain exactly, "
+          f"== fused on the headline code ({card})")
     return worst, times
 
 
@@ -357,9 +500,12 @@ def phase_generic_main_path(torch, card):
     args = (log_ratio(ne / n), comb.scaling_factors.primary,
             comb.scaling_factors.secondary, run_cfg.msg_llr_threshold)
     full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
+    chunk_bound = bound(run_cfg.batch_size, n, matrix.num_edges,
+                        int(full[2].sum().item()), "flooding")
     print(f"generic main path: one {run_cfg.batch_size}-frame chunk: "
           f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
-          f"fused_generic kernel {kernel_ms:.2f} ms (card={card})")
+          f"fused_generic kernel {kernel_ms:.2f} ms "
+          f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}; card={card})")
     got = [t[:1024] for t in full]
     want = trial.plain(alice[:1024].contiguous(), bob[:1024].contiguous(),
                        *args)
@@ -367,7 +513,7 @@ def phase_generic_main_path(torch, card):
     check(diff == 0, "alist: chunk-0 kernel stats != plain")
     print(f"generic main path: chunk 0 frames 0-1023 kernel == plain "
           f"({path.name})")
-    return launches, diff
+    return launches, diff, (kernel_ms, *chunk_bound, run_cfg.batch_size)
 
 
 def read_csv(results_dir: Path):
@@ -384,7 +530,7 @@ def read_csv(results_dir: Path):
 def phase_main_path(torch, card):
     from qkd_ldpc_v_tpu_torch import cli
     from qkd_ldpc_v_tpu_torch.config import parse_config_data
-    from qkd_ldpc_v_tpu_torch.ops import fused_qc
+    from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
     from qkd_ldpc_v_tpu_torch.ops.channel import (
         exact_error_count, inject_errors, log_ratio)
     from qkd_ldpc_v_tpu_torch.simulation import (
@@ -409,6 +555,7 @@ def phase_main_path(torch, card):
         runs[schedule] = cdir
 
     fused_qc.reset_counts()
+    qc_stream.reset_counts()
     walls = {}
     for schedule, cdir in runs.items():
         t0 = time.perf_counter()
@@ -423,6 +570,8 @@ def phase_main_path(torch, card):
           f"plain calls on the card={plain_on_cuda}")
     check(launches > 0, "the main path launched no kernel")
     check(plain_on_cuda == 0, "the main path ran the plain version on the card")
+    check(qc_stream.counts() == (0, 0),
+          "the headline main path went to the streamed kernel")
 
     worst = 0
     dev = torch.device("cuda")
@@ -461,9 +610,16 @@ def phase_main_path(torch, card):
         args = (log_ratio(ne / n), comb.scaling_factors.primary,
                 comb.scaling_factors.secondary, cfg.msg_llr_threshold)
         full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
+        edges = len(qc.block_edges) * qc.lifting
+        chunk_bound = bound(cfg.batch_size, n, edges,
+                            int(full[2].sum().item()), schedule)
+        if schedule == "layered":
+            chunk_times = (kernel_ms, *chunk_bound, cfg.batch_size)
         print(f"main path {schedule}: one {cfg.batch_size}-frame chunk: "
               f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
-              f"fused_qc kernel {kernel_ms:.2f} ms (card={card})")
+              f"fused_qc kernel {kernel_ms:.2f} ms "
+              f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}; "
+              f"card={card})")
         got = [t[:1024] for t in full]
         want = trial.plain(alice[:1024].contiguous(), bob[:1024].contiguous(),
                            *args)
@@ -472,7 +628,128 @@ def phase_main_path(torch, card):
         check(diff == 0, f"{schedule}: chunk-0 kernel stats != plain")
         print(f"main path {schedule}: chunk 0 frames 0-1023 kernel == plain "
               f"({path.name})")
-    return launches, worst
+    return launches, worst, chunk_times
+
+
+def phase_stream_main_path(torch, card):
+    from qkd_ldpc_v_tpu_torch import cli
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        default_key_source, prepare_sim_inputs, qc_kernel, select_engine)
+
+    work = REPO / "build" / "chip_smoke_qc100k"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_qc"
+    matrices.mkdir(parents=True)
+    (matrices / FLAGSHIP.name).symlink_to(FLAGSHIP)
+    base = json.loads(
+        (REPO / "configs" / "campaign_fer_sweep_100k.json").read_text())
+    base["trials_number"] = 16384
+    base["tpu"]["batch_size"] = 4096
+    # The flagship (R=0.70) falls in the R=0.71 bracket: QBER 0.03 and
+    # alpha 0.8, bench.py's qc100k leg and this code's optimum.
+    for bracket in base["code_rate_QBER_ranges"]:
+        if bracket["code_rate"] == 0.71:
+            bracket["QBER"] = {"begin": 0.03, "end": 0.03, "step": 0.004}
+    for amap in base["min_sum_normalized_parameters"]["code_rate_alpha_maps"]:
+        if amap["code_rate"] == 0.71:
+            amap["alpha"] = 0.8
+    runs = {}
+    for schedule in ("layered", "flooding"):
+        cfg = json.loads(json.dumps(base))
+        cfg["tpu"]["schedule"] = schedule
+        cdir = work / f"configs_{schedule}"
+        cdir.mkdir()
+        (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+        runs[schedule] = cdir
+
+    fused_qc.reset_counts()
+    qc_stream.reset_counts()
+    walls = {}
+    for schedule, cdir in runs.items():
+        t0 = time.perf_counter()
+        rc = cli.main(["--configs", str(cdir), "--matrices",
+                       str(work / "sparse_matrices"), "--results",
+                       str(work / f"results_{schedule}"), "--device", "cuda",
+                       "--quiet"])
+        walls[schedule] = time.perf_counter() - t0
+        check(rc == 0, f"CLI (qc100k, {schedule}) returned {rc}")
+    launches, plain_on_cuda = qc_stream.counts()
+    fused_launches, fused_plain = fused_qc.counts()
+    print(f"qc100k main path: streamed kernel launches={launches} "
+          f"fused QC launches={fused_launches} plain calls on the card="
+          f"{plain_on_cuda + fused_plain}")
+    check(launches > 0, "the 100k main path launched no streamed kernel")
+    check(fused_launches == 0, "the 100k main path launched the fused kernel")
+    check(plain_on_cuda + fused_plain == 0,
+          "the 100k main path ran a plain version on the card")
+
+    worst = 0
+    dev = torch.device("cuda")
+    for schedule, cdir in runs.items():
+        path, row = read_csv(work / f"results_{schedule}")
+        check(row["N"] == "102400", f"N = {row['N']}")
+        check(row["CONFIG_QBER"] == "0,0300", f"QBER = {row['CONFIG_QBER']}")
+        check(row["ALPHA"] == "0,800", f"alpha = {row['ALPHA']}")
+        fer = float(row["FER"].replace(",", "."))
+        check(fer <= 0.01, f"qc100k {schedule}: FER {fer} > 0.01")
+        cfg = parse_config_data(cdir / "run.json")
+        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+        us_per_frame = 102400 * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
+        print(f"qc100k main path {schedule}: FER={fer} "
+              f"iter_mean={row['ITER_SUCCESS_MEAN']} "
+              f"decode_frames_per_s={1e6 / us_per_frame:.0f} "
+              f"(chunk timers, RTT removed) "
+              f"cli_wall_frames_per_s={cfg.trials_number / walls[schedule]:.0f} "
+              f"(whole CLI call, {walls[schedule]:.1f} s) card={card}",
+              flush=True)
+
+        # Chunk 0 of combination 0 again: kernel on the whole chunk as the
+        # main path ran it, plain on its first 256 frames.
+        sim_in = prepare_sim_inputs([FLAGSHIP], cfg)[0]
+        comb = sim_in.combinations[0]
+        check(qc_kernel(sim_in.matrix.qc, select_engine(sim_in.matrix, cfg),
+                        schedule == "layered") == "qc_stream",
+              "qc_kernel does not pick the streamed kernel")
+        qc = sim_in.matrix.qc
+        n = qc.num_bit_nodes
+        ne = exact_error_count(n, comb.config_qber)
+        (alice, bits), keys_ms = timed(
+            lambda: default_key_source(cfg.simulation_seed, dev)(
+                0, 0, cfg.batch_size, n), torch)
+        bob, errors_ms = timed(
+            lambda: inject_errors(bits, alice, ne, wide=True), torch)
+        del bits
+        trial = qc_stream.make_qc_stream_trial(
+            qc, cfg.decoding_algorithm, cfg.decoding_alg_max_iterations,
+            cfg.enable_msg_llr_threshold, cfg.schedule)
+        args = (log_ratio(ne / n), comb.scaling_factors.primary,
+                comb.scaling_factors.secondary, cfg.msg_llr_threshold)
+        full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
+        edges = len(qc.block_edges) * qc.lifting
+        chunk_bound = bound(cfg.batch_size, n, edges,
+                            int(full[2].sum().item()), schedule)
+        if schedule == "layered":
+            chunk_times = (kernel_ms, *chunk_bound, cfg.batch_size)
+        print(f"qc100k main path {schedule}: one {cfg.batch_size}-frame "
+              f"chunk: keys {keys_ms:.2f} ms, error injection "
+              f"{errors_ms:.2f} ms, qc_stream kernel {kernel_ms:.2f} ms "
+              f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}), mean "
+              f"iterations {full[2].float().mean().item():.2f} (card={card})",
+              flush=True)
+        got = [t[:256] for t in full]
+        want = trial.plain(alice[:256].contiguous(), bob[:256].contiguous(),
+                           *args)
+        diff = max_abs_diff(got, want, torch)
+        worst = max(worst, diff)
+        check(diff == 0, f"qc100k {schedule}: chunk-0 kernel stats != plain")
+        print(f"qc100k main path {schedule}: chunk 0 frames 0-255 kernel == "
+              f"plain ({path.name})")
+    return launches, worst, chunk_times
 
 
 def main() -> int:
@@ -501,31 +778,34 @@ def main() -> int:
 
     worst2, headline_times = phase_kernel_vs_plain(torch, card)
     worst2b, generic_times = phase_generic_vs_plain(torch, card)
-    launches, worst3 = phase_main_path(torch, card)
-    generic_launches, worst3b = phase_generic_main_path(torch, card)
+    worst2c, stream_times = phase_stream_vs_plain(torch, card)
+    launches, worst3, chunk3 = phase_main_path(torch, card)
+    generic_launches, worst3b, chunk3b = phase_generic_main_path(torch, card)
+    stream_launches, worst3c, chunk3c = phase_stream_main_path(torch, card)
     check("jax" not in sys.modules, "jax was imported")
 
-    ms, plain_ms = headline_times
-    generic_ms, generic_plain_ms = generic_times
-    print(json.dumps({"kernels": [{
-        "name": "fused_qc",
-        "route": "cuda",
-        "source": "qkd_ldpc_v_tpu_torch/csrc/fused_qc.cu",
-        "replaces": "qkd_ldpc_v_tpu/ops/pallas_qc.py:249",
-        "launches": launches,
-        "max_abs_err": max(worst2, worst3),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "fused_generic",
-        "route": "cuda",
-        "source": "qkd_ldpc_v_tpu_torch/csrc/fused_generic.cu",
-        "replaces": "qkd_ldpc_v_tpu/ops/pallas_generic.py:395",
-        "launches": generic_launches,
-        "max_abs_err": max(worst2b, worst3b),
-        "ms": generic_ms,
-        "plain_ms": generic_plain_ms,
-    }]}))
+    def entry(name, source, replaces, launches, worst, chunk, case):
+        # ms and bound_ms: one main-path chunk (phase 3, 3b or 3c; layered
+        # where the kernel has it), at the fill the main path runs at.
+        # plain_ms: the plain version on the phase-2 timed case.
+        ms, bound_ms, bound_by, frames = chunk
+        plain_ms, plain_frames = case
+        return {"name": name, "route": "cuda",
+                "source": f"qkd_ldpc_v_tpu_torch/csrc/{source}",
+                "replaces": f"qkd_ldpc_v_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": worst, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None, "frames": frames,
+                "plain_frames": plain_frames}
+
+    print(json.dumps({"kernels": [
+        entry("fused_qc", "fused_qc.cu", "pallas_qc.py:249", launches,
+              max(worst2, worst3), chunk3, headline_times),
+        entry("fused_generic", "fused_generic.cu", "pallas_generic.py:395",
+              generic_launches, max(worst2b, worst3b), chunk3b, generic_times),
+        entry("qc_stream", "qc_stream.cu", "pallas_qc_stream.py:207",
+              stream_launches, max(worst2c, worst3c), chunk3c, stream_times),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

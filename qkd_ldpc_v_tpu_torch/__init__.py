@@ -3,9 +3,11 @@
 QKD LDPC information reconciliation on an NVIDIA H100: the fixed-rate
 Monte-Carlo sweep over codes in all five matrix formats (alist, format 1,
 format 2, dense, quasi-cyclic). The min-sum decoders (NMSA, OMSA, ANMSA,
-AOMSA) run through two hand-written fused kernels: the QC decoder
-(``csrc/fused_qc.cu``, flooding or layered) and the generic decoder for
-arbitrary sparse codes (``csrc/fused_generic.cu``, flooding). The generic
+AOMSA) run through three hand-written kernels: the fused QC decoder
+(``csrc/fused_qc.cu``, flooding or layered), the streamed QC decoder for QC
+codes too large for it, such as the N=102400 codes (``csrc/qc_stream.cu``,
+flooding or layered), and the fused generic decoder for arbitrary sparse
+codes (``csrc/fused_generic.cu``, flooding). The generic
 torch decoder (``ops/decoders.py``) runs all six algorithms in float32,
 float64 or bfloat16 when ``tpu.use_pallas`` is false. CPU tensors run the
 kernels' plain torch versions. The JAX package ``qkd_ldpc_v_tpu`` is the
@@ -32,6 +34,7 @@ from qkd_ldpc_v_tpu_torch.models.qc import (  # noqa: F401
 from qkd_ldpc_v_tpu_torch.simulation import (  # noqa: F401
     SimResult,
     prepare_sim_inputs,
+    qc_kernel,
     qkd_ldpc_batch_simulation,
     run_combination,
     select_engine,

@@ -54,9 +54,12 @@ ported so far:
   enable_code_rate_adaptation   false.
   enable_privacy_maintenance    false.
   trace_*                       false.
-  tpu.use_pallas                true: the fused kernels (CUDA) or their
-                                plain torch versions (CPU) — the QC kernel
-                                for QC codes, the generic kernel for the
+  tpu.use_pallas                true: the hand-written kernels (CUDA) or
+                                their plain torch versions (CPU) — the
+                                fused QC kernel for QC codes it holds, the
+                                streamed QC kernel for larger QC codes (the
+                                N=102400 suite; simulation.qc_kernel
+                                chooses), the fused generic kernel for the
                                 other codes inside its gate; false: the
                                 generic torch decoder.
   tpu.batch_size                frames per device batch (0 = all trials).
@@ -65,14 +68,15 @@ ported so far:
                                 floods).
   tpu.dtype                     float32 (all engines) | float64 | bfloat16
                                 (the generic torch decoder).
-  tpu.force_engine              "" | qc | generic | xla (qc_stream and
-                                stream are not ported).
+  tpu.force_engine              "" | qc | qc_stream | generic | xla
+                                (qc_stream: the streamed QC kernel for any
+                                QC code; stream is not ported).
 
-Codes too large for both fused kernels (the JAX package's qc_stream and
-stream engines) and anything else not listed raise NotImplementedError
-naming the port step that brings it. Results: one CSV per config,
-semicolon-separated with comma decimal marks, byte-compatible with
-qkd_ldpc_v_tpu's.
+Codes too large for the generic kernel (the JAX package's stream engine,
+e.g. the 100k alist code) and anything else not listed raise
+NotImplementedError naming the port step that brings it. Results: one CSV
+per config, semicolon-separated with comma decimal marks, byte-compatible
+with qkd_ldpc_v_tpu's.
 """
 
 

@@ -1,5 +1,5 @@
 """Fused QC decoder: wrappers of the hand-written CUDA kernel and their plain
-torch versions.
+torch versions, and the wrapper body both QC kernels share.
 
 Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_qc.py`` (``make_pallas_qc_trial``
 and ``make_pallas_qc_decoder``; the kernel is ``csrc/fused_qc.cu``):
@@ -14,16 +14,25 @@ and ``make_pallas_qc_decoder``; the kernel is ``csrc/fused_qc.cu``):
 Routing is by the tensors' device and nothing else: CPU tensors go to the
 plain version (``ops/qc_decoder.py``), CUDA tensors launch the kernel, and
 any other device raises. There is no fallback from a failed launch.
+``qc_trial`` and ``qc_decoder`` hold that body once; the streamed QC kernel
+(``ops/qc_stream.py``) uses them with its own launch plan.
 
-Counters: ``LAUNCHES`` counts kernel launches; ``PLAIN_ON_CUDA`` counts
-plain-version calls on CUDA tensors, which only tests and the card smoke's
-comparisons make. ``reset_counts`` zeroes both.
+``fused_qc_fits(qc, layered)`` says, without building anything, whether the
+kernel holds a code: Z, the block-edge count and the base rows within its
+limits, and one frame's totals (and, flooding, its channel LLRs) within a
+block's shared memory. Codes beyond it run on the streamed QC kernel;
+``simulation.qc_kernel`` makes that choice.
+
+Counters: ``COUNTS.launches`` counts kernel launches;
+``COUNTS.plain_on_cuda`` counts plain-version calls on CUDA tensors, which
+only tests and the card smoke's comparisons make. ``reset_counts`` zeroes
+both and ``counts`` reads them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -40,39 +49,78 @@ from qkd_ldpc_v_tpu_torch.ops.qc_decoder import (
 )
 from qkd_ldpc_v_tpu_torch.utils import PlanCache
 
-LAUNCHES = 0
-PLAIN_ON_CUDA = 0
+
+class KernelCounts:
+    """One kernel's counters: launches of the kernel, and calls of its plain
+    version on CUDA tensors."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self.plain_on_cuda = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_on_cuda = 0
+
+    def get(self) -> Tuple[int, int]:
+        """(kernel launches, plain-version calls on CUDA tensors)."""
+        return self.launches, self.plain_on_cuda
+
+    def count_plain(self, t: torch.Tensor) -> None:
+        if t.device.type == "cuda":
+            self.plain_on_cuda += 1
+
+
+COUNTS = KernelCounts()
+reset_counts = COUNTS.reset
+counts = COUNTS.get
 
 # Shared memory one block may use on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
+# The kernel's limits (csrc/fused_qc.cu: kMaxZ, kMaxBlockEdges,
+# kMaxBaseChecks; a card test holds them equal to the library's).
+MAX_LIFTING = 1024
+MAX_BLOCK_EDGES = 256
+MAX_BASE_CHECKS = 64
 
 _TABLES = PlanCache()
 _SIGNATURES_SET = False
 
 
-def reset_counts() -> None:
-    global LAUNCHES, PLAIN_ON_CUDA
-    LAUNCHES = 0
-    PLAIN_ON_CUDA = 0
-
-
-def _count_plain(t: torch.Tensor) -> None:
-    global PLAIN_ON_CUDA
-    if t.device.type == "cuda":
-        PLAIN_ON_CUDA += 1
-
-
-def _check_schedule(schedule: str) -> bool:
+def check_schedule(schedule: str) -> bool:
+    """True for layered; raises on an unknown schedule."""
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
     return schedule == "layered"
 
 
-def _plain_decode(qc, llr, syndrome, algorithm, max_iterations,
-                  use_threshold, layered, primary, secondary, threshold):
+def plain_decode(qc, llr, syndrome, algorithm, max_iterations,
+                 use_threshold, layered, primary, secondary, threshold):
+    """The QC kernels' plain version (``ops/qc_decoder.py``)."""
     fn = decode_layered if layered else decode_flooding
     return fn(qc, llr, syndrome, algorithm, max_iterations, use_threshold,
               primary, secondary, threshold)
+
+
+def kernel_flags(algorithm: DecodingAlgorithm, layered: bool) -> int:
+    """The QC kernels' template flags: bit 0 layered, bit 1 adaptive, bit 2
+    offset (OMSA/AOMSA)."""
+    offset = algorithm in (DecodingAlgorithm.OMSA, DecodingAlgorithm.AOMSA)
+    return int(layered) | (int(algorithm.is_adaptive) << 1) | (int(offset) << 2)
+
+
+def block_edge_table(qc: QCMatrix) -> List[int]:
+    """The QC kernels' block-edge table: row_ptr[mb+1], cols[num_be],
+    shifts[num_be], in storage order."""
+    rows, _, _ = base_tables(qc)
+    row_ptr = [0]
+    cols, shifts = [], []
+    for row in rows:
+        for (_, c, s) in row:
+            cols.append(c)
+            shifts.append(s)
+        row_ptr.append(len(cols))
+    return row_ptr + cols + shifts
 
 
 def _lib() -> ctypes.CDLL:
@@ -94,58 +142,84 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def limit_reason(qc: QCMatrix, max_lifting: int, max_block_edges: int,
+                 max_base_checks: int) -> Optional[str]:
+    """Which of a QC kernel's size limits this code exceeds, or None."""
+    sizes = (
+        (qc.lifting, max_lifting, "lifting size Z"),
+        (len(qc.block_edges), max_block_edges, "block edges"),
+        (qc.base_checks, max_base_checks, "base checks"),
+    )
+    for value, limit, what in sizes:
+        if value > limit:
+            return f"{what} = {value} exceeds {limit}"
+    return None
+
+
+def _unfit_reason(qc: QCMatrix, layered: bool) -> Optional[str]:
+    """Why the fused kernel cannot hold this code, or None where it can."""
+    reason = limit_reason(qc, MAX_LIFTING, MAX_BLOCK_EDGES, MAX_BASE_CHECKS)
+    if reason is not None:
+        return reason
+    shared = 4 * (qc.base_checks + 1 + 2 * len(qc.block_edges)) + \
+        (1 if layered else 2) * 4 * qc.num_bit_nodes
+    if shared > MAX_SHARED_BYTES:
+        return (f"{shared} bytes of shared memory per frame exceed "
+                f"{MAX_SHARED_BYTES}")
+    return None
+
+
+def fused_qc_fits(qc: QCMatrix, layered: bool) -> bool:
+    """Whether the fused kernel holds this code (its limits above and one
+    frame's totals in shared memory). Pure Python: routing needs no build."""
+    return _unfit_reason(qc, layered) is None
+
+
+def pointers(*tensors: torch.Tensor) -> List[int]:
+    return [t.data_ptr() for t in tensors]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 class _Launch:
-    """Host-side launch plan of one code on one device: the block-edge table
-    (row_ptr[mb+1], cols[num_be], shifts[num_be] int32, storage order) and
-    the size checks the kernel needs."""
+    """Launch plan of one code on one device: the block-edge table
+    (row_ptr[mb+1], cols[num_be], shifts[num_be] int32, storage order).
+    ``trial`` and ``decode`` launch the kernel and return its CUDA error
+    code (arguments: see ``qc_trial`` and ``qc_decoder``)."""
 
     def __init__(self, qc: QCMatrix, layered: bool, device: torch.device):
-        rows, _, num_be = base_tables(qc)
-        row_ptr = [0]
-        cols, shifts = [], []
-        for row in rows:
-            for (_, c, s) in row:
-                cols.append(c)
-                shifts.append(s)
-            row_ptr.append(len(cols))
-        self.mb, self.nb, self.z = qc.base_checks, qc.base_bits, qc.lifting
-        self.num_be = num_be
-        lib = _lib()
-        limits = (
-            (self.z, lib.fused_qc_max_lifting(), "lifting size Z"),
-            (num_be, lib.fused_qc_max_block_edges(), "block edges"),
-            (self.mb, lib.fused_qc_max_base_checks(), "base checks"),
-        )
-        for value, limit, what in limits:
-            if value > limit:
-                raise NotImplementedError(
-                    f"fused QC kernel: {what} = {value} exceeds {limit}; "
-                    "larger codes need the streamed QC kernel (ROADMAP)"
-                )
-        shared = 4 * (self.mb + 1 + 2 * num_be) + \
-            (1 if layered else 2) * 4 * qc.num_bit_nodes
-        if shared > MAX_SHARED_BYTES:
+        reason = _unfit_reason(qc, layered)
+        if reason is not None:
             raise NotImplementedError(
-                f"fused QC kernel: {shared} bytes of shared memory per frame "
-                f"exceed {MAX_SHARED_BYTES}; larger codes need the streamed "
-                "QC kernel (ROADMAP)"
+                f"fused QC kernel: {reason}; larger codes need the streamed "
+                "QC kernel (ops/qc_stream.py)"
             )
-        self.table = torch.tensor(row_ptr + cols + shifts, dtype=torch.int32,
+        self.table = torch.tensor(block_edge_table(qc), dtype=torch.int32,
                                   device=device)
+        self.shape = (self.table.data_ptr(), qc.base_checks, qc.base_bits,
+                      qc.lifting, len(qc.block_edges))
+
+    def trial(self, alice, bob, scalars, outs) -> int:
+        return _lib().fused_qc_trial(
+            *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
+            *pointers(*outs), stream_of(alice))
+
+    def decode(self, llr, syndrome, scalars, outs) -> int:
+        return _lib().fused_qc_decode(
+            *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
+            *pointers(*outs), stream_of(llr))
 
 
-def _launch_plan(qc: QCMatrix, layered: bool, device) -> _Launch:
+def _launch_plan(qc: QCMatrix, flags: int, device) -> _Launch:
+    layered = bool(flags & 1)
     key = (layered, str(device))
     plan = _TABLES.get(qc, extra=key)
     if plan is None:
         plan = _Launch(qc, layered, device)
         _TABLES.put(qc, plan, extra=key)
     return plan
-
-
-def _flags(algorithm: DecodingAlgorithm, layered: bool) -> int:
-    offset = algorithm in (DecodingAlgorithm.OMSA, DecodingAlgorithm.AOMSA)
-    return int(layered) | (int(algorithm.is_adaptive) << 1) | (int(offset) << 2)
 
 
 def check_tensor(name, t, dtype, shape, device):
@@ -164,6 +238,101 @@ def raise_on_error(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
+def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
+             qc: QCMatrix, algorithm: DecodingAlgorithm, max_iterations: int,
+             use_threshold: bool, schedule: str) -> Callable:
+    """The trial wrapper of the QC kernel named ``kernel``, counted in
+    ``counts``. ``plan_for(qc, flags, device)`` gives its launch plan, whose
+    ``trial(alice, bob, scalars, outs)`` launches it with ``scalars =
+    (flags, use_threshold, max_iterations, log_p, primary, secondary,
+    threshold)`` and ``outs = (conv, keys, iters)``."""
+    check_algorithm(algorithm)
+    layered = check_schedule(schedule)
+    flags = kernel_flags(algorithm, layered)
+    n = qc.num_bit_nodes
+
+    def plain(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
+        counts.count_plain(alice)
+        lp = torch.tensor(log_p, dtype=torch.float32, device=alice.device)
+        llr = torch.where(bob == 1, -lp, lp)
+        res = plain_decode(qc, llr, qc_syndrome(qc, alice), algorithm,
+                           max_iterations, use_threshold, layered, primary,
+                           secondary, threshold)
+        keys = (res.decision == alice).all(dim=1)
+        return res.syndromes_match, keys, res.iterations
+
+    def trial(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
+        b = alice.shape[0]
+        check_tensor("alice", alice, torch.int8, (b, n), alice.device)
+        check_tensor("bob", bob, torch.int8, (b, n), alice.device)
+        if alice.device.type == "cpu":
+            return plain(alice, bob, log_p, primary, secondary, threshold)
+        if alice.device.type != "cuda":
+            raise NotImplementedError(
+                f"{kernel} trial: no kernel for device {alice.device}")
+        plan = plan_for(qc, flags, alice.device)
+        conv = torch.empty(b, dtype=torch.int8, device=alice.device)
+        keys = torch.empty(b, dtype=torch.int8, device=alice.device)
+        iters = torch.empty(b, dtype=torch.int32, device=alice.device)
+        if b == 0:
+            return conv.bool(), keys.bool(), iters
+        scalars = (flags, int(use_threshold), int(max_iterations),
+                   float(log_p), float(primary), float(secondary),
+                   float(threshold))
+        raise_on_error(plan.trial(alice, bob, scalars, (conv, keys, iters)),
+                       f"{kernel} trial")
+        counts.launches += 1
+        return conv.bool(), keys.bool(), iters
+
+    trial.plain = plain
+    return trial
+
+
+def qc_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
+               qc: QCMatrix, algorithm: DecodingAlgorithm,
+               max_iterations: int, use_threshold: bool,
+               schedule: str) -> Callable[..., DecodeResult]:
+    """The decode wrapper of a QC kernel, as ``qc_trial``; the plan's
+    ``decode(llr, syndrome, scalars, outs)`` takes ``scalars = (flags,
+    use_threshold, max_iterations, primary, secondary, threshold)`` and
+    ``outs = (decisions, conv, iters)``."""
+    check_algorithm(algorithm)
+    layered = check_schedule(schedule)
+    flags = kernel_flags(algorithm, layered)
+    n, m = qc.num_bit_nodes, qc.num_check_nodes
+
+    def plain(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
+        counts.count_plain(llr)
+        return plain_decode(qc, llr, syndrome, algorithm, max_iterations,
+                            use_threshold, layered, primary, secondary,
+                            threshold)
+
+    def decode(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
+        b = llr.shape[0]
+        check_tensor("llr", llr, torch.float32, (b, n), llr.device)
+        check_tensor("syndrome", syndrome, torch.int8, (b, m), llr.device)
+        if llr.device.type == "cpu":
+            return plain(llr, syndrome, primary, secondary, threshold)
+        if llr.device.type != "cuda":
+            raise NotImplementedError(
+                f"{kernel} decoder: no kernel for device {llr.device}")
+        plan = plan_for(qc, flags, llr.device)
+        dec = torch.empty((b, n), dtype=torch.int8, device=llr.device)
+        conv = torch.empty(b, dtype=torch.int8, device=llr.device)
+        iters = torch.empty(b, dtype=torch.int32, device=llr.device)
+        if b == 0:
+            return DecodeResult(dec, conv.bool(), iters)
+        scalars = (flags, int(use_threshold), int(max_iterations),
+                   float(primary), float(secondary), float(threshold))
+        raise_on_error(plan.decode(llr, syndrome, scalars, (dec, conv, iters)),
+                       f"{kernel} decode")
+        counts.launches += 1
+        return DecodeResult(dec, conv.bool(), iters)
+
+    decode.plain = plain
+    return decode
+
+
 def make_fused_qc_trial(
     qc: QCMatrix,
     algorithm: DecodingAlgorithm,
@@ -179,50 +348,8 @@ def make_fused_qc_trial(
     magnitude ``log((1-q)/q)`` from ``channel.log_ratio``. ``trial.plain``
     is the plain torch version with the same signature.
     """
-    check_algorithm(algorithm)
-    layered = _check_schedule(schedule)
-    n = qc.num_bit_nodes
-
-    def plain(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
-        _count_plain(alice)
-        lp = torch.tensor(log_p, dtype=torch.float32, device=alice.device)
-        llr = torch.where(bob == 1, -lp, lp)
-        res = _plain_decode(qc, llr, qc_syndrome(qc, alice), algorithm,
-                            max_iterations, use_threshold, layered, primary,
-                            secondary, threshold)
-        keys = (res.decision == alice).all(dim=1)
-        return res.syndromes_match, keys, res.iterations
-
-    def trial(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
-        global LAUNCHES
-        b = alice.shape[0]
-        check_tensor("alice", alice, torch.int8, (b, n), alice.device)
-        check_tensor("bob", bob, torch.int8, (b, n), alice.device)
-        if alice.device.type == "cpu":
-            return plain(alice, bob, log_p, primary, secondary, threshold)
-        if alice.device.type != "cuda":
-            raise NotImplementedError(
-                f"fused QC trial: no kernel for device {alice.device}")
-        plan = _launch_plan(qc, layered, alice.device)
-        conv = torch.empty(b, dtype=torch.int8, device=alice.device)
-        keys = torch.empty(b, dtype=torch.int8, device=alice.device)
-        iters = torch.empty(b, dtype=torch.int32, device=alice.device)
-        if b == 0:
-            return conv.bool(), keys.bool(), iters
-        code = _lib().fused_qc_trial(
-            alice.data_ptr(), bob.data_ptr(), b, plan.table.data_ptr(),
-            plan.mb, plan.nb, plan.z, plan.num_be, _flags(algorithm, layered),
-            int(use_threshold), int(max_iterations), float(log_p),
-            float(primary), float(secondary), float(threshold),
-            conv.data_ptr(), keys.data_ptr(), iters.data_ptr(),
-            torch.cuda.current_stream(alice.device).cuda_stream,
-        )
-        raise_on_error(code, "fused_qc_trial")
-        LAUNCHES += 1
-        return conv.bool(), keys.bool(), iters
-
-    trial.plain = plain
-    return trial
+    return qc_trial("fused QC", COUNTS, _launch_plan, qc, algorithm,
+                    max_iterations, use_threshold, schedule)
 
 
 def make_fused_qc_decoder(
@@ -235,48 +362,5 @@ def make_fused_qc_decoder(
     """Fused decode: ``decode(llr [B,N] f32, syndrome [B,M] int8, primary,
     secondary, threshold) -> DecodeResult``. ``decode.plain`` is the plain
     torch version with the same signature."""
-    check_algorithm(algorithm)
-    layered = _check_schedule(schedule)
-    n, m = qc.num_bit_nodes, qc.num_check_nodes
-
-    def plain(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
-        _count_plain(llr)
-        return _plain_decode(qc, llr, syndrome, algorithm, max_iterations,
-                             use_threshold, layered, primary, secondary,
-                             threshold)
-
-    def decode(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
-        global LAUNCHES
-        b = llr.shape[0]
-        check_tensor("llr", llr, torch.float32, (b, n), llr.device)
-        check_tensor("syndrome", syndrome, torch.int8, (b, m), llr.device)
-        if llr.device.type == "cpu":
-            return plain(llr, syndrome, primary, secondary, threshold)
-        if llr.device.type != "cuda":
-            raise NotImplementedError(
-                f"fused QC decoder: no kernel for device {llr.device}")
-        plan = _launch_plan(qc, layered, llr.device)
-        dec = torch.empty((b, n), dtype=torch.int8, device=llr.device)
-        conv = torch.empty(b, dtype=torch.int8, device=llr.device)
-        iters = torch.empty(b, dtype=torch.int32, device=llr.device)
-        if b == 0:
-            return DecodeResult(dec, conv.bool(), iters)
-        code = _lib().fused_qc_decode(
-            llr.data_ptr(), syndrome.data_ptr(), b, plan.table.data_ptr(),
-            plan.mb, plan.nb, plan.z, plan.num_be, _flags(algorithm, layered),
-            int(use_threshold), int(max_iterations), float(primary),
-            float(secondary), float(threshold), dec.data_ptr(),
-            conv.data_ptr(), iters.data_ptr(),
-            torch.cuda.current_stream(llr.device).cuda_stream,
-        )
-        raise_on_error(code, "fused_qc_decode")
-        LAUNCHES += 1
-        return DecodeResult(dec, conv.bool(), iters)
-
-    decode.plain = plain
-    return decode
-
-
-def counts() -> Tuple[int, int]:
-    """(kernel launches, plain-version calls on CUDA tensors)."""
-    return LAUNCHES, PLAIN_ON_CUDA
+    return qc_decoder("fused QC", COUNTS, _launch_plan, qc, algorithm,
+                      max_iterations, use_threshold, schedule)

@@ -1,0 +1,222 @@
+"""Streamed QC decoder: wrappers of the hand-written CUDA kernel for QC codes
+whose per-frame state does not fit in one block's shared memory, and their
+plain torch versions.
+
+Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_qc_stream.py``
+(``make_pallas_qc_stream_trial`` and ``make_pallas_qc_stream_decoder``; the
+kernel is ``csrc/qc_stream.cu``), for the min-sum family NMSA, OMSA, ANMSA
+and AOMSA on the flooding and layered schedules:
+
+  * ``make_qc_stream_trial`` — the Monte-Carlo sweep's hot path for the
+    N=102400 QC codes: Alice's and Bob's keys in, per-frame
+    ``(syndromes_match, keys_match, iterations)`` out;
+  * ``make_qc_stream_decoder`` — the library decode: LLRs and a syndrome
+    in, a ``DecodeResult`` out.
+
+Both have the signatures and returns of ``ops/fused_qc.py``'s wrappers, and
+the same plain versions (``ops/qc_decoder.py``: ``decode_flooding`` and
+``decode_layered``), so the two kernels give identical results wherever
+both run. Routing is by the tensors' device and nothing else: CPU tensors
+go to the plain version, CUDA tensors launch the kernel (or raise beyond
+its limits), and any other device raises. There is no fallback from a
+failed launch.
+
+``qc_stream_feasible`` is the JAX package's gate for its ``qc_stream``
+engine, copied as a predicate so that ``simulation.select_engine`` names the
+engine JAX would run. Its byte budget is the TPU kernel's VMEM and says
+nothing about this kernel, whose own limits are ``MAX_LIFTING``,
+``MAX_BLOCK_EDGES`` and ``MAX_BASE_CHECKS``.
+
+The wrapper body (checks, device routing, outputs, counting) is
+``fused_qc.qc_trial`` / ``fused_qc.qc_decoder``, shared with the fused QC
+kernel; this module gives it the streamed kernel's launch plan.
+
+Counters: ``COUNTS.launches`` counts kernel launches;
+``COUNTS.plain_on_cuda`` counts plain-version calls on CUDA tensors, which
+only tests and the card smoke's comparisons make. ``reset_counts`` zeroes
+both and ``counts`` reads them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable
+
+import torch
+
+from qkd_ldpc_v_tpu_torch import kernels
+from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
+from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+    KernelCounts,
+    block_edge_table,
+    limit_reason,
+    pointers,
+    qc_decoder,
+    qc_trial,
+    stream_of,
+)
+from qkd_ldpc_v_tpu_torch.ops.qc_decoder import base_tables
+from qkd_ldpc_v_tpu_torch.utils import PlanCache
+
+COUNTS = KernelCounts()
+reset_counts = COUNTS.reset
+counts = COUNTS.get
+
+# The kernel's limits (csrc/qc_stream.cu: kMaxLifting, kMaxBlockEdges,
+# kMaxBaseChecks; a card test holds them equal to the library's).
+MAX_LIFTING = 32768
+MAX_BLOCK_EDGES = 1024
+MAX_BASE_CHECKS = 1024
+
+# The JAX package's gate (pallas_qc_stream.py: _MAX_BLOCK_EDGES, the 72 MiB
+# VMEM budget at its 8-frame tile, 128-lane lifting sizes).
+_JAX_MAX_BLOCK_EDGES = 420
+_JAX_BUDGET = 72 * 1024 * 1024
+_JAX_TILE = 8
+_JAX_LANES = 128
+
+_PLANS = PlanCache()
+_SIGNATURES_SET = False
+
+
+def qc_stream_feasible(qc: QCMatrix) -> bool:
+    """The JAX package's ``qc_stream_feasible`` verdict: Z a multiple of 128,
+    1-420 block edges, every base row non-empty, and the TPU kernel's
+    resident planes within its VMEM budget."""
+    if qc.lifting % _JAX_LANES:
+        return False
+    rows, _, num_be = base_tables(qc)
+    if num_be == 0 or num_be > _JAX_MAX_BLOCK_EDGES:
+        return False
+    if any(not r for r in rows):
+        return False
+    max_deg = max(len(r) for r in rows)
+    units = 3 * qc.base_bits + qc.base_checks + 2 * max_deg + 6
+    return units * _JAX_TILE * qc.lifting * 4 <= _JAX_BUDGET
+
+
+def _check_limits(qc: QCMatrix) -> None:
+    reason = limit_reason(qc, MAX_LIFTING, MAX_BLOCK_EDGES, MAX_BASE_CHECKS)
+    if reason is not None:
+        raise NotImplementedError(f"streamed QC kernel: {reason}")
+
+
+def _lib() -> ctypes.CDLL:
+    global _SIGNATURES_SET
+    lib = kernels.library()
+    if not _SIGNATURES_SET:
+        p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
+        lib.qc_stream_trial.argtypes = [
+            p, p, i, p, i, i, i, i, i, i, i, f, f, f, f, p, ll, i, p, p, p, p]
+        lib.qc_stream_trial.restype = i
+        lib.qc_stream_decode.argtypes = [
+            p, p, i, p, i, i, i, i, i, i, i, f, f, f, p, ll, i, p, p, p, p]
+        lib.qc_stream_decode.restype = i
+        lib.qc_stream_scratch_floats.argtypes = [i, i, i, i, i, i]
+        lib.qc_stream_scratch_floats.restype = ll
+        lib.qc_stream_resident_blocks.argtypes = [i, i, i, i]
+        lib.qc_stream_resident_blocks.restype = i
+        for name in ("qc_stream_max_lifting", "qc_stream_max_block_edges",
+                     "qc_stream_max_base_checks"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        _SIGNATURES_SET = True
+    return lib
+
+
+class _Launch:
+    """Launch plan of one code, kernel variant and device: the block-edge
+    table on the device and the persistent grid's size. ``trial`` and
+    ``decode`` allocate the grid's global scratch, launch the kernel and
+    return its CUDA error code (arguments: see ``fused_qc.qc_trial`` and
+    ``fused_qc.qc_decoder``)."""
+
+    def __init__(self, qc: QCMatrix, flags: int, device: torch.device):
+        _check_limits(qc)
+        mb, nb, z, num_be = (qc.base_checks, qc.base_bits, qc.lifting,
+                             len(qc.block_edges))
+        with torch.cuda.device(device):
+            resident = _lib().qc_stream_resident_blocks(mb, z, num_be, flags)
+        if resident <= 0:
+            raise RuntimeError(
+                f"streamed QC kernel: no block fits on {device} "
+                f"(CUDA error {-resident})")
+        self.resident = resident
+        self.per_block = {
+            trial: _lib().qc_stream_scratch_floats(mb, nb, z, num_be, flags,
+                                                   int(trial))
+            for trial in (True, False)}
+        self.table = torch.tensor(block_edge_table(qc), dtype=torch.int32,
+                                  device=device)
+        self.shape = (self.table.data_ptr(), mb, nb, z, num_be)
+
+    def _scratch(self, batch: int, trial: bool, device):
+        """(scratch tensor, floats per block, grid) of one launch. The
+        scratch is freed once the launch is queued; the caching allocator
+        reuses it only in stream order."""
+        grid = min(batch, self.resident)
+        per_block = self.per_block[trial]
+        scratch = torch.empty(grid * per_block, dtype=torch.float32,
+                              device=device)
+        return scratch, per_block, grid
+
+    def trial(self, alice, bob, scalars, outs) -> int:
+        scratch, per_block, grid = self._scratch(alice.shape[0], True,
+                                                 alice.device)
+        return _lib().qc_stream_trial(
+            *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
+            scratch.data_ptr(), per_block, grid, *pointers(*outs),
+            stream_of(alice))
+
+    def decode(self, llr, syndrome, scalars, outs) -> int:
+        scratch, per_block, grid = self._scratch(llr.shape[0], False,
+                                                 llr.device)
+        return _lib().qc_stream_decode(
+            *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
+            scratch.data_ptr(), per_block, grid, *pointers(*outs),
+            stream_of(llr))
+
+
+def _launch_plan(qc: QCMatrix, flags: int, device) -> _Launch:
+    key = (flags, str(device))
+    plan = _PLANS.get(qc, extra=key)
+    if plan is None:
+        plan = _Launch(qc, flags, device)
+        _PLANS.put(qc, plan, extra=key)
+    return plan
+
+
+def make_qc_stream_trial(
+    qc: QCMatrix,
+    algorithm: DecodingAlgorithm,
+    max_iterations: int,
+    use_threshold: bool,
+    schedule: str = "flooding",
+) -> Callable:
+    """Streamed Monte-Carlo trial.
+
+    ``trial(alice [B,N] int8, bob [B,N] int8, log_p, primary, secondary,
+    threshold) -> (syndromes_match [B] bool, keys_match [B] bool,
+    iterations [B] int32)``, with ``log_p`` the float32 channel-LLR
+    magnitude ``log((1-q)/q)`` from ``channel.log_ratio``. ``trial.plain``
+    is the plain torch version with the same signature.
+    """
+    return qc_trial("streamed QC", COUNTS, _launch_plan, qc, algorithm,
+                    max_iterations, use_threshold, schedule)
+
+
+def make_qc_stream_decoder(
+    qc: QCMatrix,
+    algorithm: DecodingAlgorithm,
+    max_iterations: int,
+    use_threshold: bool,
+    schedule: str = "flooding",
+) -> Callable[..., DecodeResult]:
+    """Streamed decode: ``decode(llr [B,N] f32, syndrome [B,M] int8, primary,
+    secondary, threshold) -> DecodeResult``. ``decode.plain`` is the plain
+    torch version with the same signature."""
+    return qc_decoder("streamed QC", COUNTS, _launch_plan, qc, algorithm,
+                      max_iterations, use_threshold, schedule)

@@ -10,22 +10,27 @@ for identical statistics.
 Engines (``select_engine`` names them as the JAX package's
 ``pallas_engine`` does, from the same gates; ``tpu.force_engine`` pins
 one):
-  * ``qc``: a QC matrix, ``tpu.use_pallas = true``, float32 — the fused QC
-    trial (``ops/fused_qc.py``);
+  * ``qc``: a QC matrix, ``tpu.use_pallas = true``, float32 — a QC trial
+    kernel chosen by ``qc_kernel``: the fused QC kernel
+    (``ops/fused_qc.py``) where it holds the code, else the streamed QC
+    kernel (``ops/qc_stream.py``), e.g. for every N=102400 QC code;
+  * ``qc_stream``: QC codes inside the JAX package's streamed-QC gate that
+    its fused gate refuses, or any QC code with ``force_engine =
+    "qc_stream"`` — the streamed QC kernel;
   * ``generic``: any other code inside ``fused_generic.generic_feasible``
     with ``use_pallas`` and float32 — the fused generic trial
     (``ops/fused_generic.py``);
-  * ``qc_stream`` / ``stream``: codes too large for both fused kernels —
-    not ported yet, ``NotImplementedError``;
+  * ``stream``: codes too large for the generic kernel (the 100k alist
+    code) — not ported yet, ``NotImplementedError``;
   * ``xla``: ``use_pallas = false`` or dtype float64/bfloat16 — the generic
     torch decoder (``ops/decoders.py``), all six algorithms.
-The fused trials launch their CUDA kernels for tensors on a CUDA device
+The kernels' trials launch their CUDA kernels for tensors on a CUDA device
 and run their plain torch versions for tensors on the CPU; the ``xla``
 engine runs on the requested device. The SPA pair needs the ``xla``
 engine; code-rate adaptation, privacy maintenance and the traced decode
-path are not ported yet. ``tpu.schedule = layered`` is honoured by the
-``qc`` engine with a min-sum algorithm; elsewhere it warns and floods, as
-in the JAX package.
+path are not ported yet. ``tpu.schedule = layered`` is honoured by the QC
+engines with a min-sum algorithm; elsewhere it warns and floods, as in the
+JAX package.
 
 Random numbers: one ``torch.Generator`` per decode chunk, seeded by
 ``channel.chunk_seed(seed, sim_number, chunk_index)``, draws Alice's keys
@@ -69,8 +74,15 @@ from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
     generic_feasible,
     make_fused_generic_trial,
 )
-from qkd_ldpc_v_tpu_torch.ops.fused_qc import make_fused_qc_trial
+from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+    fused_qc_fits,
+    make_fused_qc_trial,
+)
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
+from qkd_ldpc_v_tpu_torch.ops.qc_stream import (
+    make_qc_stream_trial,
+    qc_stream_feasible,
+)
 from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams
 
 logger = logging.getLogger(__name__)
@@ -332,37 +344,22 @@ def process_trials_results(
 # The JAX package's engine gates, copied as predicates so that
 # ``select_engine`` names the engine the JAX package would run
 # (ops/pallas_qc.py::feasible_batch_tile > 0 at its smallest tile,
-# ops/pallas_qc_stream.py::qc_stream_feasible, ops/pallas_stream.py::
-# stream_feasible). The byte budgets are the TPU kernels' on-chip memory and
-# say nothing about this port's kernels, which check their own bounds.
+# ops/pallas_qc_stream.py::qc_stream_feasible (``ops/qc_stream.py`` holds
+# its copy), ops/pallas_stream.py::stream_feasible). The byte budgets are the
+# TPU kernels' on-chip memory and say nothing about this port's kernels,
+# which check their own bounds.
 _QC_MAX_BLOCK_EDGES = 420
 _QC_BUDGET = 84 * 1024 * 1024
-_QC_STREAM_BUDGET = 72 * 1024 * 1024
 _QC_MIN_TILE = 8
 
 
-def _qc_blocks(qc: QCMatrix):
-    present = qc.shifts >= 0
-    return int(present.sum()), [int(k) for k in present.sum(axis=1)]
-
-
 def _qc_fused_gate(qc: QCMatrix) -> bool:
-    num_be, _ = _qc_blocks(qc)
+    num_be = int((qc.shifts >= 0).sum())
     if qc.lifting % 128 or num_be > _QC_MAX_BLOCK_EDGES:
         return False
     nb, mb = qc.base_bits, qc.base_checks
     planes = num_be + 3 * nb + mb + 2 * nb
     return planes * qc.lifting * 4 * _QC_MIN_TILE <= _QC_BUDGET
-
-
-def _qc_stream_gate(qc: QCMatrix) -> bool:
-    num_be, row_degrees = _qc_blocks(qc)
-    if qc.lifting % 128 or num_be == 0 or num_be > _QC_MAX_BLOCK_EDGES:
-        return False
-    if min(row_degrees) == 0:
-        return False
-    units = 3 * qc.base_bits + qc.base_checks + 2 * max(row_degrees) + 6
-    return units * _QC_MIN_TILE * qc.lifting * 4 <= _QC_STREAM_BUDGET
 
 
 def _stream_gate(matrix: HMatrix) -> bool:
@@ -384,7 +381,7 @@ def select_engine(matrix: HMatrix, cfg: Config) -> str:
     if matrix.qc is not None:
         if force in ("", "qc") and _qc_fused_gate(matrix.qc):
             return "qc"
-        if force in ("", "qc_stream") and _qc_stream_gate(matrix.qc):
+        if force in ("", "qc_stream") and qc_stream_feasible(matrix.qc):
             return "qc_stream"
     if force in ("", "generic") and generic_feasible(matrix):
         return "generic"
@@ -398,7 +395,6 @@ def select_engine(matrix: HMatrix, cfg: Config) -> str:
 
 
 _UNPORTED_ENGINES = {
-    "qc_stream": "the streamed QC kernel (ops/pallas_qc_stream.py)",
     "stream": "the HBM-streamed generic kernels (ops/pallas_stream.py)",
 }
 
@@ -416,7 +412,8 @@ def check_engine(matrix: HMatrix, cfg: Config) -> str:
     engine = select_engine(matrix, cfg)
     if engine in _UNPORTED_ENGINES:
         reasons.append(f"the {engine} engine: {_UNPORTED_ENGINES[engine]}")
-    if engine in ("qc", "generic") and cfg.decoding_algorithm not in MIN_SUM:
+    if engine in ("qc", "qc_stream", "generic") and \
+            cfg.decoding_algorithm not in MIN_SUM:
         reasons.append(f"{cfg.decoding_algorithm.display_name} in the fused "
                        f"{engine} kernel (its SPA mode; tpu.use_pallas = false "
                        "runs it in the generic torch decoder)")
@@ -428,19 +425,41 @@ def check_engine(matrix: HMatrix, cfg: Config) -> str:
     return engine
 
 
+def qc_kernel(qc: QCMatrix, engine: str, layered: bool) -> str:
+    """The kernel a QC engine runs on this code and schedule: "fused_qc" |
+    "qc_stream".
+
+    Engine ``qc_stream`` always runs the streamed kernel; engine ``qc`` runs
+    the fused kernel where ``fused_qc_fits`` says it holds the code, else
+    the streamed one. Both kernels equal the same plain versions bit for
+    bit, so this is a capacity choice made from the code's shape before any
+    launch, and results do not depend on it."""
+    if engine not in ("qc", "qc_stream"):
+        raise ValueError(f"engine {engine!r} is not a QC engine")
+    if engine == "qc" and fused_qc_fits(qc, layered):
+        return "fused_qc"
+    return "qc_stream"
+
+
 def _make_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
     alg = cfg.decoding_algorithm
     cap = cfg.decoding_alg_max_iterations
     use_thr = cfg.enable_msg_llr_threshold
-    layered = engine == "qc" and cfg.schedule == "layered"
+    is_qc = engine in ("qc", "qc_stream")
+    layered = is_qc and cfg.schedule == "layered"
     if cfg.schedule == "layered" and not layered:
         logger.warning(
             "tpu.schedule = layered needs a QC engine and a min-sum "
             "algorithm; using the flooding schedule for this combination."
         )
-    if engine == "qc":
-        return make_fused_qc_trial(matrix.qc, alg, cap, use_thr,
-                                   schedule="layered" if layered else "flooding")
+    if is_qc:
+        kernel = qc_kernel(matrix.qc, engine, layered)
+        logger.info("engine %s: the %s kernel (N=%d, Z=%d)", engine, kernel,
+                    matrix.num_bit_nodes, matrix.qc.lifting)
+        make = (make_fused_qc_trial if kernel == "fused_qc"
+                else make_qc_stream_trial)
+        return make(matrix.qc, alg, cap, use_thr,
+                    schedule="layered" if layered else "flooding")
     if engine == "generic":
         return make_fused_generic_trial(matrix, alg, cap, use_thr)
     return make_trial(layout_for(matrix), alg, cap, use_thr,
