@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one CUDA device:
 Phases (each raises on failure, and the script then exits non-zero):
 
 1. Device and build: the card's name and power limit (nvidia-smi), the
-   torch and CUDA versions, and the build of every kernel from csrc/.
+   torch and CUDA versions, and the build of every kernel from csrc/ with
+   each kernel's registers and spill (nvcc -Xptxas -v).
 2. Kernel vs plain: the fused QC kernel against its plain torch version on
    the same device-made keys, 512 frames each, at the headline code
    (N=10240, Z=512) and the 1k QC code (N=1024, Z=128): trial and decode
@@ -33,6 +34,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    NMSA and AOMSA; and the headline code forced through the streamed kernel,
    512 frames, where its outputs must also equal the fused QC kernel's.
    Conv, keys, iterations and decisions must be exactly equal.
+2d. Streamed generic kernel vs plain: the streamed generic kernel against
+   its plain torch version (the fused generic kernel's), 128 frames each,
+   on the N=102400 alist code: trial and decode modes, NMSA (alpha
+   0.8)/OMSA/ANMSA/AOMSA, QBER 0.03 and 0.038 (its waterfall: some frames
+   must fail), plus cases with the message clamp; on an N=22000 random
+   regular code (column weight 3) at QBER 0.078, NMSA and AOMSA; and on the
+   10k alist code forced through the streamed kernel, 512 frames, where its
+   outputs must also equal the fused generic kernel's. Conv, keys,
+   iterations and decisions must be exactly equal.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
@@ -53,13 +63,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    FER <= 0.01; the streamed kernel must have launched, the fused QC kernel
    not, and no plain version may have run on the card; chunk 0's first 256
    frames must equal the plain version.
+3d. 100k alist main path: the CLI on a copy of
+   configs/campaign_fer_sweep_100k.json switched to matrix format 1 over
+   the committed N=102400 alist asset, its R=0.71 bracket narrowed to QBER
+   0.03 and alpha 0.8 (bench.py's stream-100k leg), cap 100, 16384 trials
+   in 4096-frame chunks, flooding, through the streamed generic kernel (the
+   engine is ``stream``). The CSV must carry the JAX package's columns and
+   FER <= 0.01; the streamed generic kernel must have launched, the fused
+   generic kernel not, and no plain version may have run on the card;
+   chunk 0's first 256 frames must equal the plain version.
 4. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
    (the least time the card could take for the same work) are those of one
-   main-path chunk of phase 3, 3b or 3c (``frames`` frames, layered where
-   the kernel has it); ``plain_ms`` is its plain version on the timed
-   case of phase 2, 2b or 2c (``plain_frames`` frames); ``launches`` is the
-   main path's count.
+   main-path chunk of phase 3, 3b, 3c or 3d (``frames`` frames, layered
+   where the kernel has it); ``plain_ms`` is its plain version on the timed
+   case of phase 2, 2b, 2c or 2d (``plain_frames`` frames); ``launches`` is
+   the main path's count.
 
 It imports no JAX. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -68,6 +87,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -83,6 +103,7 @@ QC100K_400BE = QC_DIR / "(N=102400,M=30720,R=0.70,CW=4,Z=1024,SEED=53).mtrx"
 ALIST_DIR = REPO / "sparse_matrices" / "matrices_alist"
 ALIST10K = ALIST_DIR / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"
 ALIST1K_DEG63 = ALIST_DIR / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"
+ALIST100K = ALIST_DIR / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx"
 FRAMES = 512
 THRESHOLD = 2.5
 FACTORS = {"NMSA": (0.65, 1.0), "OMSA": (0.3, 1.0),
@@ -148,6 +169,26 @@ def bound(frames, n, edges, iterations, schedule):
     byte_ms = (2 * frames * n + 6 * frames) / HBM_BYTES_PER_S * 1e3
     op_ms = OPS_PER_EDGE[schedule] * edges * iterations / F32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def ptxas_lines(log: str):
+    """One line per compiled kernel of nvcc's -Xptxas -v report: its
+    source, template flags, registers and spill stores."""
+    out = []
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        name = line.split("'")[1]
+        source = re.search(r"__N__[0-9a-f]+_\d+_(\w+?)_cu_", name)
+        source = source.group(1) if source else name
+        flags = "".join(f[0] for f in name.split("ILb")[-1].split("ELb"))
+        regs = next((x for x in lines[i + 1:i + 4] if "registers" in x), "")
+        spill = next((x for x in lines[i + 1:i + 4] if "spill stores" in x), "")
+        out.append(f"ptxas {source}<{flags}>: "
+                   f"{regs.split('Used ')[-1].split(',')[0]}, "
+                   f"{spill.split(',')[1].strip() if spill else '0 bytes spill stores'}")
+    return out
 
 
 def max_abs_diff(got, want, torch) -> int:
@@ -424,6 +465,100 @@ def phase_stream_vs_plain(torch, card):
               f"{code_name}: no frame failed at QBER {qber}")
     print(f"phase 2c: {len(cases)} cases, streamed kernel == plain exactly, "
           f"== fused on the headline code ({card})")
+    return worst, times
+
+
+def phase_generic_stream_vs_plain(torch, card):
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        calculate_syndrome, exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
+    dev = torch.device("cuda")
+    alist100k = read_sparse_matrix_alist(ALIST100K)
+    regular22k = generate_regular_ldpc(22000, 11000, 3, seed=5)
+    alist10k = read_sparse_matrix_alist(ALIST10K)
+    factors = dict(FACTORS, NMSA=(0.8, 1.0))  # alpha 0.8: bench's 100k alist
+    # (name, code, frames, QBER, alg, mode, clamp); QBER 0.038 is in the
+    # 100k alist code's waterfall, 0.032 in the 10k alist code's.
+    cases = []
+    for qber in (0.03, 0.038):
+        for alg in factors:
+            for mode in ("trial", "decode"):
+                cases.append(("alist100k", alist100k, 128, qber, alg, mode,
+                              False))
+    for mode in ("trial", "decode"):
+        cases.append(("alist100k", alist100k, 128, 0.038, "NMSA", mode, True))
+    for alg in ("NMSA", "AOMSA"):
+        for mode in ("trial", "decode"):
+            cases.append(("regular22k", regular22k, 128, 0.078, alg, mode,
+                          False))
+    for qber in (0.025, 0.032):
+        for mode in ("trial", "decode"):
+            cases.append(("alist10k", alist10k, FRAMES, qber, "NMSA", mode,
+                          False))
+
+    keys = {}
+    worst = 0
+    times = None
+    failing = {}
+    for i, (code_name, matrix, frames, qber, alg, mode,
+            clamp) in enumerate(cases):
+        n = matrix.num_bit_nodes
+        if (code_name, qber) not in keys:
+            alice, bits = default_key_source(17, dev)(0, len(keys), frames, n)
+            ne = exact_error_count(n, qber)
+            keys[(code_name, qber)] = (
+                alice, inject_errors(bits, alice, ne, wide=True),
+                log_ratio(ne / n))
+            del bits
+        alice, bob, lp = keys[(code_name, qber)]
+        f1, f2 = (0.7, 1.0) if code_name == "alist10k" else factors[alg]
+        thr = THRESHOLD if clamp else 0.0
+        algorithm = DecodingAlgorithm[alg]
+        if mode == "trial":
+            fn = generic_stream.make_generic_stream_trial(matrix, algorithm,
+                                                          100, clamp)
+            fused = fused_generic.make_fused_generic_trial
+            args = (alice, bob, lp, f1, f2, thr)
+        else:
+            fn = generic_stream.make_generic_stream_decoder(matrix, algorithm,
+                                                            100, clamp)
+            fused = fused_generic.make_fused_generic_decoder
+            lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
+            args = (torch.where(bob == 1, -lpt, lpt),
+                    calculate_syndrome(layout_for(matrix), alice), f1, f2, thr)
+        fn(*args)  # first launch of this configuration, untimed
+        got, ms = timed(lambda: fn(*args), torch)
+        fn.plain(*args)  # first call: index tables to the card, untimed
+        want, plain_ms = timed(lambda: fn.plain(*args), torch)
+        got, want = tuple(got), tuple(want)
+        diff = max_abs_diff(got, want, torch)
+        if code_name == "alist10k":
+            other = fused(matrix, algorithm, 100, clamp)(*args)
+            diff = max(diff, max_abs_diff(got, tuple(other), torch))
+        worst = max(worst, diff)
+        conv = got[0] if mode == "trial" else got[1]
+        n_fail = int((~conv).sum().item())
+        failing[(code_name, qber)] = failing.get((code_name, qber), 0) + n_fail
+        print(f"case 2d-{i:02d} {code_name} N={n} {mode} flooding {alg} "
+              f"qber={qber} clamp={clamp}: unconverged={n_fail}/{frames} "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} max_abs_err={diff}",
+              flush=True)
+        check(diff == 0,
+              f"streamed generic kernel != plain (or fused) in case 2d-{i}")
+        if (code_name, qber, alg, mode, clamp) == (
+                "alist100k", 0.03, "NMSA", "trial", False):
+            times = (plain_ms, frames)
+    for code_name, qber in (("alist100k", 0.038), ("alist10k", 0.032)):
+        check(failing[(code_name, qber)] > 0,
+              f"{code_name}: no frame failed at QBER {qber}")
+    print(f"phase 2d: {len(cases)} cases, streamed generic kernel == plain "
+          f"exactly, == fused generic on the 10k alist code ({card})")
     return worst, times
 
 
@@ -752,6 +887,121 @@ def phase_stream_main_path(torch, card):
     return launches, worst, chunk_times
 
 
+def phase_generic_stream_main_path(torch, card):
+    from qkd_ldpc_v_tpu_torch import cli, kernels
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        default_key_source, prepare_sim_inputs, select_engine)
+
+    work = REPO / "build" / "chip_smoke_alist100k"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_alist"
+    matrices.mkdir(parents=True)
+    (matrices / ALIST100K.name).symlink_to(ALIST100K)
+    cfg = json.loads(
+        (REPO / "configs" / "campaign_fer_sweep_100k.json").read_text())
+    cfg["matrix_format"] = 1
+    cfg["trials_number"] = 16384
+    cfg["tpu"]["batch_size"] = 4096
+    cfg["tpu"]["schedule"] = "flooding"
+    # The alist code (R=0.69) falls in the R=0.71 bracket: QBER 0.03 and
+    # alpha 0.8, bench.py's stream-100k leg.
+    for bracket in cfg["code_rate_QBER_ranges"]:
+        if bracket["code_rate"] == 0.71:
+            bracket["QBER"] = {"begin": 0.03, "end": 0.03, "step": 0.004}
+    for amap in cfg["min_sum_normalized_parameters"]["code_rate_alpha_maps"]:
+        if amap["code_rate"] == 0.71:
+            amap["alpha"] = 0.8
+    cdir = work / "configs"
+    cdir.mkdir()
+    (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+
+    generic_stream.reset_counts()
+    fused_generic.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["--configs", str(cdir), "--matrices",
+                   str(work / "sparse_matrices"), "--results",
+                   str(work / "results"), "--device", "cuda", "--quiet"])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"CLI (alist100k) returned {rc}")
+    launches, plain_on_cuda = generic_stream.counts()
+    fused_launches, fused_plain = fused_generic.counts()
+    print(f"alist100k main path: streamed generic launches={launches} "
+          f"fused generic launches={fused_launches} plain calls on the card="
+          f"{plain_on_cuda + fused_plain}")
+    check(launches > 0,
+          "the 100k alist main path launched no streamed generic kernel")
+    check(fused_launches == 0,
+          "the 100k alist main path launched the fused generic kernel")
+    check(plain_on_cuda + fused_plain == 0,
+          "the 100k alist main path ran a plain version on the card")
+
+    path, row = read_csv(work / "results")
+    check(row["N"] == "102400", f"N = {row['N']}")
+    check(row["CONFIG_QBER"] == "0,0300", f"QBER = {row['CONFIG_QBER']}")
+    check(row["ALPHA"] == "0,800", f"alpha = {row['ALPHA']}")
+    fer = float(row["FER"].replace(",", "."))
+    check(fer <= 0.01, f"alist100k: FER {fer} > 0.01")
+    run_cfg = parse_config_data(cdir / "run.json")
+    rtt_us = run_cfg.rtt_ms * 1000.0 if run_cfg.consider_rtt else 0.0
+    us_per_frame = 102400 * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
+    print(f"alist100k main path: FER={fer} "
+          f"iter_mean={row['ITER_SUCCESS_MEAN']} "
+          f"decode_frames_per_s={1e6 / us_per_frame:.0f} "
+          f"(chunk timers, RTT removed) "
+          f"cli_wall_frames_per_s={run_cfg.trials_number / wall:.0f} "
+          f"(whole CLI call, {wall:.1f} s) card={card}", flush=True)
+
+    # Chunk 0 of combination 0 again: kernel on the whole chunk as the main
+    # path ran it, plain on its first 256 frames.
+    dev = torch.device("cuda")
+    sim_in = prepare_sim_inputs([ALIST100K], run_cfg)[0]
+    comb = sim_in.combinations[0]
+    matrix = sim_in.matrix
+    check(select_engine(matrix, run_cfg) == "stream",
+          "the 100k alist code does not select the stream engine")
+    n = matrix.num_bit_nodes
+    resident = kernels.library().generic_stream_resident_blocks(
+        n, matrix.num_check_nodes, 0, generic_stream.THREADS)
+    print(f"alist100k main path: {resident} resident blocks of "
+          f"{generic_stream.THREADS} threads "
+          f"({generic_stream.shared_bytes(n, matrix.num_check_nodes)} bytes "
+          f"of shared memory each)")
+    ne = exact_error_count(n, comb.config_qber)
+    (alice, bits), keys_ms = timed(
+        lambda: default_key_source(run_cfg.simulation_seed, dev)(
+            0, 0, run_cfg.batch_size, n), torch)
+    bob, errors_ms = timed(
+        lambda: inject_errors(bits, alice, ne, wide=True), torch)
+    del bits
+    trial = generic_stream.make_generic_stream_trial(
+        matrix, run_cfg.decoding_algorithm,
+        run_cfg.decoding_alg_max_iterations, run_cfg.enable_msg_llr_threshold)
+    args = (log_ratio(ne / n), comb.scaling_factors.primary,
+            comb.scaling_factors.secondary, run_cfg.msg_llr_threshold)
+    full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
+    chunk_bound = bound(run_cfg.batch_size, n, matrix.num_edges,
+                        int(full[2].sum().item()), "flooding")
+    print(f"alist100k main path: one {run_cfg.batch_size}-frame chunk: "
+          f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
+          f"generic_stream kernel {kernel_ms:.2f} ms "
+          f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}), mean "
+          f"iterations {full[2].float().mean().item():.2f} (card={card})",
+          flush=True)
+    got = [t[:256] for t in full]
+    want = trial.plain(alice[:256].contiguous(), bob[:256].contiguous(),
+                       *args)
+    diff = max_abs_diff(got, want, torch)
+    check(diff == 0, "alist100k: chunk-0 kernel stats != plain")
+    print(f"alist100k main path: chunk 0 frames 0-255 kernel == plain "
+          f"({path.name})")
+    return launches, diff, (kernel_ms, *chunk_bound, run_cfg.batch_size)
+
+
 def main() -> int:
     import torch
 
@@ -765,6 +1015,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from qkd_ldpc_v_tpu_torch import kernels
 
+    start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -775,19 +1026,26 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {kernels.build_seconds:.1f} s): {kernels.library_path().name}",
           flush=True)
+    for line in ptxas_lines(kernels.build_log):
+        print(line)
 
     worst2, headline_times = phase_kernel_vs_plain(torch, card)
     worst2b, generic_times = phase_generic_vs_plain(torch, card)
     worst2c, stream_times = phase_stream_vs_plain(torch, card)
+    worst2d, generic_stream_times = phase_generic_stream_vs_plain(torch, card)
     launches, worst3, chunk3 = phase_main_path(torch, card)
     generic_launches, worst3b, chunk3b = phase_generic_main_path(torch, card)
     stream_launches, worst3c, chunk3c = phase_stream_main_path(torch, card)
+    generic_stream_launches, worst3d, chunk3d = phase_generic_stream_main_path(
+        torch, card)
     check("jax" not in sys.modules, "jax was imported")
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s "
+          f"({card})", flush=True)
 
     def entry(name, source, replaces, launches, worst, chunk, case):
-        # ms and bound_ms: one main-path chunk (phase 3, 3b or 3c; layered
-        # where the kernel has it), at the fill the main path runs at.
-        # plain_ms: the plain version on the phase-2 timed case.
+        # ms and bound_ms: one main-path chunk (phase 3, 3b, 3c or 3d;
+        # layered where the kernel has it), at the fill the main path runs
+        # at. plain_ms: the plain version on the phase-2 timed case.
         ms, bound_ms, bound_by, frames = chunk
         plain_ms, plain_frames = case
         return {"name": name, "route": "cuda",
@@ -805,6 +1063,9 @@ def main() -> int:
               generic_launches, max(worst2b, worst3b), chunk3b, generic_times),
         entry("qc_stream", "qc_stream.cu", "pallas_qc_stream.py:207",
               stream_launches, max(worst2c, worst3c), chunk3c, stream_times),
+        entry("generic_stream", "generic_stream.cu",
+              "pallas_stream.py:303,434,524,589", generic_stream_launches,
+              max(worst2d, worst3d), chunk3d, generic_stream_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,11 +3,13 @@
 QKD LDPC information reconciliation on an NVIDIA H100: the fixed-rate
 Monte-Carlo sweep over codes in all five matrix formats (alist, format 1,
 format 2, dense, quasi-cyclic). The min-sum decoders (NMSA, OMSA, ANMSA,
-AOMSA) run through three hand-written kernels: the fused QC decoder
+AOMSA) run through four hand-written kernels: the fused QC decoder
 (``csrc/fused_qc.cu``, flooding or layered), the streamed QC decoder for QC
 codes too large for it, such as the N=102400 codes (``csrc/qc_stream.cu``,
-flooding or layered), and the fused generic decoder for arbitrary sparse
-codes (``csrc/fused_generic.cu``, flooding). The generic
+flooding or layered), the fused generic decoder for arbitrary sparse codes
+(``csrc/fused_generic.cu``, flooding) and the streamed generic decoder for
+those too large for it, such as the N=102400 alist code
+(``csrc/generic_stream.cu``, flooding). The generic
 torch decoder (``ops/decoders.py``) runs all six algorithms in float32,
 float64 or bfloat16 when ``tpu.use_pallas`` is false. CPU tensors run the
 kernels' plain torch versions. The JAX package ``qkd_ldpc_v_tpu`` is the

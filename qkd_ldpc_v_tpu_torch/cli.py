@@ -60,21 +60,24 @@ ported so far:
                                 streamed QC kernel for larger QC codes (the
                                 N=102400 suite; simulation.qc_kernel
                                 chooses), the fused generic kernel for the
-                                other codes inside its gate; false: the
-                                generic torch decoder.
+                                other codes inside its gate, the streamed
+                                generic kernel for larger ones (the 100k
+                                alist code); false: the generic torch
+                                decoder.
   tpu.batch_size                frames per device batch (0 = all trials).
   tpu.schedule                  flooding | layered (layered: QC codes with
                                 a min-sum algorithm; elsewhere it warns and
                                 floods).
   tpu.dtype                     float32 (all engines) | float64 | bfloat16
                                 (the generic torch decoder).
-  tpu.force_engine              "" | qc | qc_stream | generic | xla
-                                (qc_stream: the streamed QC kernel for any
-                                QC code; stream is not ported).
+  tpu.force_engine              "" | qc | qc_stream | generic | stream |
+                                xla (qc_stream: the streamed QC kernel for
+                                any QC code; stream: the streamed generic
+                                kernel for any code inside the JAX
+                                package's stream gate).
 
-Codes too large for the generic kernel (the JAX package's stream engine,
-e.g. the 100k alist code) and anything else not listed raise
-NotImplementedError naming the port step that brings it. Results: one CSV
+Anything else not listed raises NotImplementedError naming the port step
+that brings it. Results: one CSV
 per config, semicolon-separated with comma decimal marks, byte-compatible
 with qkd_ldpc_v_tpu's.
 """

@@ -4,8 +4,9 @@ At first use, every ``csrc/*.cu`` of this package is compiled by ``nvcc``
 (one compiler process per source, all started together) and linked into
 one shared library with a plain C interface, which is loaded with
 ``ctypes``. The library lands in ``build/qkd_ldpc_v_tpu_torch/`` beside the
-package (``build/`` is git-ignored), named by a hash of the sources and the
-flags, so a changed source rebuilds and an unchanged one loads at once.
+package (``build/`` is git-ignored), named by a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags, so a changed source or
+header rebuilds and an unchanged tree loads at once.
 
 There is no fallback: without ``nvcc`` or on a failed build this raises,
 and nothing returns ``None``. Parity builds never contract to FMA and never
@@ -61,8 +62,10 @@ def sources() -> list:
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of every source and header in
+    ``csrc/`` and of the flags."""
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -20,7 +20,10 @@ equals it exactly (decisions, convergence, iterations).
 
 Routing is by the tensors' device and nothing else: CPU tensors go to the
 plain version, CUDA tensors launch the kernel, and any other device
-raises. There is no fallback from a failed launch.
+raises. There is no fallback from a failed launch. ``generic_trial`` and
+``generic_decoder`` are that wrapper (``fused_qc.kernel_trial`` /
+``kernel_decoder``) with the generic plain versions; the streamed generic
+kernel (``ops/generic_stream.py``) uses them with its own launch plan.
 
 ``generic_feasible(matrix)`` is this port's gate for the ``generic``
 engine. It picks exactly the codes that the JAX package's
@@ -29,15 +32,16 @@ degree-grouped 128-lane plane layout needs at most ``MAX_TILES``
 128 x 128 tiles (about N = 32k at bit degree 2). The kernel serves every
 code inside it.
 
-Counters: ``LAUNCHES`` counts kernel launches; ``PLAIN_ON_CUDA`` counts
-plain-version calls on CUDA tensors, which only tests and the card smoke's
-comparisons make. ``reset_counts`` zeroes both.
+Counters: ``COUNTS.launches`` counts kernel launches;
+``COUNTS.plain_on_cuda`` counts plain-version calls on CUDA tensors, which
+only tests and the card smoke's comparisons make. ``reset_counts`` zeroes
+both and ``counts`` reads them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, Tuple
+from typing import Callable, List
 
 import numpy as np
 import torch
@@ -49,14 +53,18 @@ from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, layout_for
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult, get_decoder, make_trial
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     MAX_SHARED_BYTES,
-    check_tensor,
-    raise_on_error,
+    KernelCounts,
+    cached_plans,
+    kernel_decoder,
+    kernel_trial,
+    pointers,
+    stream_of,
 )
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
-from qkd_ldpc_v_tpu_torch.utils import PlanCache
 
-LAUNCHES = 0
-PLAIN_ON_CUDA = 0
+COUNTS = KernelCounts()
+reset_counts = COUNTS.reset
+counts = COUNTS.get
 
 # The JAX package's gate (pallas_generic.py: MAX_TILES tiles of LANES x
 # LANES edge rows), copied as a predicate.
@@ -69,25 +77,7 @@ LANES = 128
 # hide more of the latency of the dependent table and message accesses.
 THREADS = 1024
 
-_PLANS = PlanCache()
 _SIGNATURES_SET = False
-
-
-def reset_counts() -> None:
-    global LAUNCHES, PLAIN_ON_CUDA
-    LAUNCHES = 0
-    PLAIN_ON_CUDA = 0
-
-
-def counts() -> Tuple[int, int]:
-    """(kernel launches, plain-version calls on CUDA tensors)."""
-    return LAUNCHES, PLAIN_ON_CUDA
-
-
-def _count_plain(t: torch.Tensor) -> None:
-    global PLAIN_ON_CUDA
-    if t.device.type == "cuda":
-        PLAIN_ON_CUDA += 1
 
 
 def _edge_rows(rows: List[np.ndarray]) -> int:
@@ -109,10 +99,10 @@ def generic_feasible(matrix: HMatrix) -> bool:
     return -(-used // LANES) <= MAX_TILES
 
 
-def check_algorithm(algorithm: DecodingAlgorithm) -> None:
+def check_algorithm(algorithm: DecodingAlgorithm, kernel: str) -> None:
     if algorithm not in MIN_SUM:
         raise NotImplementedError(
-            f"{algorithm.display_name} in the fused generic kernel is not "
+            f"{algorithm.display_name} in the {kernel} kernel is not "
             "ported yet: the SPA pair comes after the min-sum family "
             "(ROADMAP, port queue)."
         )
@@ -140,7 +130,7 @@ def _lib() -> ctypes.CDLL:
 def launch_tables(layout: EdgeLayout) -> np.ndarray:
     """The kernel's index tables, concatenated as int32: cptr[M+1],
     cbit[E], bptr[N+1], bedge[E], bit_ext[N], chk_ext[M] (see the header
-    of csrc/fused_generic.cu)."""
+    of csrc/generic_decode.cuh), shared by both generic kernels."""
 
     def offsets(groups, count):
         deg = np.zeros(count, dtype=np.int64)
@@ -163,7 +153,9 @@ def launch_tables(layout: EdgeLayout) -> np.ndarray:
 class _Launch:
     """Launch plan of one code, algorithm family and device: the index
     tables on the device, where the messages live, and the persistent
-    grid's size."""
+    grid's size. ``trial`` and ``decode`` launch the kernel and return its
+    CUDA error code (arguments: see ``fused_qc.kernel_trial`` and
+    ``fused_qc.kernel_decoder``)."""
 
     def __init__(self, matrix: HMatrix, flags: int, device: torch.device):
         layout = layout_for(matrix)
@@ -172,7 +164,7 @@ class _Launch:
             raise NotImplementedError(
                 f"fused generic kernel: the code (N={self.n}, E={self.e}) is "
                 "outside the generic engine's gate; larger codes need the "
-                "streamed generic kernel (ROADMAP)"
+                "streamed generic kernel (ops/generic_stream.py)"
             )
         lib = _lib()
         self.msg_shared = int(lib.fused_generic_shared_bytes(
@@ -184,10 +176,9 @@ class _Launch:
                 f"fused generic kernel: {shared} bytes of shared memory per "
                 f"block exceed {MAX_SHARED_BYTES} (N={self.n}, M={self.m})"
             )
-        self.threads = THREADS
         with torch.cuda.device(device):
             resident = lib.fused_generic_resident_blocks(
-                self.n, self.m, self.e, flags, self.msg_shared, self.threads)
+                self.n, self.m, self.e, flags, self.msg_shared, THREADS)
         if resident <= 0:
             raise RuntimeError(
                 f"fused generic kernel: no block fits on {device} "
@@ -195,31 +186,74 @@ class _Launch:
         self.resident = resident
         self.table = torch.tensor(launch_tables(layout), dtype=torch.int32,
                                   device=device)
+        self.shape = (self.table.data_ptr(), self.n, self.m, self.e)
 
-    def grid_and_scratch(self, batch: int, device) -> Tuple[int, torch.Tensor]:
+    def _scratch(self, batch: int, device):
+        """(scratch or None, grid) of one launch. The scratch (messages not
+        shared) is freed once the launch is queued; the caching allocator
+        reuses it only in stream order."""
         grid = min(batch, self.resident)
         if self.msg_shared:
-            return grid, None
-        return grid, torch.empty((grid, self.e), dtype=torch.float32,
-                                 device=device)
+            return None, grid
+        return torch.empty((grid, self.e), dtype=torch.float32,
+                           device=device), grid
+
+    def trial(self, alice, bob, scalars, outs) -> int:
+        scratch, grid = self._scratch(alice.shape[0], alice.device)
+        return _lib().fused_generic_trial(
+            *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
+            _ptr(scratch), self.msg_shared, grid, THREADS, *pointers(*outs),
+            stream_of(alice))
+
+    def decode(self, llr, syndrome, scalars, outs) -> int:
+        scratch, grid = self._scratch(llr.shape[0], llr.device)
+        return _lib().fused_generic_decode(
+            *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
+            _ptr(scratch), self.msg_shared, grid, THREADS, *pointers(*outs),
+            stream_of(llr))
 
 
-def _launch_plan(matrix: HMatrix, flags: int, device) -> _Launch:
-    key = (flags, str(device))
-    plan = _PLANS.get(matrix, extra=key)
-    if plan is None:
-        plan = _Launch(matrix, flags, device)
-        _PLANS.put(matrix, plan, extra=key)
-    return plan
+_launch_plan = cached_plans(_Launch)
 
 
 def _flags(algorithm: DecodingAlgorithm) -> int:
+    """The generic kernels' template flags: bit 0 adaptive, bit 1 offset
+    (OMSA/AOMSA)."""
     offset = algorithm in (DecodingAlgorithm.OMSA, DecodingAlgorithm.AOMSA)
     return int(algorithm.is_adaptive) | (int(offset) << 1)
 
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def generic_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
+                  matrix: HMatrix, algorithm: DecodingAlgorithm,
+                  max_iterations: int, use_threshold: bool) -> Callable:
+    """``fused_qc.kernel_trial`` of a generic kernel, with the generic plain
+    version: the f32 generic torch decoder, ``calculate_syndrome`` and the
+    key compare."""
+    check_algorithm(algorithm, kernel)
+    plain = make_trial(layout_for(matrix), algorithm, max_iterations,
+                       use_threshold, torch.float32)
+    return kernel_trial(kernel, counts, plan_for, matrix,
+                        _flags(algorithm), matrix.num_bit_nodes,
+                        max_iterations, use_threshold, plain)
+
+
+def generic_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
+                    matrix: HMatrix, algorithm: DecodingAlgorithm,
+                    max_iterations: int,
+                    use_threshold: bool) -> Callable[..., DecodeResult]:
+    """``fused_qc.kernel_decoder`` of a generic kernel, with the f32 generic
+    torch decoder as its plain version."""
+    check_algorithm(algorithm, kernel)
+    plain = get_decoder(layout_for(matrix), algorithm, max_iterations,
+                        use_threshold, torch.float32)
+    return kernel_decoder(kernel, counts, plan_for, matrix,
+                          _flags(algorithm), matrix.num_bit_nodes,
+                          matrix.num_check_nodes, max_iterations,
+                          use_threshold, plain)
 
 
 def make_fused_generic_trial(
@@ -237,48 +271,8 @@ def make_fused_generic_trial(
     forms it inside its jit). ``trial.plain`` is the plain torch version
     with the same signature.
     """
-    check_algorithm(algorithm)
-    n = matrix.num_bit_nodes
-    plain_trial = make_trial(layout_for(matrix), algorithm, max_iterations,
-                             use_threshold, torch.float32)
-
-    def plain(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
-        _count_plain(alice)
-        return plain_trial(alice, bob, log_p, primary, secondary, threshold)
-
-    def trial(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
-        global LAUNCHES
-        b = alice.shape[0]
-        check_tensor("alice", alice, torch.int8, (b, n), alice.device)
-        check_tensor("bob", bob, torch.int8, (b, n), alice.device)
-        if alice.device.type == "cpu":
-            return plain(alice, bob, log_p, primary, secondary, threshold)
-        if alice.device.type != "cuda":
-            raise NotImplementedError(
-                f"fused generic trial: no kernel for device {alice.device}")
-        flags = _flags(algorithm)
-        plan = _launch_plan(matrix, flags, alice.device)
-        conv = torch.empty(b, dtype=torch.int8, device=alice.device)
-        keys = torch.empty(b, dtype=torch.int8, device=alice.device)
-        iters = torch.empty(b, dtype=torch.int32, device=alice.device)
-        if b == 0:
-            return conv.bool(), keys.bool(), iters
-        grid, scratch = plan.grid_and_scratch(b, alice.device)
-        code = _lib().fused_generic_trial(
-            alice.data_ptr(), bob.data_ptr(), b, plan.table.data_ptr(),
-            plan.n, plan.m, plan.e, flags, int(use_threshold),
-            int(max_iterations), float(log_p), float(primary),
-            float(secondary), float(threshold), _ptr(scratch),
-            plan.msg_shared, grid, plan.threads, conv.data_ptr(),
-            keys.data_ptr(), iters.data_ptr(),
-            torch.cuda.current_stream(alice.device).cuda_stream,
-        )
-        raise_on_error(code, "fused_generic_trial")
-        LAUNCHES += 1
-        return conv.bool(), keys.bool(), iters
-
-    trial.plain = plain
-    return trial
+    return generic_trial("fused generic", COUNTS, _launch_plan, matrix,
+                         algorithm, max_iterations, use_threshold)
 
 
 def make_fused_generic_decoder(
@@ -290,45 +284,5 @@ def make_fused_generic_decoder(
     """Fused decode: ``decode(llr [B,N] f32, syndrome [B,M] int8, primary,
     secondary, threshold) -> DecodeResult``. ``decode.plain`` is the plain
     torch version with the same signature."""
-    check_algorithm(algorithm)
-    layout = layout_for(matrix)
-    n, m = matrix.num_bit_nodes, matrix.num_check_nodes
-    decoder = get_decoder(layout, algorithm, max_iterations, use_threshold,
-                          torch.float32)
-
-    def plain(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
-        _count_plain(llr)
-        return decoder(llr, syndrome, primary, secondary, threshold)
-
-    def decode(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
-        global LAUNCHES
-        b = llr.shape[0]
-        check_tensor("llr", llr, torch.float32, (b, n), llr.device)
-        check_tensor("syndrome", syndrome, torch.int8, (b, m), llr.device)
-        if llr.device.type == "cpu":
-            return plain(llr, syndrome, primary, secondary, threshold)
-        if llr.device.type != "cuda":
-            raise NotImplementedError(
-                f"fused generic decoder: no kernel for device {llr.device}")
-        flags = _flags(algorithm)
-        plan = _launch_plan(matrix, flags, llr.device)
-        dec = torch.empty((b, n), dtype=torch.int8, device=llr.device)
-        conv = torch.empty(b, dtype=torch.int8, device=llr.device)
-        iters = torch.empty(b, dtype=torch.int32, device=llr.device)
-        if b == 0:
-            return DecodeResult(dec, conv.bool(), iters)
-        grid, scratch = plan.grid_and_scratch(b, llr.device)
-        code = _lib().fused_generic_decode(
-            llr.data_ptr(), syndrome.data_ptr(), b, plan.table.data_ptr(),
-            plan.n, plan.m, plan.e, flags, int(use_threshold),
-            int(max_iterations), float(primary), float(secondary),
-            float(threshold), _ptr(scratch), plan.msg_shared, grid,
-            plan.threads, dec.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-            torch.cuda.current_stream(llr.device).cuda_stream,
-        )
-        raise_on_error(code, "fused_generic_decode")
-        LAUNCHES += 1
-        return DecodeResult(dec, conv.bool(), iters)
-
-    decode.plain = plain
-    return decode
+    return generic_decoder("fused generic", COUNTS, _launch_plan, matrix,
+                           algorithm, max_iterations, use_threshold)

@@ -14,8 +14,10 @@ and ``make_pallas_qc_decoder``; the kernel is ``csrc/fused_qc.cu``):
 Routing is by the tensors' device and nothing else: CPU tensors go to the
 plain version (``ops/qc_decoder.py``), CUDA tensors launch the kernel, and
 any other device raises. There is no fallback from a failed launch.
-``qc_trial`` and ``qc_decoder`` hold that body once; the streamed QC kernel
-(``ops/qc_stream.py``) uses them with its own launch plan.
+``kernel_trial`` and ``kernel_decoder`` hold that wrapper body once for
+every kernel of the package; ``qc_trial`` and ``qc_decoder`` give it the QC
+plain versions, and the streamed QC kernel (``ops/qc_stream.py``) uses them
+with its own launch plan.
 
 ``fused_qc_fits(qc, layered)`` says, without building anything, whether the
 kernel holds a code: Z, the block-edge count and the base rows within its
@@ -183,6 +185,22 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def cached_plans(make: Callable) -> Callable:
+    """``plan_for(code, flags, device)``: ``make(code, flags, device)``,
+    built once per code (by identity), flags and device."""
+    plans = PlanCache()
+
+    def plan_for(code, flags: int, device):
+        key = (flags, str(device))
+        plan = plans.get(code, extra=key)
+        if plan is None:
+            plan = make(code, flags, device)
+            plans.put(code, plan, extra=key)
+        return plan
+
+    return plan_for
+
+
 class _Launch:
     """Launch plan of one code on one device: the block-edge table
     (row_ptr[mb+1], cols[num_be], shifts[num_be] int32, storage order).
@@ -238,39 +256,35 @@ def raise_on_error(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
-             qc: QCMatrix, algorithm: DecodingAlgorithm, max_iterations: int,
-             use_threshold: bool, schedule: str) -> Callable:
-    """The trial wrapper of the QC kernel named ``kernel``, counted in
-    ``counts``. ``plan_for(qc, flags, device)`` gives its launch plan, whose
+def kernel_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
+                 code, flags: int, n: int, max_iterations: int,
+                 use_threshold: bool, plain: Callable) -> Callable:
+    """The trial wrapper body every kernel of this package shares: checks,
+    routing by device, outputs and counting, for the kernel named
+    ``kernel``, counted in ``counts``, on ``code`` with ``n`` bits.
+    ``plan_for(code, flags, device)`` gives its launch plan, whose
     ``trial(alice, bob, scalars, outs)`` launches it with ``scalars =
     (flags, use_threshold, max_iterations, log_p, primary, secondary,
-    threshold)`` and ``outs = (conv, keys, iters)``."""
-    check_algorithm(algorithm)
-    layered = check_schedule(schedule)
-    flags = kernel_flags(algorithm, layered)
-    n = qc.num_bit_nodes
+    threshold)`` and ``outs = (conv, keys, iters)`` and returns the CUDA
+    error code. ``plain`` is the plain version, with the trial's
+    signature."""
 
-    def plain(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
+    def counted_plain(alice, bob, log_p, primary=1.0, secondary=1.0,
+                      threshold=0.0):
         counts.count_plain(alice)
-        lp = torch.tensor(log_p, dtype=torch.float32, device=alice.device)
-        llr = torch.where(bob == 1, -lp, lp)
-        res = plain_decode(qc, llr, qc_syndrome(qc, alice), algorithm,
-                           max_iterations, use_threshold, layered, primary,
-                           secondary, threshold)
-        keys = (res.decision == alice).all(dim=1)
-        return res.syndromes_match, keys, res.iterations
+        return plain(alice, bob, log_p, primary, secondary, threshold)
 
     def trial(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
         b = alice.shape[0]
         check_tensor("alice", alice, torch.int8, (b, n), alice.device)
         check_tensor("bob", bob, torch.int8, (b, n), alice.device)
         if alice.device.type == "cpu":
-            return plain(alice, bob, log_p, primary, secondary, threshold)
+            return counted_plain(alice, bob, log_p, primary, secondary,
+                                 threshold)
         if alice.device.type != "cuda":
             raise NotImplementedError(
                 f"{kernel} trial: no kernel for device {alice.device}")
-        plan = plan_for(qc, flags, alice.device)
+        plan = plan_for(code, flags, alice.device)
         conv = torch.empty(b, dtype=torch.int8, device=alice.device)
         keys = torch.empty(b, dtype=torch.int8, device=alice.device)
         iters = torch.empty(b, dtype=torch.int32, device=alice.device)
@@ -284,39 +298,34 @@ def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
         counts.launches += 1
         return conv.bool(), keys.bool(), iters
 
-    trial.plain = plain
+    trial.plain = counted_plain
     return trial
 
 
-def qc_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
-               qc: QCMatrix, algorithm: DecodingAlgorithm,
-               max_iterations: int, use_threshold: bool,
-               schedule: str) -> Callable[..., DecodeResult]:
-    """The decode wrapper of a QC kernel, as ``qc_trial``; the plan's
+def kernel_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
+                   code, flags: int, n: int, m: int, max_iterations: int,
+                   use_threshold: bool, plain: Callable) -> Callable:
+    """The decode wrapper body, as ``kernel_trial``; the plan's
     ``decode(llr, syndrome, scalars, outs)`` takes ``scalars = (flags,
     use_threshold, max_iterations, primary, secondary, threshold)`` and
-    ``outs = (decisions, conv, iters)``."""
-    check_algorithm(algorithm)
-    layered = check_schedule(schedule)
-    flags = kernel_flags(algorithm, layered)
-    n, m = qc.num_bit_nodes, qc.num_check_nodes
+    ``outs = (decisions, conv, iters)``; ``plain(llr, syndrome, primary,
+    secondary, threshold)`` returns a ``DecodeResult``."""
 
-    def plain(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
+    def counted_plain(llr, syndrome, primary=1.0, secondary=1.0,
+                      threshold=0.0):
         counts.count_plain(llr)
-        return plain_decode(qc, llr, syndrome, algorithm, max_iterations,
-                            use_threshold, layered, primary, secondary,
-                            threshold)
+        return plain(llr, syndrome, primary, secondary, threshold)
 
     def decode(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
         b = llr.shape[0]
         check_tensor("llr", llr, torch.float32, (b, n), llr.device)
         check_tensor("syndrome", syndrome, torch.int8, (b, m), llr.device)
         if llr.device.type == "cpu":
-            return plain(llr, syndrome, primary, secondary, threshold)
+            return counted_plain(llr, syndrome, primary, secondary, threshold)
         if llr.device.type != "cuda":
             raise NotImplementedError(
                 f"{kernel} decoder: no kernel for device {llr.device}")
-        plan = plan_for(qc, flags, llr.device)
+        plan = plan_for(code, flags, llr.device)
         dec = torch.empty((b, n), dtype=torch.int8, device=llr.device)
         conv = torch.empty(b, dtype=torch.int8, device=llr.device)
         iters = torch.empty(b, dtype=torch.int32, device=llr.device)
@@ -329,8 +338,49 @@ def qc_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
         counts.launches += 1
         return DecodeResult(dec, conv.bool(), iters)
 
-    decode.plain = plain
+    decode.plain = counted_plain
     return decode
+
+
+def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
+             qc: QCMatrix, algorithm: DecodingAlgorithm, max_iterations: int,
+             use_threshold: bool, schedule: str) -> Callable:
+    """``kernel_trial`` of a QC kernel, with the QC plain version
+    (``ops/qc_decoder.py``) in the schedule asked for."""
+    check_algorithm(algorithm)
+    layered = check_schedule(schedule)
+
+    def plain(alice, bob, log_p, primary, secondary, threshold):
+        lp = torch.tensor(log_p, dtype=torch.float32, device=alice.device)
+        llr = torch.where(bob == 1, -lp, lp)
+        res = plain_decode(qc, llr, qc_syndrome(qc, alice), algorithm,
+                           max_iterations, use_threshold, layered, primary,
+                           secondary, threshold)
+        keys = (res.decision == alice).all(dim=1)
+        return res.syndromes_match, keys, res.iterations
+
+    return kernel_trial(kernel, counts, plan_for, qc,
+                        kernel_flags(algorithm, layered), qc.num_bit_nodes,
+                        max_iterations, use_threshold, plain)
+
+
+def qc_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
+               qc: QCMatrix, algorithm: DecodingAlgorithm,
+               max_iterations: int, use_threshold: bool,
+               schedule: str) -> Callable[..., DecodeResult]:
+    """``kernel_decoder`` of a QC kernel, as ``qc_trial``."""
+    check_algorithm(algorithm)
+    layered = check_schedule(schedule)
+
+    def plain(llr, syndrome, primary, secondary, threshold):
+        return plain_decode(qc, llr, syndrome, algorithm, max_iterations,
+                            use_threshold, layered, primary, secondary,
+                            threshold)
+
+    return kernel_decoder(kernel, counts, plan_for, qc,
+                          kernel_flags(algorithm, layered), qc.num_bit_nodes,
+                          qc.num_check_nodes, max_iterations, use_threshold,
+                          plain)
 
 
 def make_fused_qc_trial(

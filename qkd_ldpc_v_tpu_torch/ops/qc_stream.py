@@ -50,6 +50,7 @@ from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     KernelCounts,
+    cached_plans,
     block_edge_table,
     limit_reason,
     pointers,
@@ -58,7 +59,6 @@ from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     stream_of,
 )
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import base_tables
-from qkd_ldpc_v_tpu_torch.utils import PlanCache
 
 COUNTS = KernelCounts()
 reset_counts = COUNTS.reset
@@ -77,7 +77,6 @@ _JAX_BUDGET = 72 * 1024 * 1024
 _JAX_TILE = 8
 _JAX_LANES = 128
 
-_PLANS = PlanCache()
 _SIGNATURES_SET = False
 
 
@@ -180,13 +179,7 @@ class _Launch:
             stream_of(llr))
 
 
-def _launch_plan(qc: QCMatrix, flags: int, device) -> _Launch:
-    key = (flags, str(device))
-    plan = _PLANS.get(qc, extra=key)
-    if plan is None:
-        plan = _Launch(qc, flags, device)
-        _PLANS.put(qc, plan, extra=key)
-    return plan
+_launch_plan = cached_plans(_Launch)
 
 
 def make_qc_stream_trial(

@@ -21,7 +21,8 @@ one):
     with ``use_pallas`` and float32 — the fused generic trial
     (``ops/fused_generic.py``);
   * ``stream``: codes too large for the generic kernel (the 100k alist
-    code) — not ported yet, ``NotImplementedError``;
+    code), or any code with ``force_engine = "stream"`` — the streamed
+    generic trial (``ops/generic_stream.py``);
   * ``xla``: ``use_pallas = false`` or dtype float64/bfloat16 — the generic
     torch decoder (``ops/decoders.py``), all six algorithms.
 The kernels' trials launch their CUDA kernels for tensors on a CUDA device
@@ -77,6 +78,10 @@ from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     fused_qc_fits,
     make_fused_qc_trial,
+)
+from qkd_ldpc_v_tpu_torch.ops.generic_stream import (
+    make_generic_stream_trial,
+    stream_feasible,
 )
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
 from qkd_ldpc_v_tpu_torch.ops.qc_stream import (
@@ -344,8 +349,9 @@ def process_trials_results(
 # The JAX package's engine gates, copied as predicates so that
 # ``select_engine`` names the engine the JAX package would run
 # (ops/pallas_qc.py::feasible_batch_tile > 0 at its smallest tile,
-# ops/pallas_qc_stream.py::qc_stream_feasible (``ops/qc_stream.py`` holds
-# its copy), ops/pallas_stream.py::stream_feasible). The byte budgets are the
+# ops/pallas_qc_stream.py::qc_stream_feasible and
+# ops/pallas_stream.py::stream_feasible, whose copies ``ops/qc_stream.py``
+# and ``ops/generic_stream.py`` hold). The byte budgets are the
 # TPU kernels' on-chip memory and say nothing about this port's kernels,
 # which check their own bounds.
 _QC_MAX_BLOCK_EDGES = 420
@@ -360,14 +366,6 @@ def _qc_fused_gate(qc: QCMatrix) -> bool:
     nb, mb = qc.base_bits, qc.base_checks
     planes = num_be + 3 * nb + mb + 2 * nb
     return planes * qc.lifting * 4 * _QC_MIN_TILE <= _QC_BUDGET
-
-
-def _stream_gate(matrix: HMatrix) -> bool:
-    if not matrix.bit_nodes or not matrix.check_nodes:
-        return False
-    dmax_b = max(len(r) for r in matrix.bit_nodes)
-    dmax_c = max(len(r) for r in matrix.check_nodes)
-    return dmax_b * -(-matrix.num_bit_nodes // 128) > 256 and dmax_c < 64
 
 
 def select_engine(matrix: HMatrix, cfg: Config) -> str:
@@ -385,18 +383,13 @@ def select_engine(matrix: HMatrix, cfg: Config) -> str:
             return "qc_stream"
     if force in ("", "generic") and generic_feasible(matrix):
         return "generic"
-    if force in ("", "stream") and _stream_gate(matrix):
+    if force in ("", "stream") and stream_feasible(matrix):
         return "stream"
     if force and force != "xla":
         raise ValueError(
             f"tpu.force_engine = {force!r} cannot serve this matrix"
         )
     return "xla"
-
-
-_UNPORTED_ENGINES = {
-    "stream": "the HBM-streamed generic kernels (ops/pallas_stream.py)",
-}
 
 
 def check_engine(matrix: HMatrix, cfg: Config) -> str:
@@ -410,13 +403,11 @@ def check_engine(matrix: HMatrix, cfg: Config) -> str:
     if cfg.trace_qkd_ldpc or cfg.trace_decoding_alg or cfg.trace_decoding_alg_llr:
         reasons.append("the traced f64 decode path")
     engine = select_engine(matrix, cfg)
-    if engine in _UNPORTED_ENGINES:
-        reasons.append(f"the {engine} engine: {_UNPORTED_ENGINES[engine]}")
-    if engine in ("qc", "qc_stream", "generic") and \
-            cfg.decoding_algorithm not in MIN_SUM:
-        reasons.append(f"{cfg.decoding_algorithm.display_name} in the fused "
-                       f"{engine} kernel (its SPA mode; tpu.use_pallas = false "
-                       "runs it in the generic torch decoder)")
+    if engine != "xla" and cfg.decoding_algorithm not in MIN_SUM:
+        reasons.append(f"{cfg.decoding_algorithm.display_name} in the "
+                       f"{engine} engine's kernel (its SPA mode; "
+                       "tpu.use_pallas = false runs it in the generic torch "
+                       "decoder)")
     if reasons:
         raise NotImplementedError(
             "not ported to qkd_ldpc_v_tpu_torch yet: " + "; ".join(reasons)
@@ -462,6 +453,8 @@ def _make_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
                     schedule="layered" if layered else "flooding")
     if engine == "generic":
         return make_fused_generic_trial(matrix, alg, cap, use_thr)
+    if engine == "stream":
+        return make_generic_stream_trial(matrix, alg, cap, use_thr)
     return make_trial(layout_for(matrix), alg, cap, use_thr,
                       _DTYPES[cfg.dtype])
 

@@ -1,0 +1,580 @@
+"""Streamed generic wrappers (qkd_ldpc_v_tpu_torch/ops/generic_stream.py)
+and the sweep's ``stream`` engine.
+
+On the CPU the wrappers run their plain torch versions (the f32 generic
+torch decoder, ``calculate_syndrome`` and the key compare). On the N=288
+irregular code of tests/test_pallas_stream.py they must equal the JAX f32
+XLA decoder exactly, and hold to the JAX streamed Pallas kernel (interpret
+mode, f32 transport, ``cap_rows=8``, ``batch_tile=4``) at the parity level
+the JAX package's own test of that kernel holds: NMSA and OMSA with equal
+convergence, iterations and converged decisions; ANMSA and AOMSA with equal
+convergence and iterations within 4 (the TPU kernel tests the adaptive pair
+half an iteration early), decisions equal where both stop at the same
+iteration. Both modes, the message clamp off and on.
+
+The gate equals the JAX package's ``stream_feasible`` on every committed
+asset; the sweep's ``stream`` engine equals JAX's XLA run as a SimResult
+and as CSV bytes on an N=22000 code inside that gate, and JAX's forced
+streamed run (f32 transport) on the N=288 code. JAX's default bf16x2
+transport is only statistically equal to the reference (ROADMAP.md §3):
+at an easy operating point every frame still decodes to Alice's key, with
+iteration counts within 4 of the port's.
+
+Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
+card and the shared-memory rule with the built library; they skip without a
+CUDA device. They import no JAX, so on a machine without JAX they run with
+the conftest left out:
+
+    python -m pytest tests/test_torch_generic_stream.py -m cuda --noconftest -q
+"""
+
+import dataclasses
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qkd_ldpc_v_tpu_torch import kernels
+from qkd_ldpc_v_tpu_torch import simulation as tsim
+from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
+from qkd_ldpc_v_tpu_torch.config import MatrixFormat as TFormat
+from qkd_ldpc_v_tpu_torch.convert import config_from_dict
+from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
+from qkd_ldpc_v_tpu_torch.models.hmatrix import from_dense
+from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix as tread_matrix
+from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, generic_stream
+from qkd_ldpc_v_tpu_torch.ops.channel import (
+    calculate_syndrome,
+    inject_errors,
+    log_ratio,
+)
+from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams as TParams
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+ALIST = REPO / "sparse_matrices" / "matrices_alist"
+CAP = 30
+CAP_ROWS = 8
+THRESHOLD = 6.0
+# The JAX streamed kernels are built once per algorithm with the clamp on;
+# a clamp at the largest float32 leaves every finite message as it is.
+NO_CLAMP = float(np.finfo(np.float32).max)
+ALGS = [
+    ("NMSA", 0.8, 1.0),
+    ("OMSA", 0.3, 1.0),
+    ("ANMSA", 0.88, 0.5),
+    ("AOMSA", 0.3, 0.6),
+]
+FORMATS = ("ALIST", "SPARSE_1", "SPARSE_2", "UNCOMPRESSED", "QC")
+_ASSETS = sorted(
+    (path, fmt)
+    for fmt in FORMATS
+    for path in (REPO / "sparse_matrices" / TFormat[fmt].directory_name).glob("*.mtrx")
+)
+
+
+def irregular_dense():
+    """tests/test_pallas_stream.py::irregular: N=288, M=144, column weights
+    2..5, mixed row weights."""
+    rng = np.random.default_rng(11)
+    n, m = 288, 144
+    dense = np.zeros((m, n), dtype=np.int8)
+    for col in range(n):
+        dense[rng.choice(m, size=2 + (col % 4), replace=False), col] = 1
+    for row in range(m):
+        if dense[row].sum() == 0:
+            dense[row, rng.integers(0, n)] = 1
+    return dense
+
+
+def stream_sized_code():
+    """tests/test_torch_simulation.py::_stream_sized_code: N=22000, column
+    weight 3, 66000 edges, inside the JAX stream gate and outside the
+    generic one."""
+    return generate_regular_ldpc(num_bits=22000, num_checks=11000,
+                                 column_weight=3, seed=5)
+
+
+def _jax_matrix(matrix):
+    from qkd_ldpc_v_tpu.models.hmatrix import HMatrix as JHMatrix
+
+    return JHMatrix([np.asarray(c) for c in matrix.bit_nodes],
+                    [np.asarray(r) for r in matrix.check_nodes],
+                    matrix.is_regular)
+
+
+@pytest.fixture(scope="module")
+def irregular():
+    return from_dense(irregular_dense())
+
+
+def channel_case(matrix, batch, qber, seed):
+    """tests/test_pallas_stream.py::channel_case, as numpy arrays: Alice's
+    and Bob's keys, the LLRs and Alice's syndrome. The LLR magnitude is
+    ``channel.log_ratio``'s, the value JAX's trial forms from the QBER."""
+    rng = np.random.default_rng(seed)
+    n = matrix.num_bit_nodes
+    alice = rng.integers(0, 2, (batch, n)).astype(np.int8)
+    bob = alice ^ (rng.random((batch, n)) < qber).astype(np.int8)
+    log_p = np.float32(log_ratio(qber))
+    llr = np.where(bob == 1, -log_p, log_p).astype(np.float32)
+    syn = calculate_syndrome(layout_for(matrix), torch.tensor(alice)).numpy()
+    return alice, bob, llr, syn
+
+
+@pytest.fixture(scope="module")
+def channel(irregular):
+    """tests/test_pallas_stream.py's case for the JAX streamed kernel:
+    8 frames at QBER 0.02 (seed 3)."""
+    return channel_case(irregular, 8, 0.02, 3)
+
+
+def _jax_decoder(matrix, alg, use_thr, transport="f32"):
+    """JAX's streamed decode kernel, interpret mode."""
+    import jax
+    from qkd_ldpc_v_tpu.config import DecodingAlgorithm as JAlg
+    from qkd_ldpc_v_tpu.ops.pallas_stream import make_pallas_stream_decoder
+
+    return jax.jit(make_pallas_stream_decoder(
+        _jax_matrix(matrix), JAlg[alg], CAP, use_thr, batch_tile=4,
+        interpret=True, cap_rows=CAP_ROWS, transport=transport))
+
+
+@pytest.fixture(scope="module")
+def jax_stream(irregular):
+    """alg -> JAX's streamed (decode, trial) kernels on the N=288 code, f32
+    transport, the clamp on (``NO_CLAMP`` turns it off), built at first
+    use."""
+    import jax
+    from qkd_ldpc_v_tpu.config import DecodingAlgorithm as JAlg
+    from qkd_ldpc_v_tpu.ops.pallas_stream import make_pallas_stream_trial
+
+    built = {}
+
+    def get(alg):
+        if alg not in built:
+            trial = jax.jit(make_pallas_stream_trial(
+                _jax_matrix(irregular), JAlg[alg], CAP, True, batch_tile=4,
+                interpret=True, cap_rows=CAP_ROWS, transport="f32"))
+            built[alg] = (_jax_decoder(irregular, alg, True), trial)
+        return built[alg]
+
+    return get
+
+
+def _jax_xla(matrix, alg, use_thr, llr, syn, f1, f2, thr):
+    import jax
+    import jax.numpy as jnp
+    from qkd_ldpc_v_tpu.config import DecodingAlgorithm as JAlg
+    from qkd_ldpc_v_tpu.models.layout import compile_layout
+    from qkd_ldpc_v_tpu.ops.decoders import make_decoder
+
+    dec = make_decoder(compile_layout(_jax_matrix(matrix)), JAlg[alg], CAP,
+                       use_thr, jnp.float32)
+    return jax.device_get(dec(llr, syn, f1, f2, thr))
+
+
+def _np(res):
+    return (np.asarray(res.decision), np.asarray(res.syndromes_match),
+            np.asarray(res.iterations))
+
+
+def _assert_at_stream_parity(alg, got, want):
+    """``got`` (decisions, conv, iterations) of the port against JAX's
+    streamed kernel, at that kernel's own test's parity level."""
+    dec, conv, iters = got
+    jdec, jconv, jiters = want
+    np.testing.assert_array_equal(conv, jconv)
+    if not TAlg[alg].is_adaptive:
+        np.testing.assert_array_equal(iters, jiters)
+        np.testing.assert_array_equal(dec[conv], jdec[conv])
+        return
+    assert np.abs(iters - jiters).max() <= 4
+    same = conv & jconv & (iters == jiters)
+    np.testing.assert_array_equal(dec[same], jdec[same])
+
+
+@pytest.mark.parametrize("use_thr", [False, True])
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_cpu_path_matches_jax_xla_and_pallas_stream(irregular, channel,
+                                                    jax_stream, alg, f1, f2,
+                                                    use_thr):
+    """Decode and trial on the CPU: exactly JAX's f32 XLA decoder (plus the
+    syndrome and the key compare), and JAX's streamed kernel at its parity
+    level."""
+    import jax
+
+    alice, bob, llr, syn = channel
+    thr = THRESHOLD if use_thr else 0.0
+    generic_stream.reset_counts()
+    dec = generic_stream.make_generic_stream_decoder(irregular, TAlg[alg],
+                                                     CAP, use_thr)
+    got = _np(dec(torch.tensor(llr), torch.tensor(syn), f1, f2, thr))
+    xla = _np(_jax_xla(irregular, alg, use_thr, llr, syn, f1, f2, thr))
+    for g, w in zip(got, xla):
+        np.testing.assert_array_equal(g, w)
+    assert got[1].all()
+
+    jdec, jtrial = jax_stream(alg)
+    jthr = THRESHOLD if use_thr else NO_CLAMP
+    _assert_at_stream_parity(alg, got, _np(jax.device_get(
+        jdec(llr, syn, f1, f2, jthr))))
+
+    trial = generic_stream.make_generic_stream_trial(irregular, TAlg[alg],
+                                                     CAP, use_thr)
+    conv, keys, iters = (t.numpy() for t in trial(
+        torch.tensor(alice), torch.tensor(bob), log_ratio(0.02), f1, f2, thr))
+    np.testing.assert_array_equal(conv, xla[1])
+    np.testing.assert_array_equal(iters, xla[2])
+    np.testing.assert_array_equal(keys, (xla[0] == alice).all(axis=1))
+    jconv, jkeys, jiters = (np.asarray(t) for t in jax.device_get(
+        jtrial(alice, bob, 0.02, f1, f2, jthr)))
+    np.testing.assert_array_equal(conv, jconv)
+    np.testing.assert_array_equal(keys[conv], jkeys[conv])
+    if TAlg[alg].is_adaptive:
+        assert np.abs(iters - jiters).max() <= 4
+    else:
+        np.testing.assert_array_equal(iters, jiters)
+    assert generic_stream.counts() == (0, 0)
+
+
+def test_unconverged_frames_match_jax_xla(irregular):
+    """A hard channel (QBER 0.09, cap 6) where frames run to the cap: the
+    whole decision matrix equals the XLA decoder's, converged or not."""
+    alice, bob, llr, syn = channel_case(irregular, 8, 0.09, 37)
+    got = generic_stream.make_generic_stream_decoder(
+        irregular, TAlg.NMSA, 6, False)(torch.tensor(llr), torch.tensor(syn),
+                                        0.8, 1.0, 0.0)
+    import jax
+    import jax.numpy as jnp
+    from qkd_ldpc_v_tpu.config import DecodingAlgorithm as JAlg
+    from qkd_ldpc_v_tpu.models.layout import compile_layout
+    from qkd_ldpc_v_tpu.ops.decoders import make_decoder
+
+    want = jax.device_get(make_decoder(
+        compile_layout(_jax_matrix(irregular)), JAlg.NMSA, 6, False,
+        jnp.float32)(llr, syn, 0.8, 1.0, 0.0))
+    assert not np.asarray(want.syndromes_match).all()
+    for g, w in zip(_np(got), _np(want)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("alg,f1,f2", [ALGS[0], ALGS[3]])
+def test_jax_bf16x2_transport_is_only_statistically_equal(irregular, alg, f1,
+                                                          f2):
+    """JAX's default transport (bf16x2, messages rounded in flight) at the
+    easy point of tests/test_pallas_stream.py::test_bf16x2_transport_decodes
+    (QBER 0.02, seed 23): every frame decodes to Alice's key in both
+    packages, and JAX's iteration counts lie within 4 of the port's, which
+    follows the f32 XLA decoder (ROADMAP.md §3)."""
+    import jax
+
+    alice, bob, _, syn = channel_case(irregular, 8, 0.02, 23)
+    # That test's LLRs: the magnitude's double-precision log, then float32
+    # (the adaptive pair's iteration counts move with its last bit).
+    log_p = float(np.log(0.98 / 0.02))
+    llr = np.where(bob == 1, -log_p, log_p).astype(np.float32)
+    got = generic_stream.make_generic_stream_decoder(
+        irregular, TAlg[alg], CAP, False)(torch.tensor(llr),
+                                          torch.tensor(syn), f1, f2, 0.0)
+    want = jax.device_get(_jax_decoder(irregular, alg, False, "bf16x2")(
+        llr, syn, f1, f2, 0.0))
+    assert bool(got.syndromes_match.all())
+    assert np.asarray(want.syndromes_match).all()
+    np.testing.assert_array_equal(got.decision.numpy(), alice)
+    np.testing.assert_array_equal(np.asarray(want.decision), alice)
+    assert np.abs(got.iterations.numpy() - np.asarray(want.iterations)).max() <= 4
+
+
+@pytest.mark.parametrize("path,fmt", _ASSETS,
+                         ids=[f"{f}-{p.stem}" for p, f in _ASSETS])
+def test_gate_equals_jax_stream_feasible(path, fmt):
+    from qkd_ldpc_v_tpu.config import MatrixFormat as JFormat
+    from qkd_ldpc_v_tpu.models.hmatrix import read_matrix as jread_matrix
+    from qkd_ldpc_v_tpu.ops.pallas_stream import stream_feasible
+
+    assert generic_stream.stream_feasible(tread_matrix(path, TFormat[fmt])) \
+        == stream_feasible(jread_matrix(path, JFormat[fmt]))
+
+
+def test_gate_on_the_test_codes(irregular):
+    from qkd_ldpc_v_tpu.ops.pallas_stream import stream_feasible
+
+    codes = [irregular, stream_sized_code()]
+    verdicts = [generic_stream.stream_feasible(c) for c in codes]
+    assert verdicts == [stream_feasible(_jax_matrix(c)) for c in codes]
+    assert verdicts == [False, True]
+    assert not fused_generic.generic_feasible(codes[1])
+
+
+def _jax_cfg(**kw):
+    from qkd_ldpc_v_tpu.config import Config, DecodingAlgorithm, MatrixFormat
+    from qkd_ldpc_v_tpu.config import RQBERRange
+
+    qber = kw.pop("qber")
+    base = dict(trials_number=24, simulation_seed=5,
+                decoding_algorithm=DecodingAlgorithm.NMSA,
+                decoding_alg_max_iterations=CAP,
+                matrix_format=MatrixFormat.ALIST,
+                r_qber_ranges=(RQBERRange(0.99, qber, qber, 0.01),),
+                batch_size=16)  # two chunks, the second one short
+    base.update(kw)
+    return Config(**base)
+
+
+def _jax_key_source(seed):
+    import jax
+    import jax.numpy as jnp
+    from qkd_ldpc_v_tpu.ops import channel as jch
+
+    def source(sim_number, chunk_index, batch, n):
+        ka, ke, _ = jch.trial_keys(seed, sim_number, chunk_index)
+        alice = np.asarray(jch.generate_keys(ka, batch, n))
+        bits = np.asarray(jax.random.bits(ke, (batch, n), jnp.uint32))
+        return alice, bits.astype(np.int64)
+    return source
+
+
+def _run_both(jm, tm, jcfg, tcfg, qber, tmp_path):
+    """(JAX SimResult, port SimResult) of one combination with JAX's keys,
+    and their CSVs' equality."""
+    from qkd_ldpc_v_tpu import simulation as jsim
+    from qkd_ldpc_v_tpu.rate_adapt import HMatrixParams as JParams
+
+    want = jsim.run_combination(
+        jm, jsim.SimCombination(qber, JParams(), jsim.ScalingFactors(0.8)),
+        jcfg, sim_number=1)
+    generic_stream.reset_counts()
+    got = tsim.run_combination(
+        tm, tsim.SimCombination(qber, TParams(), tsim.ScalingFactors(0.8)),
+        tcfg, 1, "cpu", key_source=_jax_key_source(jcfg.simulation_seed))
+    assert generic_stream.counts() == (0, 0)
+    jpath = jsim.write_file([want], jcfg, "00h-00m-01s", tmp_path / "jax")
+    tpath = tsim.write_file([got], tcfg, "00h-00m-01s", tmp_path / "torch")
+    assert tpath.name == jpath.name
+    assert tpath.read_bytes() == jpath.read_bytes()
+    return want, got
+
+
+def test_stream_engine_run_matches_jax_xla(tmp_path):
+    """The N=22000 code through the port's ``stream`` engine against JAX's
+    ``use_pallas = false`` run: equal SimResult and CSV bytes."""
+    from qkd_ldpc_v_tpu import simulation as jsim
+
+    tm = stream_sized_code()
+    jm = _jax_matrix(tm)
+    qber = 0.075
+    jcfg = _jax_cfg(qber=qber, use_pallas=False)
+    tcfg = config_from_dict(dataclasses.asdict(_jax_cfg(qber=qber,
+                                                        use_pallas=True)))
+    assert jsim.pallas_engine(jm, _jax_cfg(qber=qber, use_pallas=True)) \
+        == "stream"
+    assert tsim.check_engine(tm, tcfg) == "stream"
+    want, got = _run_both(jm, tm, jcfg, tcfg, qber, tmp_path)
+    assert got.ratio_trials_success_ldpc > 0.0
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_forced_stream_run_matches_jax_stream(irregular, monkeypatch,
+                                              tmp_path):
+    """Both packages' gates patched to ``stream`` on the N=288 code, as
+    the JAX package's own sweep test of that engine forces it
+    (tests/test_pallas_stream.py:454): the port's NMSA statistics equal
+    JAX's streamed run with f32 transport, and the port's trial is the
+    streamed one."""
+    from qkd_ldpc_v_tpu import simulation as jsim
+    from qkd_ldpc_v_tpu.ops import pallas_generic, pallas_stream
+
+    monkeypatch.setattr(pallas_generic, "generic_plan_feasible", lambda m: False)
+    monkeypatch.setattr(pallas_stream, "stream_feasible", lambda m: True)
+    orig = pallas_stream.make_pallas_stream_trial
+    called = []
+    monkeypatch.setattr(
+        pallas_stream, "make_pallas_stream_trial",
+        lambda *a, **k: called.append(1) or orig(
+            *a, cap_rows=CAP_ROWS, transport="f32", **k))
+    monkeypatch.setattr(tsim, "generic_feasible", lambda m: False)
+    monkeypatch.setattr(tsim, "stream_feasible", lambda m: True)
+    made = []
+    monkeypatch.setattr(
+        tsim, "make_generic_stream_trial",
+        lambda *a: made.append(1) or generic_stream.make_generic_stream_trial(*a))
+
+    qber = 0.07
+    jm = _jax_matrix(irregular)
+    jcfg = _jax_cfg(qber=qber, use_pallas=True)
+    tcfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert jsim.pallas_engine(jm, jcfg) == "stream"
+    assert tsim.check_engine(irregular, tcfg) == "stream"
+    want, got = _run_both(jm, irregular, jcfg, tcfg, qber, tmp_path)
+    assert called and made
+    assert 0.0 < got.ratio_trials_success_ldpc < 1.0
+    assert got.ratio_trials_success_ldpc == want.ratio_trials_success_ldpc
+    assert got.iter_success_mean == want.iter_success_mean
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_forced_stream_on_the_10k_alist_code_and_spa(irregular):
+    """``force_engine = stream`` sends a code inside the generic gate to the
+    streamed kernel where JAX's gate admits it; SPA on the stream engine
+    raises, naming the SPA queue item."""
+    from qkd_ldpc_v_tpu.config import Config, DecodingAlgorithm
+
+    alist = tread_matrix(ALIST / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx",
+                         TFormat.ALIST)
+    forced = config_from_dict(dataclasses.asdict(
+        Config(use_pallas=True, force_engine="stream")))
+    assert tsim.select_engine(alist, forced) == "stream"
+    spa = config_from_dict(dataclasses.asdict(
+        Config(use_pallas=True, decoding_algorithm=DecodingAlgorithm.SPA,
+               force_engine="stream")))
+    with pytest.raises(NotImplementedError, match="SPA"):
+        tsim.check_engine(alist, spa)
+    with pytest.raises(ValueError, match="force_engine"):
+        tsim.select_engine(irregular, forced)
+
+
+def test_wrappers_check_inputs(irregular, channel):
+    alice, bob, llr, syn = (torch.tensor(x) for x in channel)
+    trial = generic_stream.make_generic_stream_trial(irregular, TAlg.NMSA,
+                                                     CAP, False)
+    with pytest.raises(TypeError):
+        trial(alice.to(torch.int32), bob, 3.0)
+    with pytest.raises(ValueError):
+        trial(alice[:, :100], bob[:, :100], 3.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        trial(alice.t().contiguous().t(), bob, 3.0)
+    dec = generic_stream.make_generic_stream_decoder(irregular, TAlg.NMSA,
+                                                     CAP, False)
+    with pytest.raises(ValueError):
+        dec(llr, syn[:, :10])
+    with pytest.raises(TypeError):
+        dec(llr.double(), syn)
+    for alg in (TAlg.SPA, TAlg.SPA_APPROX):
+        with pytest.raises(NotImplementedError, match="SPA pair"):
+            generic_stream.make_generic_stream_trial(irregular, alg, CAP, False)
+        with pytest.raises(NotImplementedError, match="streamed generic"):
+            generic_stream.make_generic_stream_decoder(irregular, alg, CAP,
+                                                       False)
+
+
+def test_non_cpu_tensors_never_take_the_plain_path(irregular):
+    """A tensor on a device other than the CPU launches the kernel or
+    raises; meta tensors have no kernel, so both wrappers raise and neither
+    counter moves."""
+    n, m = irregular.num_bit_nodes, irregular.num_check_nodes
+    keys = torch.empty((2, n), dtype=torch.int8, device="meta")
+    generic_stream.reset_counts()
+    with pytest.raises(NotImplementedError, match="meta"):
+        generic_stream.make_generic_stream_trial(irregular, TAlg.NMSA, CAP,
+                                                 False)(keys, keys, 3.0)
+    with pytest.raises(NotImplementedError, match="meta"):
+        generic_stream.make_generic_stream_decoder(irregular, TAlg.NMSA, CAP,
+                                                   False)(
+            torch.empty((2, n), device="meta"),
+            torch.empty((2, m), dtype=torch.int8, device="meta"))
+    assert generic_stream.counts() == (0, 0)
+
+
+@pytest.mark.parametrize("n,m,fits", [
+    (102400, 31744, True),    # the 100k alist code: 134,144 bytes
+    (150000, 45000, True),
+    (200000, 60000, False),   # N=200k at rate 0.7
+])
+def test_shared_memory_rule(n, m, fits):
+    """A frame's decisions and syndrome must fit in a block's shared
+    memory; beyond it the launch plan raises, naming N and M, before
+    anything is built."""
+    assert generic_stream.shared_bytes(n, m) == -(-(n + m) // 16) * 16
+    if fits:
+        generic_stream.check_shared_memory(n, m)
+        return
+    with pytest.raises(NotImplementedError, match=f"N={n}, M={m}"):
+        generic_stream.check_shared_memory(n, m)
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    """The library is named by a hash of every source and header in csrc/:
+    editing a header's bytes (csrc/generic_decode.cuh, which both generic
+    kernels include) must give another library, and an untouched copy the
+    same one."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, copy)
+    before = kernels.library_path()
+    monkeypatch.setattr(kernels, "CSRC", copy)
+    assert kernels.library_path() == before
+    header = copy / "generic_decode.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    edited = kernels.library_path()
+    assert edited != before
+    (copy / "generic_stream.cu").write_bytes(
+        (copy / "generic_stream.cu").read_bytes() + b"\n")
+    assert kernels.library_path() not in (before, edited)
+    assert [p.name for p in kernels.sources()] == sorted(
+        p.name for p in kernels.CSRC.glob("*.cu"))
+
+
+# ---------------------------------------------------------------------------
+# On the card: kernel == plain, exactly.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the streamed generic kernel has no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+def _card_keys(n, batch, num_errors, seed, device):
+    gen = np.random.default_rng(seed)
+    alice = torch.tensor(gen.integers(0, 2, (batch, n)), dtype=torch.int8,
+                         device=device)
+    bits = torch.tensor(gen.integers(0, 2**32, (batch, n)), dtype=torch.int64,
+                        device=device)
+    return alice, inject_errors(bits, alice, num_errors, wide=True)
+
+
+@pytest.mark.cuda
+def test_shared_bytes_equal_the_library(cuda_device):
+    lib = generic_stream._lib()
+    for n, m in ((288, 144), (22000, 11000), (102400, 31744), (200000, 60001)):
+        assert lib.generic_stream_shared_bytes(n, m) \
+            == generic_stream.shared_bytes(n, m)
+    assert generic_stream.shared_bytes(102400, 31744) \
+        <= fused_qc.MAX_SHARED_BYTES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_thr", [False, True])
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, use_thr):
+    # Each code in its waterfall, so some frames run to the cap.
+    thr = 2.5 if use_thr else 0.0
+    for matrix, qber, frames in ((from_dense(irregular_dense()), 0.07, 63),
+                                 (stream_sized_code(), 0.078, 40)):
+        n = matrix.num_bit_nodes
+        ne = int(n * qber)
+        alice, bob = _card_keys(n, frames, ne, seed=7, device=cuda_device)
+        lp = log_ratio(ne / n)
+        trial = generic_stream.make_generic_stream_trial(matrix, TAlg[alg],
+                                                         CAP, use_thr)
+        got = trial(alice, bob, lp, f1, f2, thr)
+        want = trial.plain(alice, bob, lp, f1, f2, thr)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        lpt = torch.tensor(lp, device=cuda_device)
+        llr = torch.where(bob == 1, -lpt, lpt)
+        syn = calculate_syndrome(layout_for(matrix), alice)
+        dec = generic_stream.make_generic_stream_decoder(matrix, TAlg[alg],
+                                                         CAP, use_thr)
+        got = dec(llr, syn, f1, f2, thr)
+        want = dec.plain(llr, syn, f1, f2, thr)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())

@@ -37,13 +37,10 @@ from qkd_ldpc_v_tpu.rate_adapt import HMatrixParams as JParams
 from qkd_ldpc_v_tpu_torch import cli as tcli
 from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import MatrixFormat as TFormat
-from qkd_ldpc_v_tpu_torch.convert import (
-    config_from_dict,
-    hmatrix_from_rows,
-    qc_from_arrays,
-)
+from qkd_ldpc_v_tpu_torch.convert import config_from_dict, qc_from_arrays
+from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
 from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix as tread_matrix
-from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc
+from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, generic_stream
 from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams as TParams
 
 torch.set_num_threads(2)
@@ -138,12 +135,12 @@ def test_write_file_matches_jax_with_throughput(tmp_path):
 
 
 def _stream_sized_code():
-    """N=22000, column weight 3, row weight 6: 66000 edges, beyond the
-    generic engine's gate and inside the JAX package's stream gate."""
-    m = 11000
-    rows = [[j, j + m, (j - 3667) % m, (j - 3667) % m + m,
-             (j - 7333) % m, (j - 7333) % m + m] for j in range(m)]
-    return hmatrix_from_rows(rows, 2 * m)
+    """N=22000 random regular code, column weight 3, row weight 6: 66000
+    edges, beyond the generic engine's gate and inside the JAX package's
+    stream gate; it decodes every frame at QBER 0.075 within 30
+    iterations."""
+    return generate_regular_ldpc(num_bits=22000, num_checks=11000,
+                                 column_weight=3, seed=5)
 
 
 @pytest.mark.parametrize("change,match", [
@@ -153,11 +150,22 @@ def _stream_sized_code():
     (dict(trace_decoding_alg=True), "traced"),
 ])
 def test_unported_engines_raise(matrices, change, match):
+    """What is not ported raises; the stream-sized case, which raised until
+    the streamed generic kernel came, now runs through the ``stream``
+    engine (8 frames of the N=22000 code on the CPU)."""
     _, tm = matrices
-    if change == "stream-sized":
-        tm, change = _stream_sized_code(), {}
-    tcfg = config_from_dict(dataclasses.asdict(_jax_cfg("flooding", **change)))
     comb = tsim.SimCombination(QBER, TParams(), tsim.ScalingFactors(0.8))
+    if change == "stream-sized":
+        tcfg = config_from_dict(dataclasses.asdict(
+            _jax_cfg("flooding", trials_number=8, batch_size=8)))
+        code = _stream_sized_code()
+        assert tsim.check_engine(code, tcfg) == match.split()[0]
+        generic_stream.reset_counts()
+        got = tsim.run_combination(code, comb, tcfg, 0, "cpu")
+        assert generic_stream.counts() == (0, 0)
+        assert 0.0 < got.ratio_trials_success_decoding <= 1.0
+        return
+    tcfg = config_from_dict(dataclasses.asdict(_jax_cfg("flooding", **change)))
     with pytest.raises(NotImplementedError, match=match):
         tsim.run_combination(tm, comb, tcfg, 0, "cpu")
 
@@ -233,7 +241,8 @@ def test_layered_on_a_generic_code_warns_and_floods(alist_1k, caplog):
 
 def test_cascade_on_the_headline_codes():
     """qc on the headline QC code, generic on the 10k alist code, stream on
-    the 100k alist code, where the run raises."""
+    the 100k alist code, which the sweep accepts (no decode at N=102400
+    here)."""
     cfg = config_from_dict(dataclasses.asdict(_alist_cfg(use_pallas=True)))
     headline = tread_matrix(
         REPO / "sparse_matrices" / "matrices_qc"
@@ -244,9 +253,7 @@ def test_cascade_on_the_headline_codes():
         ALIST_DIR / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx", TFormat.ALIST)
     assert [tsim.select_engine(m, cfg) for m in (headline, alist_10k, alist_100k)] \
         == ["qc", "generic", "stream"]
-    comb = tsim.SimCombination(0.03, TParams(), tsim.ScalingFactors(0.8))
-    with pytest.raises(NotImplementedError, match="stream"):
-        tsim.run_combination(alist_100k, comb, cfg, 0, "cpu")
+    assert tsim.check_engine(alist_100k, cfg) == "stream"
 
 
 _ASSETS = sorted(
