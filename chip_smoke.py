@@ -39,10 +39,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    on the N=102400 alist code: trial and decode modes, NMSA (alpha
    0.8)/OMSA/ANMSA/AOMSA, QBER 0.03 and 0.038 (its waterfall: some frames
    must fail), plus cases with the message clamp; on an N=22000 random
-   regular code (column weight 3) at QBER 0.078, NMSA and AOMSA; and on the
+   regular code (column weight 3) at QBER 0.078, NMSA and AOMSA; on the
    10k alist code forced through the streamed kernel, 512 frames, where its
-   outputs must also equal the fused generic kernel's. Conv, keys,
-   iterations and decisions must be exactly equal.
+   outputs must also equal the fused generic kernel's; a ragged batch of 13
+   100k alist frames (a full group of 8 and a short one of 5); and a mixed
+   group of 8 frames where frame 0 has no errors (it must converge at once)
+   and the others run to the cap. Conv, keys, iterations and decisions must
+   be exactly equal.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
@@ -71,7 +74,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    engine is ``stream``). The CSV must carry the JAX package's columns and
    FER <= 0.01; the streamed generic kernel must have launched, the fused
    generic kernel not, and no plain version may have run on the card;
-   chunk 0's first 256 frames must equal the plain version.
+   chunk 0's first 256 frames must equal the plain version. It also prints
+   the kernel's group waste (frames per group times each group's largest
+   iteration count, over the iterations the frames needed), the bytes its
+   design moves for the chunk and the rate that makes, and the chunk timed
+   at 8 and at 16 frames per group in turns (8, 16, 16, 8), whose outputs
+   must agree, and the same on its first 128 and 1024 frames; and the
+   chunk's staging time (cap 0) and time per iteration of every group
+   (caps 0 and 2) with the rate its messages move at.
 4. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
    (the least time the card could take for the same work) are those of one
@@ -484,7 +494,9 @@ def phase_generic_stream_vs_plain(torch, card):
     alist10k = read_sparse_matrix_alist(ALIST10K)
     factors = dict(FACTORS, NMSA=(0.8, 1.0))  # alpha 0.8: bench's 100k alist
     # (name, code, frames, QBER, alg, mode, clamp); QBER 0.038 is in the
-    # 100k alist code's waterfall, 0.032 in the 10k alist code's.
+    # 100k alist code's waterfall, 0.032 in the 10k alist code's. "mixed"
+    # is one group whose frame 0 has no errors while the others, at QBER
+    # 0.05, run to the cap.
     cases = []
     for qber in (0.03, 0.038):
         for alg in factors:
@@ -501,6 +513,12 @@ def phase_generic_stream_vs_plain(torch, card):
         for mode in ("trial", "decode"):
             cases.append(("alist10k", alist10k, FRAMES, qber, "NMSA", mode,
                           False))
+    for mode in ("trial", "decode"):
+        cases.append(("ragged", alist100k, 13, 0.038, "NMSA", mode, False))
+    for alg in ("NMSA", "AOMSA"):
+        for mode in ("trial", "decode"):
+            cases.append(("mixed", alist100k, generic_stream.GROUPS[0],
+                          0.05, alg, mode, False))
 
     keys = {}
     worst = 0
@@ -512,9 +530,10 @@ def phase_generic_stream_vs_plain(torch, card):
         if (code_name, qber) not in keys:
             alice, bits = default_key_source(17, dev)(0, len(keys), frames, n)
             ne = exact_error_count(n, qber)
-            keys[(code_name, qber)] = (
-                alice, inject_errors(bits, alice, ne, wide=True),
-                log_ratio(ne / n))
+            bob = inject_errors(bits, alice, ne, wide=True)
+            if code_name == "mixed":
+                bob[0] = alice[0]
+            keys[(code_name, qber)] = (alice, bob, log_ratio(ne / n))
             del bits
         alice, bob, lp = keys[(code_name, qber)]
         f1, f2 = (0.7, 1.0) if code_name == "alist10k" else factors[alg]
@@ -551,10 +570,17 @@ def phase_generic_stream_vs_plain(torch, card):
               flush=True)
         check(diff == 0,
               f"streamed generic kernel != plain (or fused) in case 2d-{i}")
+        if code_name == "mixed":
+            iters = got[2].cpu()
+            check(bool(conv[0]) and int(iters[0]) == 1,
+                  f"case 2d-{i}: the error-free frame did not converge at once")
+            check(int(iters[1:].min()) == 100,
+                  f"case 2d-{i}: a frame of the mixed group left before the cap")
         if (code_name, qber, alg, mode, clamp) == (
                 "alist100k", 0.03, "NMSA", "trial", False):
             times = (plain_ms, frames)
-    for code_name, qber in (("alist100k", 0.038), ("alist10k", 0.032)):
+    for code_name, qber in (("alist100k", 0.038), ("alist10k", 0.032),
+                            ("ragged", 0.038)):
         check(failing[(code_name, qber)] > 0,
               f"{code_name}: no frame failed at QBER {qber}")
     print(f"phase 2d: {len(cases)} cases, streamed generic kernel == plain "
@@ -888,7 +914,7 @@ def phase_stream_main_path(torch, card):
 
 
 def phase_generic_stream_main_path(torch, card):
-    from qkd_ldpc_v_tpu_torch import cli, kernels
+    from qkd_ldpc_v_tpu_torch import cli
     from qkd_ldpc_v_tpu_torch.config import parse_config_data
     from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream
     from qkd_ldpc_v_tpu_torch.ops.channel import (
@@ -964,13 +990,19 @@ def phase_generic_stream_main_path(torch, card):
     matrix = sim_in.matrix
     check(select_engine(matrix, run_cfg) == "stream",
           "the 100k alist code does not select the stream engine")
-    n = matrix.num_bit_nodes
-    resident = kernels.library().generic_stream_resident_blocks(
-        n, matrix.num_check_nodes, 0, generic_stream.THREADS)
-    print(f"alist100k main path: {resident} resident blocks of "
-          f"{generic_stream.THREADS} threads "
-          f"({generic_stream.shared_bytes(n, matrix.num_check_nodes)} bytes "
-          f"of shared memory each)")
+    n, m, e = matrix.num_bit_nodes, matrix.num_check_nodes, matrix.num_edges
+    flags = fused_generic._flags(run_cfg.decoding_algorithm)
+    plan = generic_stream.launch_plan(matrix, flags, dev)
+    for g in generic_stream.GROUPS:  # the pinned plans, built untimed
+        generic_stream.launch_plan(matrix, flags, dev, g)
+    group = generic_stream.group_for(run_cfg.batch_size, plan.resident)
+    for g, blocks in plan.resident.items():
+        print(f"alist100k main path: F={g}: {blocks} resident blocks of "
+              f"{generic_stream.THREADS} threads, "
+              f"{generic_stream.shared_bytes(n, m, g)} bytes of shared "
+              f"memory each")
+    print(f"alist100k main path: a {run_cfg.batch_size}-frame chunk takes "
+          f"F={group}")
     ne = exact_error_count(n, comb.config_qber)
     (alice, bits), keys_ms = timed(
         lambda: default_key_source(run_cfg.simulation_seed, dev)(
@@ -978,20 +1010,84 @@ def phase_generic_stream_main_path(torch, card):
     bob, errors_ms = timed(
         lambda: inject_errors(bits, alice, ne, wide=True), torch)
     del bits
+    trials = {g: generic_stream.make_generic_stream_trial(
+        matrix, run_cfg.decoding_algorithm,
+        run_cfg.decoding_alg_max_iterations, run_cfg.enable_msg_llr_threshold,
+        g) for g in generic_stream.GROUPS}
     trial = generic_stream.make_generic_stream_trial(
         matrix, run_cfg.decoding_algorithm,
         run_cfg.decoding_alg_max_iterations, run_cfg.enable_msg_llr_threshold)
     args = (log_ratio(ne / n), comb.scaling_factors.primary,
             comb.scaling_factors.secondary, run_cfg.msg_llr_threshold)
     full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
-    chunk_bound = bound(run_cfg.batch_size, n, matrix.num_edges,
-                        int(full[2].sum().item()), "flooding")
+    chunk_bound = bound(run_cfg.batch_size, n, e, int(full[2].sum().item()),
+                        "flooding")
     print(f"alist100k main path: one {run_cfg.batch_size}-frame chunk: "
           f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
           f"generic_stream kernel {kernel_ms:.2f} ms "
           f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}), mean "
           f"iterations {full[2].float().mean().item():.2f} (card={card})",
           flush=True)
+
+    # The group design's own figures, from this chunk's iteration counts.
+    # A group iterates to its slowest frame and moves whole sectors, so its
+    # messages cost 16 bytes per edge and frame slot in each of its
+    # iterations (check-pass read and write, bit-pass gather and scatter);
+    # Bob's bit plane is read once per bit pass (F/8 bytes per bit); the
+    # staging reads both keys (2N bytes per frame) and writes the first
+    # messages (4E). The index tables (2.9 MB) stay in L2 and are not
+    # counted.
+    iters = full[2].to(torch.int64)
+    for g in generic_stream.GROUPS:
+        per_group = iters.view(-1, g).amax(dim=1)
+        waste = g * int(per_group.sum()) / int(iters.sum())
+        design_bytes = (int(per_group.sum()) * (16 * e * g + g // 8 * n)
+                        + run_cfg.batch_size * (2 * n + 4 * e))
+        print(f"alist100k group design F={g}: group waste {waste:.3f} "
+              f"(groups' largest iteration counts x F over the frames' "
+              f"iterations); design bytes {design_bytes / 1e9:.2f} GB per "
+              f"chunk, floor {design_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+              f"at 3.35 TB/s", flush=True)
+        if g == group:
+            design = (waste, design_bytes)
+    print(f"alist100k group design F={group}: achieved "
+          f"{design[1] / kernel_ms / 1e6:.1f} GB/s "
+          f"({design[1] / kernel_ms * 1e3 / HBM_BYTES_PER_S * 100:.1f} %"
+          f" of 3.35 TB/s; card={card})", flush=True)
+    # The chunk's time split at the group size it takes: the cap at 0 times
+    # the staging and the key compare alone; from cap 0 to cap 2 every group
+    # makes two iterations (at this QBER no frame converges within two),
+    # whose messages move 16 bytes per edge and frame slot each.
+    capped = {}
+    for cap in (0, 2):
+        fn = generic_stream.make_generic_stream_trial(
+            matrix, run_cfg.decoding_algorithm, cap,
+            run_cfg.enable_msg_llr_threshold, group)
+        fn(alice, bob, *args)  # first launch of this cap, untimed
+        capped[cap] = timed(lambda: fn(alice, bob, *args), torch, reps=2)[1]
+    iter_ms = (capped[2] - capped[0]) / 2
+    iter_bytes = -(-run_cfg.batch_size // group) * 16 * e * group
+    print(f"alist100k group design F={group}: staging and key compare "
+          f"{capped[0]:.2f} ms (cap 0); one iteration of every group "
+          f"{iter_ms:.2f} ms (cap 2 - cap 0, halved), its messages "
+          f"{iter_bytes / 1e9:.2f} GB at {iter_bytes / iter_ms / 1e6:.1f} "
+          f"GB/s (card={card})", flush=True)
+    # Both group sizes in turns, pinned past the per-launch choice, on the
+    # chunk and on its first 128 and 1024 frames (16 and 128 groups of 8,
+    # under one wave).
+    for frames in (128, 1024, run_cfg.batch_size):
+        series = []
+        for g in (8, 16, 16, 8):
+            out, ms = timed(
+                lambda: trials[g](alice[:frames], bob[:frames], *args), torch)
+            check(max_abs_diff(tuple(out), tuple(t[:frames] for t in full),
+                               torch) == 0,
+                  f"alist100k: {frames} frames at F={g} != the chunk's")
+            series.append((g, ms))
+        print(f"alist100k group size, {frames} frames in turns: " + ", ".join(
+            f"F={g} {ms:.2f} ms" for g, ms in series) + f" (card={card})",
+            flush=True)
+
     got = [t[:256] for t in full]
     want = trial.plain(alice[:256].contiguous(), bob[:256].contiguous(),
                        *args)

@@ -10,7 +10,7 @@
 // by ops/fused_generic.py).
 //
 // The decode body, its index tables and what makes it exact are in
-// csrc/generic_decode.cuh, which the streamed generic kernel
+// csrc/generic_decode.cuh, whose per-edge steps the streamed generic kernel
 // (csrc/generic_stream.cu) shares. None of the TPU kernel's transport
 // carries over: no Clos regroup, no 128-lane planes, no bf16x2 packing and
 // no decision bit in the mantissa, which is why this kernel is exact where
@@ -44,13 +44,13 @@
 
 namespace {
 
-// The decode body is generic_decode.cuh's, with the channel LLRs in a
-// shared plane; the messages are shared where they fit.
+// The decode body is generic_decode.cuh's decode_frames; the messages are
+// shared where they fit.
 template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED>
 __global__ void __launch_bounds__(kMaxThreads) fused_generic_kernel(Params p) {
   extern __shared__ float4 smem[];
-  decode_frames<ADAPTIVE, OFFSET, MSG_SHARED, true>(
-      p, reinterpret_cast<char*>(smem));
+  decode_frames<ADAPTIVE, OFFSET, MSG_SHARED>(p,
+                                             reinterpret_cast<char*>(smem));
 }
 
 typedef void (*KernelFn)(Params);
@@ -82,7 +82,7 @@ int launch(const Params& p, int flags, int msg_shared, int grid, int threads,
       (!msg_shared && p.scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   KernelFn kernel = kernel_for(flags, msg_shared != 0);
-  const size_t smem = shared_bytes(p.n, p.m, p.e, true, msg_shared != 0);
+  const size_t smem = shared_bytes(p.n, p.m, p.e, msg_shared != 0);
   int err = prepare(kernel, smem);
   if (err != 0) return err;
   kernel<<<grid, threads, smem, stream>>>(p);
@@ -95,7 +95,7 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block takes.
 long long fused_generic_shared_bytes(int n, int m, int e, int msg_shared) {
-  return (long long)shared_bytes(n, m, e, true, msg_shared != 0);
+  return (long long)shared_bytes(n, m, e, msg_shared != 0);
 }
 
 // Blocks of this configuration that fit on the current device at once
@@ -103,7 +103,7 @@ long long fused_generic_shared_bytes(int n, int m, int e, int msg_shared) {
 int fused_generic_resident_blocks(int n, int m, int e, int flags,
                                   int msg_shared, int threads) {
   KernelFn kernel = kernel_for(flags, msg_shared != 0);
-  const size_t smem = shared_bytes(n, m, e, true, msg_shared != 0);
+  const size_t smem = shared_bytes(n, m, e, msg_shared != 0);
   int err = prepare(kernel, smem);
   if (err != 0) return -err;
   int per_sm = 0;

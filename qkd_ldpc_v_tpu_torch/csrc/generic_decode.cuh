@@ -1,19 +1,23 @@
-// Decode body shared by the fused generic kernel (csrc/fused_generic.cu)
-// and the streamed generic kernel (csrc/generic_stream.cu): one block
-// decodes one frame at a time of an arbitrary sparse parity-check matrix,
+// Per-edge steps shared by the fused generic kernel (csrc/fused_generic.cu)
+// and the streamed generic kernel (csrc/generic_stream.cu), and the fused
+// kernel's decode body. Both decode an arbitrary sparse parity-check matrix
 // from raw keys (trial mode) or from LLRs and a syndrome (decode mode), for
 // the min-sum family NMSA/OMSA/ANMSA/AOMSA on the flooding schedule.
 //
-// Both kernels instantiate the same steps, so they keep one f32
-// association (llr-first totals in slot order; the min-sum value as
+// Both kernels call the same helpers for the channel LLR (input_llr,
+// llr_of_bit), the two-minimum chain (two_min), the row sign (row_sign_of),
+// the min-sum value (minsum_value), the clamp (clamp_msg) and the
+// decision-syndrome mismatch (mismatch), so they keep one f32 association
+// (llr-first totals in slot order; the min-sum value as
 // f * row_sign * excl * eabs or row_sign * excl * max(eabs - f, 0)) and
-// cannot drift apart. They differ in where the state lives, which two
-// template parameters say:
-//   MSG_SHARED  the messages in shared memory (else in the caller's global
-//               scratch, E floats per block);
-//   LLR_SHARED  the channel LLRs as a shared plane of N floats (else
-//               formed at each read: +-log_p from Bob's bit in trial mode,
-//               the caller's LLR in decode mode; the same value either way).
+// cannot drift apart. The fused
+// kernel decodes one frame per block with decode_frames below; the streamed
+// kernel decodes a group of frames per block in a batch-minor layout of its
+// own (generic_stream.cu).
+//
+// decode_frames keeps the channel LLRs (N f32), the decisions (N bytes) and
+// Alice's syndrome (M bytes) in shared memory, and the messages there too
+// when MSG_SHARED, else in the caller's global scratch (E floats per block).
 //
 // Edges are addressed directly through index tables built on the host from
 // models/layout.py::EdgeLayout, in its internal (degree-sorted) node order:
@@ -32,8 +36,7 @@
 // after the bit pass; the adaptive pair tests the previous decisions before
 // the check pass, and the same per-check mismatch picks the secondary
 // factor. A frame leaves its loop at convergence with the decisions of that
-// moment (block-wide __syncthreads_or), which equals the plain decoder's
-// frozen decisions.
+// moment, which equals the plain decoder's frozen decisions.
 //
 // The code has internal linkage in each source that includes it.
 
@@ -53,7 +56,7 @@ struct Params {
   const float* llr_in;    // decode: [B, N]
   const int8_t* syn_in;   // decode: [B, M] 0/1
   const int32_t* table;   // cptr, cbit, bptr, bedge, bit_ext, chk_ext
-  float* scratch;         // [grid, E] when the messages are not shared
+  float* scratch;         // the caller's global scratch (per-block slices)
   int n, m, e, batch, max_iter, use_threshold, trial;
   float log_p, primary, secondary, threshold;
   int8_t* dec_out;        // decode: [B, N]
@@ -86,12 +89,33 @@ __device__ __forceinline__ float clamp_msg(float x, const Params& p) {
   return p.use_threshold ? fminf(fmaxf(x, -p.threshold), p.threshold) : x;
 }
 
-// 1 where internal check c is unsatisfied by the decisions.
+// Where internal check c is unsatisfied by the decisions: 1 or 0 for planes
+// of one frame (int8_t), a mask of frames for bit-packed planes (bit f =
+// frame f).
+template <typename T>
 __device__ __forceinline__ int mismatch(int c, const int* cptr, const int* cbit,
-                                        const int8_t* dec, const int8_t* syn) {
+                                        const T* dec, const T* syn) {
   int par = syn[c];
   for (int k = cptr[c]; k < cptr[c + 1]; ++k) par ^= dec[cbit[k]];
   return par;
+}
+
+// One step of the two-minimum chain over a check's |messages|, in slot
+// order: a tie at the minimum makes min2 == min1.
+__device__ __forceinline__ void two_min(float av, bool first, float& min1,
+                                        float& min2) {
+  if (first) {
+    min1 = av;
+  } else {
+    min2 = fminf(min2, fmaxf(min1, av));
+    min1 = fminf(min1, av);
+  }
+}
+
+// The sign of a check's product: its syndrome bit times the parity of its
+// negative messages.
+__device__ __forceinline__ float row_sign_of(bool syn, int neg) {
+  return (syn ? -1.f : 1.f) * ((neg & 1) == 0 ? 1.f : -1.f);
 }
 
 template <bool OFFSET>
@@ -103,37 +127,35 @@ __device__ __forceinline__ float minsum_value(float mm, float min1, float min2,
   return f * row_sign * excl * eabs;
 }
 
-// Dynamic shared memory of one block: the LLR plane when it is shared,
-// decisions, syndrome, then the messages at a 16-byte boundary when they
-// are shared.
+// Dynamic shared memory of one fused block: the LLR plane, decisions,
+// syndrome, then the messages at a 16-byte boundary when they are shared.
 __host__ __device__ inline size_t shared_bytes(int n, int m, int e,
-                                               bool llr_shared,
                                                bool msg_shared) {
-  size_t bytes = (llr_shared ? sizeof(float) * (size_t)n : 0) + (size_t)n +
-                 (size_t)m;
+  size_t bytes = sizeof(float) * (size_t)n + (size_t)n + (size_t)m;
   bytes = (bytes + 15) & ~(size_t)15;
   if (msg_shared) bytes += sizeof(float) * (size_t)e;
   return bytes;
 }
 
+// The channel LLR in trial mode, from whether Bob's bit is 1.
+__device__ __forceinline__ float llr_of_bit(const Params& p, bool one) {
+  return one ? -p.log_p : p.log_p;
+}
+
 // The channel LLR of internal bit i of the frame whose keys or LLRs start
-// at `row`: from the shared plane, or formed from the inputs in place.
-template <bool LLR_SHARED>
-__device__ __forceinline__ float channel_llr(const Params& p, const Tables& t,
-                                             const float* llr, size_t row,
-                                             int i) {
-  if (LLR_SHARED) return llr[i];
+// at `row`, formed from the inputs: +-log_p from Bob's bit in trial mode,
+// the caller's LLR in decode mode.
+__device__ __forceinline__ float input_llr(const Params& p, const Tables& t,
+                                           size_t row, int i) {
   const int j = t.bit_ext[i];
-  if (p.trial) return p.bob[row + j] == 1 ? -p.log_p : p.log_p;
+  if (p.trial) return llr_of_bit(p, p.bob[row + j] == 1);
   return p.llr_in[row + j];
 }
 
-// Initial staging of check c (pallas_stream.py kernel_i :524): each edge's
-// first bit->check message is the channel LLR of its bit. In trial mode the
-// same pass gathers Alice's bits on the check (kernel_i stages them for
-// kernel_s) and returns their parity; one pass over the check's edges keeps
-// the tables' reads at one per edge.
-template <bool LLR_SHARED>
+// Initial staging of check c: each edge's first bit->check message is the
+// channel LLR of its bit. In trial mode the same pass gathers Alice's bits
+// on the check and returns their parity; one pass over the check's edges
+// keeps the tables' reads at one per edge.
 __device__ __forceinline__ int stage_messages(int c, const Params& p,
                                               const Tables& t,
                                               const float* llr, size_t row,
@@ -141,15 +163,14 @@ __device__ __forceinline__ int stage_messages(int c, const Params& p,
   int parity = 0;
   for (int k = t.cptr[c]; k < t.cptr[c + 1]; ++k) {
     const int i = t.cbit[k];
-    msg[k] = channel_llr<LLR_SHARED>(p, t, llr, row, i);
+    msg[k] = llr[i];
     if (p.trial) parity ^= p.alice[row + t.bit_ext[i]] & 1;
   }
   return parity;
 }
 
-// Alice's syndrome bit of check c (pallas_stream.py kernel_s :589): the
-// parity of Alice's bits on the check in trial mode, the caller's syndrome
-// in decode mode.
+// Alice's syndrome bit of check c: the parity of Alice's bits on the check
+// in trial mode, the caller's syndrome in decode mode.
 __device__ __forceinline__ int8_t alice_syndrome(int c, const Params& p,
                                                  const Tables& t, int frame,
                                                  int parity) {
@@ -157,9 +178,9 @@ __device__ __forceinline__ int8_t alice_syndrome(int c, const Params& p,
   return (int8_t)(p.syn_in[(size_t)frame * p.m + t.chk_ext[c]] == 1);
 }
 
-// Check pass over check c (pallas_stream.py kernel_a :303): its bit->check
-// messages become clamped check->bit messages; the adaptive pair takes the
-// secondary factor where the decisions leave the check unsatisfied.
+// Check pass over check c: its bit->check messages become clamped
+// check->bit messages; the adaptive pair takes the secondary factor where
+// the decisions leave the check unsatisfied.
 template <bool ADAPTIVE, bool OFFSET>
 __device__ __forceinline__ void check_pass(int c, const Params& p,
                                            const Tables& t, const int8_t* dec,
@@ -169,16 +190,10 @@ __device__ __forceinline__ void check_pass(int c, const Params& p,
   int neg = 0;
   for (int k = b; k < end; ++k) {
     const float mm = msg[k];
-    const float av = fabsf(mm);
-    if (k == b) {
-      min1 = av;
-    } else {
-      min2 = fminf(min2, fmaxf(min1, av));
-      min1 = fminf(min1, av);
-    }
+    two_min(fabsf(mm), k == b, min1, min2);
     neg += mm < 0.f;
   }
-  const float row_sign = (syn[c] ? -1.f : 1.f) * ((neg & 1) == 0 ? 1.f : -1.f);
+  const float row_sign = row_sign_of(syn[c] != 0, neg);
   const float f = (ADAPTIVE && mismatch(c, t.cptr, t.cbit, dec, syn))
                       ? p.secondary
                       : p.primary;
@@ -186,14 +201,13 @@ __device__ __forceinline__ void check_pass(int c, const Params& p,
     msg[k] = clamp_msg(minsum_value<OFFSET>(msg[k], min1, min2, row_sign, f), p);
 }
 
-// Bit pass over bit i (pallas_stream.py kernel_b :434): the llr-first
-// sequential total, the decision, and the new bit->check messages.
-template <bool LLR_SHARED>
+// Bit pass over bit i: the llr-first sequential total, the decision, and
+// the new bit->check messages.
 __device__ __forceinline__ void bit_pass(int i, const Params& p,
                                          const Tables& t, const float* llr,
-                                         size_t row, int8_t* dec, float* msg) {
+                                         int8_t* dec, float* msg) {
   const int b = t.bptr[i], end = t.bptr[i + 1];
-  float tot = channel_llr<LLR_SHARED>(p, t, llr, row, i);
+  float tot = llr[i];
   for (int k = b; k < end; ++k) tot = tot + msg[t.bedge[k]];
   dec[i] = tot <= 0.f ? 1 : 0;
   for (int k = b; k < end; ++k) {
@@ -212,34 +226,33 @@ __device__ __forceinline__ int any_unsatisfied(const Params& p, const Tables& t,
   return __syncthreads_or(bad);
 }
 
-// The persistent block's loop: block b decodes frames b, b + grid, ...
-// Threads stride over internal checks in the check steps and over internal
-// bits in the bit steps; each edge has one owner in each pass, so neither
-// pass races, and a barrier separates them.
-template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED, bool LLR_SHARED>
+// The fused kernel's persistent block loop: block b decodes frames b,
+// b + grid, ... Threads stride over internal checks in the check steps and
+// over internal bits in the bit steps; each edge has one owner in each
+// pass, so neither pass races, and a barrier separates them.
+template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED>
 __device__ __forceinline__ void decode_frames(const Params& p, char* smem) {
   const int N = p.n, M = p.m, E = p.e;
   const int tid = threadIdx.x, nt = blockDim.x;
   const Tables t = tables_of(p);
   float* llr = reinterpret_cast<float*>(smem);
-  int8_t* dec = reinterpret_cast<int8_t*>(
-      LLR_SHARED ? smem + sizeof(float) * (size_t)N : smem);
+  int8_t* dec = reinterpret_cast<int8_t*>(smem + sizeof(float) * (size_t)N);
   int8_t* syn = dec + N;
   float* msg = MSG_SHARED
-                   ? reinterpret_cast<float*>(
-                         smem + shared_bytes(N, M, E, LLR_SHARED, false))
+                   ? reinterpret_cast<float*>(smem +
+                                              shared_bytes(N, M, E, false))
                    : p.scratch + (size_t)blockIdx.x * E;
 
   for (int frame = blockIdx.x; frame < p.batch; frame += gridDim.x) {
     const size_t row = (size_t)frame * N;
     for (int i = tid; i < N; i += nt) {
-      const float v = channel_llr<false>(p, t, llr, row, i);
-      if (LLR_SHARED) llr[i] = v;
+      const float v = input_llr(p, t, row, i);
+      llr[i] = v;
       dec[i] = v <= 0.f ? 1 : 0;
     }
     __syncthreads();
     for (int c = tid; c < M; c += nt) {
-      const int parity = stage_messages<LLR_SHARED>(c, p, t, llr, row, msg);
+      const int parity = stage_messages(c, p, t, llr, row, msg);
       syn[c] = alice_syndrome(c, p, t, frame, parity);
     }
     __syncthreads();
@@ -256,7 +269,7 @@ __device__ __forceinline__ void decode_frames(const Params& p, char* smem) {
         check_pass<ADAPTIVE, OFFSET>(c, p, t, dec, syn, msg);
       __syncthreads();
       for (int i = tid; i < N; i += nt)
-        bit_pass<LLR_SHARED>(i, p, t, llr, row, dec, msg);
+        bit_pass(i, p, t, llr, dec, msg);
       __syncthreads();
       if (!ADAPTIVE && !any_unsatisfied(p, t, dec, syn)) {
         converged = 1;
@@ -265,7 +278,7 @@ __device__ __forceinline__ void decode_frames(const Params& p, char* smem) {
       }
     }
 
-    // kernel_b's key compare (trial) or decision planes (decode).
+    // The key compare (trial) or the decision planes (decode).
     if (p.trial) {
       int ok = 1;
       for (int i = tid; i < N; i += nt)

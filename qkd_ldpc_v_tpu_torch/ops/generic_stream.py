@@ -24,18 +24,26 @@ nothing else: CPU tensors go to the plain version, CUDA tensors launch the
 kernel (or raise), and any other device raises. There is no fallback from
 a failed launch.
 
-The kernel keeps the messages in a global scratch and a frame's decisions
-and syndrome (N + M bytes) in shared memory; ``check_shared_memory`` raises,
-naming N and M, before any launch of a code whose planes exceed a block's
-shared memory (N + M > 227 KB, e.g. N=200k at rate 0.7).
+The kernel decodes a group of F frames per block with batch-minor messages
+(``[E, F]`` f32 per block in a global scratch) and bit-packed node planes
+(one bit per frame), in shared memory where they fit. The library carries
+``GROUPS`` = (8, 16); a launch takes the wider group where its groups
+still fill the resident grid and the narrower one below that
+(``group_for``; PERF.md has the times that chose the rule), unless the
+caller pins one. ``launch_shape`` gives a launch's group count, grid and
+scratch bytes, ``shared_bytes`` a block's shared memory, and
+``check_shared_memory`` raises, naming N and M, before any launch of a code
+whose planes exceed it (at F=8, N + M > 227 KB, e.g. N=200k at rate 0.7);
+F=16 serves the codes whose 2N bytes of decisions fit.
 
 ``stream_feasible`` is the JAX package's gate for its ``stream`` engine,
 copied as a predicate so that ``simulation.select_engine`` names the
 engine JAX would run; the kernel itself serves any code within its shared
 memory (``tpu.force_engine = "stream"`` sends a code inside the generic
 gate here too). The JAX sweep's two-phase straggler re-decode for this
-engine (``tpu.phase1_iterations``) is not ported: it exists because a TPU
-batch tile iterates to its slowest frame, and this kernel exits per frame.
+engine (``tpu.phase1_iterations``) is not ported: a group iterates to its
+slowest frame, but a frame that has converged makes no more loads or
+stores, and the measured waste does not call for it (PERF.md).
 
 Counters: ``COUNTS.launches`` counts kernel launches;
 ``COUNTS.plain_on_cuda`` counts plain-version calls on CUDA tensors, which
@@ -46,7 +54,7 @@ both and ``counts`` reads them.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -76,6 +84,10 @@ counts = COUNTS.get
 # The JAX package's gate (pallas_stream.py::stream_feasible, 128 lanes).
 _JAX_LANES = 128
 
+# Frames per group the library carries, narrowest first
+# (csrc/generic_stream.cu::Group).
+GROUPS = (8, 16)
+
 _SIGNATURES_SET = False
 
 
@@ -90,22 +102,73 @@ def stream_feasible(matrix: HMatrix) -> bool:
     return dmax_b * -(-matrix.num_bit_nodes // _JAX_LANES) > 256 and dmax_c < 64
 
 
-def shared_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory of one block: decisions and syndrome, N + M
-    bytes rounded up to 16 (csrc/generic_decode.cuh::shared_bytes; a card
-    test holds it equal to the library's)."""
-    return (n + m + 15) // 16 * 16
+def _round_up(x: int, a: int) -> int:
+    return -(-x // a) * a
 
 
-def check_shared_memory(n: int, m: int) -> None:
-    """Raise before any launch where a frame's node planes do not fit in a
+# Whether Alice's syndrome plane sits beside the decisions in shared memory
+# (csrc/generic_stream.cu::Group::kSynShared); else it is in the block's
+# slice of the scratch.
+_SYN_SHARED = {8: True, 16: False}
+
+
+def _check_group(group: int) -> None:
+    if group not in GROUPS:
+        raise ValueError(f"streamed generic kernel: group size {group} "
+                         f"is not one of {GROUPS}")
+
+
+def shared_bytes(n: int, m: int, group: int = GROUPS[0]) -> int:
+    """Dynamic shared memory of one block: the decision plane and, where it
+    is shared, the syndrome plane, group / 8 bytes per node, rounded up to
+    16 (csrc/generic_stream.cu::group_shared_bytes; a card test holds it
+    equal to the library's)."""
+    _check_group(group)
+    return _round_up(group // 8 * (n + (m if _SYN_SHARED[group] else 0)), 16)
+
+
+def scratch_bytes(n: int, m: int, e: int, group: int, trial: bool) -> int:
+    """Bytes of one block's slice of the scratch (``slice_of``): the
+    messages [E, F] f32, then Bob's and Alice's bit planes (trial) or the
+    LLR plane [N, F] f32 (decode), then the syndrome plane where it is not
+    shared, each at a 256-byte boundary."""
+    _check_group(group)
+    mask = group // 8
+    chan = _round_up(4 * e * group, 256)
+    alice = _round_up(chan + (mask * n if trial else 4 * n * group), 256)
+    syn = _round_up(alice + (mask * n if trial else 0), 256)
+    return _round_up(syn + (0 if _SYN_SHARED[group] else mask * m), 256)
+
+
+def launch_shape(batch: int, resident: int, n: int, m: int, e: int,
+                 group: int, trial: bool) -> Tuple[int, int, int]:
+    """(groups, grid, scratch bytes) of one launch: ceil(batch / F) groups
+    over a persistent grid of at most ``resident`` blocks, each with its
+    slice of the scratch."""
+    groups = -(-batch // group)
+    grid = min(groups, resident)
+    return groups, grid, grid * scratch_bytes(n, m, e, group, trial)
+
+
+def group_for(batch: int, resident: Dict[int, int]) -> int:
+    """The group size of a launch of ``batch`` frames among the sizes that
+    fit (``resident``: blocks per size): the widest whose groups fill its
+    resident grid, else the narrowest. A wider group moves its messages in
+    longer runs, but below a full grid it leaves SMs idle."""
+    fits = sorted(resident)
+    return next((g for g in reversed(fits) if -(-batch // g) >= resident[g]),
+                fits[0])
+
+
+def check_shared_memory(n: int, m: int, group: int = GROUPS[0]) -> None:
+    """Raise before any launch where a group's node planes do not fit in a
     block's shared memory."""
-    need = shared_bytes(n, m)
+    need = shared_bytes(n, m, group)
     if need > MAX_SHARED_BYTES:
         raise NotImplementedError(
-            f"streamed generic kernel: the decisions and syndrome of a frame "
-            f"(N={n}, M={m}) take {need} bytes of shared memory, more than "
-            f"a block's {MAX_SHARED_BYTES}")
+            f"streamed generic kernel: the node planes of a group of {group} "
+            f"frames (N={n}, M={m}) take {need} bytes of shared memory, "
+            f"more than a block's {MAX_SHARED_BYTES}")
 
 
 def _lib() -> ctypes.CDLL:
@@ -114,66 +177,96 @@ def _lib() -> ctypes.CDLL:
     if not _SIGNATURES_SET:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.generic_stream_trial.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, f, f, f, f, p, i, i, p, p, p, p]
+            p, p, i, p, i, i, i, i, i, i, f, f, f, f, i, p, i, i, p, p, p, p]
         lib.generic_stream_trial.restype = i
         lib.generic_stream_decode.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, f, f, f, p, i, i, p, p, p, p]
+            p, p, i, p, i, i, i, i, i, i, f, f, f, i, p, i, i, p, p, p, p]
         lib.generic_stream_decode.restype = i
-        lib.generic_stream_resident_blocks.argtypes = [i, i, i, i]
+        lib.generic_stream_resident_blocks.argtypes = [i, i, i, i, i]
         lib.generic_stream_resident_blocks.restype = i
-        lib.generic_stream_shared_bytes.argtypes = [i, i]
+        lib.generic_stream_shared_bytes.argtypes = [i, i, i]
         lib.generic_stream_shared_bytes.restype = ctypes.c_longlong
+        lib.generic_stream_scratch_bytes.argtypes = [i, i, i, i, i]
+        lib.generic_stream_scratch_bytes.restype = ctypes.c_longlong
         _SIGNATURES_SET = True
     return lib
 
 
 class _Launch:
-    """Launch plan of one code, algorithm family and device: the index
-    tables on the device and the persistent grid's size. ``trial`` and
-    ``decode`` allocate the grid's message scratch, launch the kernel and
-    return its CUDA error code (arguments: see ``fused_qc.kernel_trial``
+    """Launch plan of one code, algorithm family, device and group size
+    (``None``: each launch's own, ``group_for``): the index tables on the
+    device and the resident blocks of each group size whose planes fit.
+    ``trial`` and ``decode`` allocate the grid's scratch, launch the kernel
+    and return its CUDA error code (arguments: see ``fused_qc.kernel_trial``
     and ``fused_qc.kernel_decoder``)."""
 
-    def __init__(self, matrix: HMatrix, flags: int, device: torch.device):
+    def __init__(self, matrix: HMatrix, flags: int, device: torch.device,
+                 group: Optional[int]):
         layout = layout_for(matrix)
         self.n, self.m, self.e = layout.num_bits, layout.num_checks, layout.num_edges
-        check_shared_memory(self.n, self.m)
-        with torch.cuda.device(device):
-            resident = _lib().generic_stream_resident_blocks(
-                self.n, self.m, flags, THREADS)
-        if resident <= 0:
-            raise RuntimeError(
-                f"streamed generic kernel: no block fits on {device} "
-                f"(CUDA error {-resident})")
-        self.resident = resident
+        if group is None:
+            sizes = [g for g in GROUPS
+                     if shared_bytes(self.n, self.m, g) <= MAX_SHARED_BYTES]
+            check_shared_memory(self.n, self.m, GROUPS[0])
+        else:
+            _check_group(group)
+            check_shared_memory(self.n, self.m, group)
+            sizes = [group]
+        self.resident = {}
+        for g in sizes:
+            with torch.cuda.device(device):
+                blocks = _lib().generic_stream_resident_blocks(
+                    self.n, self.m, flags, g, THREADS)
+            if blocks <= 0:
+                raise RuntimeError(
+                    f"streamed generic kernel: no block of group size {g} "
+                    f"fits on {device} (CUDA error {-blocks})")
+            self.resident[g] = blocks
         self.table = torch.tensor(launch_tables(layout), dtype=torch.int32,
                                   device=device)
         self.shape = (self.table.data_ptr(), self.n, self.m, self.e)
 
-    def _scratch(self, batch: int, device):
-        """(scratch, grid) of one launch: E floats of messages per block.
-        The scratch is freed once the launch is queued; the caching
-        allocator reuses it only in stream order."""
-        grid = min(batch, self.resident)
-        return torch.empty((grid, self.e), dtype=torch.float32,
-                           device=device), grid
+    def launch_args(self, batch: int, trial: bool, device):
+        """(group, scratch, grid) of one launch. The scratch is freed once
+        the launch is queued; the caching allocator reuses it only in
+        stream order."""
+        group = group_for(batch, self.resident)
+        _, grid, nbytes = launch_shape(batch, self.resident[group], self.n,
+                                       self.m, self.e, group, trial)
+        return group, torch.empty(nbytes, dtype=torch.uint8,
+                                  device=device), grid
 
     def trial(self, alice, bob, scalars, outs) -> int:
-        scratch, grid = self._scratch(alice.shape[0], alice.device)
+        group, scratch, grid = self.launch_args(alice.shape[0], True,
+                                                alice.device)
         return _lib().generic_stream_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            scratch.data_ptr(), grid, THREADS, *pointers(*outs),
+            group, scratch.data_ptr(), grid, THREADS, *pointers(*outs),
             stream_of(alice))
 
     def decode(self, llr, syndrome, scalars, outs) -> int:
-        scratch, grid = self._scratch(llr.shape[0], llr.device)
+        group, scratch, grid = self.launch_args(llr.shape[0], False,
+                                                llr.device)
         return _lib().generic_stream_decode(
             *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            scratch.data_ptr(), grid, THREADS, *pointers(*outs),
+            group, scratch.data_ptr(), grid, THREADS, *pointers(*outs),
             stream_of(llr))
 
 
-_launch_plan = cached_plans(_Launch)
+_PLANS = {group: cached_plans(
+    lambda matrix, flags, device, group=group: _Launch(matrix, flags, device,
+                                                       group))
+    for group in (None, *GROUPS)}
+
+
+def launch_plan(matrix: HMatrix, flags: int, device,
+                group: Optional[int] = None) -> _Launch:
+    """The cached launch plan of a code, template flags
+    (``fused_generic._flags``), device and group size (``None``: chosen per
+    launch)."""
+    if group is not None:
+        _check_group(group)
+    return _PLANS[group](matrix, flags, device)
 
 
 def make_generic_stream_trial(
@@ -181,8 +274,10 @@ def make_generic_stream_trial(
     algorithm: DecodingAlgorithm,
     max_iterations: int,
     use_threshold: bool,
+    group: Optional[int] = None,
 ) -> Callable:
-    """Streamed Monte-Carlo trial.
+    """Streamed Monte-Carlo trial, ``group`` frames per block (``None``:
+    chosen per launch by ``group_for``).
 
     ``trial(alice [B,N] int8, bob [B,N] int8, log_p, primary, secondary,
     threshold) -> (syndromes_match [B] bool, keys_match [B] bool,
@@ -190,7 +285,9 @@ def make_generic_stream_trial(
     magnitude from ``channel.log_ratio``. ``trial.plain`` is the plain torch
     version with the same signature.
     """
-    return generic_trial("streamed generic", COUNTS, _launch_plan, matrix,
+    if group is not None:
+        _check_group(group)
+    return generic_trial("streamed generic", COUNTS, _PLANS[group], matrix,
                          algorithm, max_iterations, use_threshold)
 
 
@@ -199,9 +296,13 @@ def make_generic_stream_decoder(
     algorithm: DecodingAlgorithm,
     max_iterations: int,
     use_threshold: bool,
+    group: Optional[int] = None,
 ) -> Callable[..., DecodeResult]:
-    """Streamed decode: ``decode(llr [B,N] f32, syndrome [B,M] int8,
-    primary, secondary, threshold) -> DecodeResult``. ``decode.plain`` is
-    the plain torch version with the same signature."""
-    return generic_decoder("streamed generic", COUNTS, _launch_plan, matrix,
+    """Streamed decode, ``group`` frames per block (``None``: chosen per
+    launch): ``decode(llr [B,N] f32, syndrome [B,M] int8, primary,
+    secondary, threshold) -> DecodeResult``. ``decode.plain`` is the plain
+    torch version with the same signature."""
+    if group is not None:
+        _check_group(group)
+    return generic_decoder("streamed generic", COUNTS, _PLANS[group], matrix,
                            algorithm, max_iterations, use_threshold)

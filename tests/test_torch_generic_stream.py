@@ -486,15 +486,110 @@ def test_non_cpu_tensors_never_take_the_plain_path(irregular):
     (200000, 60000, False),   # N=200k at rate 0.7
 ])
 def test_shared_memory_rule(n, m, fits):
-    """A frame's decisions and syndrome must fit in a block's shared
-    memory; beyond it the launch plan raises, naming N and M, before
-    anything is built."""
+    """A group's bit-packed decisions and syndrome (one byte per node at
+    F=8) must fit in a block's shared memory; beyond it the launch plan
+    raises, naming N and M, before anything is built."""
     assert generic_stream.shared_bytes(n, m) == -(-(n + m) // 16) * 16
     if fits:
         generic_stream.check_shared_memory(n, m)
         return
     with pytest.raises(NotImplementedError, match=f"N={n}, M={m}"):
         generic_stream.check_shared_memory(n, m)
+
+
+# The 100k alist code's shape, for the launch-plan arithmetic.
+N100K, M100K, E100K = 102400, 31744, 307200
+# Bytes of one block's scratch slice at N100K (csrc/generic_stream.cu::
+# slice_of): the messages 4*E*F, then Bob's and Alice's planes (F/8 bytes
+# per bit each, trial) or the LLR plane 4*N*F (decode), then the syndrome
+# plane (F/8 bytes per check) at F=16; every part starts at a 256-byte
+# boundary (all these sizes already do).
+SLICE100K = {
+    (8, True): 4 * E100K * 8 + 2 * N100K,                    # 10,035,200
+    (8, False): 4 * E100K * 8 + 4 * N100K * 8,               # 13,107,200
+    (16, True): 4 * E100K * 16 + 4 * N100K + 2 * M100K,      # 20,133,888
+    (16, False): 4 * E100K * 16 + 4 * N100K * 16 + 2 * M100K,
+}
+# Resident blocks of each group size on an H100 (one per SM).
+H100_RESIDENT = {8: 132, 16: 132}
+
+
+@pytest.mark.parametrize("case", [
+    # (what, arguments, expected)
+    ("shared", (N100K, M100K, 8), 134144),     # N + M bytes at F=8
+    ("shared", (N100K, M100K, 16), 204800),    # 2N: the syndrome leaves
+    ("shared", (288, 144, 8), 432),
+    ("shared", (288, 145, 8), 448),            # rounded up to 16
+    ("launch", (1, 8, True), (1, 1, SLICE100K[8, True])),
+    ("launch", (130, 8, True), (17, 17, 17 * SLICE100K[8, True])),
+    ("launch", (4096, 8, True), (512, 132, 132 * SLICE100K[8, True])),
+    ("launch", (4096, 8, False), (512, 132, 132 * SLICE100K[8, False])),
+    ("launch", (1, 16, True), (1, 1, SLICE100K[16, True])),
+    ("launch", (130, 16, False), (9, 9, 9 * SLICE100K[16, False])),
+    ("launch", (4096, 16, True), (256, 132, 132 * SLICE100K[16, True])),
+    ("group", (1, H100_RESIDENT), 8),
+    ("group", (130, H100_RESIDENT), 8),
+    ("group", (2096, H100_RESIDENT), 8),       # 131 groups of 16
+    ("group", (2097, H100_RESIDENT), 16),      # 132: F=16 fills the grid
+    ("group", (4096, H100_RESIDENT), 16),      # the main path's chunk
+    ("group", (4096, {8: 132}), 8),            # only F=8 fits the code
+    ("refuse", (200000, 60000, 8), "N=200000, M=60000"),  # rate 0.7
+    ("refuse", (120000, 36000, 16), "N=120000, M=36000"),  # 2N > 227 KB
+    ("refuse", (102400, 31744, 64), "group size 64"),
+])
+def test_launch_plan_arithmetic(case):
+    """The launch plan's sizes, computed without a card: a block's shared
+    memory, and at the 100k alist code with 132 resident blocks (one per
+    SM of an H100) the group count, grid and scratch bytes of a launch and
+    the group size a launch takes; codes whose planes do not fit, and group
+    sizes without a kernel, are refused before anything is built."""
+    what, args, want = case
+    if what == "shared":
+        assert generic_stream.shared_bytes(*args) == want
+    elif what == "group":
+        assert generic_stream.group_for(*args) == want
+    elif what == "launch":
+        batch, group, trial = args
+        assert generic_stream.launch_shape(batch, 132, N100K, M100K, E100K,
+                                           group, trial) == want
+    else:
+        n, m, group = args
+        with pytest.raises((NotImplementedError, ValueError), match=want):
+            generic_stream.check_shared_memory(n, m, group)
+
+
+@pytest.mark.parametrize("group", generic_stream.GROUPS)
+@pytest.mark.parametrize("alg,f1,f2", [ALGS[0], ALGS[3]])
+@pytest.mark.parametrize("mode", ["trial", "decode"])
+def test_plain_decoder_is_frame_separable(irregular, mode, alg, f1, f2,
+                                          group):
+    """The premise of the kernel's frame groups: the plain f32 decoder's
+    result on a batch equals the concatenation of its results on groups of
+    F frames, the ragged last group included, so a group that iterates on
+    with some frames frozen changes no frame's outcome. 21 frames of the
+    N=288 code in its waterfall (QBER 0.07, cap 12): some converge at once,
+    some late, some never."""
+    alice, bob, llr, syn = (torch.tensor(x) for x in
+                            channel_case(irregular, 21, 0.07, 41))
+    if mode == "trial":
+        fn = generic_stream.make_generic_stream_trial(
+            irregular, TAlg[alg], 12, False, group)
+        args = (log_ratio(0.07), f1, f2, 0.0)
+        whole = fn(alice, bob, *args)
+        parts = [fn(alice[s:s + group].contiguous(),
+                    bob[s:s + group].contiguous(), *args)
+                 for s in range(0, 21, group)]
+    else:
+        fn = generic_stream.make_generic_stream_decoder(
+            irregular, TAlg[alg], 12, False, group)
+        whole = fn(llr, syn, f1, f2, 0.0)
+        parts = [fn(llr[s:s + group].contiguous(), syn[s:s + group].contiguous(),
+                    f1, f2, 0.0) for s in range(0, 21, group)]
+    conv, iters = whole[0 if mode == "trial" else 1], whole[2]
+    assert 0 < int(conv.sum()) < 21
+    assert len(set(iters.tolist())) > 2
+    for w, *ps in zip(whole, *parts):
+        assert torch.equal(w, torch.cat(ps))
 
 
 def test_library_name_follows_headers(tmp_path, monkeypatch):
@@ -543,38 +638,92 @@ def _card_keys(n, batch, num_errors, seed, device):
 @pytest.mark.cuda
 def test_shared_bytes_equal_the_library(cuda_device):
     lib = generic_stream._lib()
-    for n, m in ((288, 144), (22000, 11000), (102400, 31744), (200000, 60001)):
-        assert lib.generic_stream_shared_bytes(n, m) \
-            == generic_stream.shared_bytes(n, m)
-    assert generic_stream.shared_bytes(102400, 31744) \
-        <= fused_qc.MAX_SHARED_BYTES
+    for group in generic_stream.GROUPS:
+        for n, m in ((288, 144), (22000, 11000), (102400, 31744),
+                     (200000, 60001)):
+            assert lib.generic_stream_shared_bytes(n, m, group) \
+                == generic_stream.shared_bytes(n, m, group)
+            for trial in (0, 1):
+                assert lib.generic_stream_scratch_bytes(
+                    n, m, 3 * n, group, trial) == \
+                    generic_stream.scratch_bytes(n, m, 3 * n, group,
+                                                 bool(trial))
+        assert generic_stream.shared_bytes(102400, 31744, group) \
+            <= fused_qc.MAX_SHARED_BYTES
+    assert lib.generic_stream_shared_bytes(288, 144, 4) == -1
+
+
+def _assert_kernel_equals_plain(matrix, alg, f1, f2, use_thr, thr, alice,
+                                bob, lp, group):
+    """Trial and decode of the streamed kernel at ``group`` frames per
+    block against the plain version, exactly; returns the trial's conv and
+    iterations."""
+    device = alice.device
+    trial = generic_stream.make_generic_stream_trial(matrix, TAlg[alg], CAP,
+                                                     use_thr, group)
+    got = trial(alice, bob, lp, f1, f2, thr)
+    want = trial.plain(alice, bob, lp, f1, f2, thr)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    lpt = torch.tensor(lp, device=device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    syn = calculate_syndrome(layout_for(matrix), alice)
+    dec = generic_stream.make_generic_stream_decoder(matrix, TAlg[alg], CAP,
+                                                     use_thr, group)
+    got_d = dec(llr, syn, f1, f2, thr)
+    want_d = dec.plain(llr, syn, f1, f2, thr)
+    torch.cuda.synchronize()
+    for g, w in zip(got_d, want_d):
+        assert torch.equal(g.cpu(), w.cpu())
+    return got[0].cpu(), got[2].cpu()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", generic_stream.GROUPS)
 @pytest.mark.parametrize("use_thr", [False, True])
 @pytest.mark.parametrize("alg,f1,f2", ALGS)
-def test_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, use_thr):
-    # Each code in its waterfall, so some frames run to the cap.
+def test_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, use_thr,
+                                      group):
+    # Each code in its waterfall, so some frames run to the cap; 63 and 40
+    # frames leave a ragged last group at both group sizes.
     thr = 2.5 if use_thr else 0.0
     for matrix, qber, frames in ((from_dense(irregular_dense()), 0.07, 63),
                                  (stream_sized_code(), 0.078, 40)):
         n = matrix.num_bit_nodes
         ne = int(n * qber)
         alice, bob = _card_keys(n, frames, ne, seed=7, device=cuda_device)
-        lp = log_ratio(ne / n)
-        trial = generic_stream.make_generic_stream_trial(matrix, TAlg[alg],
-                                                         CAP, use_thr)
-        got = trial(alice, bob, lp, f1, f2, thr)
-        want = trial.plain(alice, bob, lp, f1, f2, thr)
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w.cpu())
-        lpt = torch.tensor(lp, device=cuda_device)
-        llr = torch.where(bob == 1, -lpt, lpt)
-        syn = calculate_syndrome(layout_for(matrix), alice)
-        dec = generic_stream.make_generic_stream_decoder(matrix, TAlg[alg],
-                                                         CAP, use_thr)
-        got = dec(llr, syn, f1, f2, thr)
-        want = dec.plain(llr, syn, f1, f2, thr)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w.cpu())
+        _assert_kernel_equals_plain(matrix, alg, f1, f2, use_thr, thr, alice,
+                                    bob, log_ratio(ne / n), group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", generic_stream.GROUPS)
+@pytest.mark.parametrize("frames", [1, 7, 9, 13, 130])
+def test_ragged_batches_on_card(cuda_device, frames, group):
+    """Batches that leave the last group short (or make it the only one)
+    equal the plain version, NMSA and AOMSA."""
+    matrix = stream_sized_code()
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.075)
+    alice, bob = _card_keys(n, frames, ne, seed=frames, device=cuda_device)
+    for alg, f1, f2 in (ALGS[0], ALGS[3]):
+        _assert_kernel_equals_plain(matrix, alg, f1, f2, False, 0.0, alice,
+                                    bob, log_ratio(ne / n), group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", generic_stream.GROUPS)
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_mixed_convergence_group_on_card(cuda_device, alg, f1, f2, group):
+    """One group that mixes a frame without errors (it converges at once)
+    with frames deep in the waterfall that run to the cap: the frozen
+    frame's outcome and the others' equal the plain version."""
+    matrix = stream_sized_code()
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.09)
+    alice, bob = _card_keys(n, group, ne, seed=3, device=cuda_device)
+    bob[0] = alice[0]
+    conv, iters = _assert_kernel_equals_plain(
+        matrix, alg, f1, f2, False, 0.0, alice, bob, log_ratio(ne / n), group)
+    assert bool(conv[0]) and int(iters[0]) == 1
+    assert int(iters.max()) == CAP
