@@ -46,6 +46,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    group of 8 frames where frame 0 has no errors (it must converge at once)
    and the others run to the cap. Conv, keys, iterations and decisions must
    be exactly equal.
+2e. Frame kernels vs plain: the fused QC kernel's and the fused generic
+   kernel's frame mode against their plain versions, 256 frames each at
+   cap 50, on frames that channel.build_frames makes from real adaptation
+   points with the committed untainted (.untp) pools: the headline and 1k
+   QC codes (flooding and layered) and the 10k alist and degree-63 1k alist
+   codes; NMSA/OMSA/ANMSA/AOMSA at an easy point and at one where some
+   frames fail, the clamp at the latter; and frames whose checks around
+   bit 0 have every other bit shortened (clamp off, clamp on, and primary
+   factor 1.25, which brings inf and NaN), where the kernels' decode mode
+   (decisions) and, on the 10k codes, the streamed kernels' decode tails
+   run too. Conv, keys and iterations (and the decode mode's decisions)
+   must be exactly equal; the streamed generic kernel's decode tail is
+   known to differ on the forced frames (ROADMAP.md section 3) and its
+   difference is printed.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
@@ -82,13 +96,32 @@ Phases (each raises on failure, and the script then exits non-zero):
    must agree, and the same on its first 128 and 1024 frames; and the
    chunk's staging time (cap 0) and time per iteration of every group
    (caps 0 and 2) with the rate its messages move at.
+3e. Rate-adaptive main path: the CLI on copies of
+   configs/campaign_fec_measurement.json narrowed to the headline QC asset
+   (its R=0.71 bracket: QBER 0.034, alpha 0.7, delta 0.1, the efficiencies
+   that are kept; 16384 trials per point, through the fused QC frame
+   kernel) and to the N=102400 flagship (efficiency 1.52 only, 4096 trials,
+   through the streamed QC decode tail), and of
+   configs/campaign_adaptive_aomsa.json switched to matrix format 1 over the
+   10k alist asset (AOMSA, privacy maintenance; 16384 trials per point,
+   through the fused generic frame kernel) and over the N=102400 alist asset
+   (delta 0.1, efficiency 1.5, 4096 trials, through the streamed generic
+   decode tail), each matrix with its .untp cache copied beside it. Every
+   run prints each point's FER and chunk-timer rate; the CSV must carry the
+   JAX package's rate-adaptive columns, the expected kernel must have
+   launched and no other, no plain version may have run on the card, FER
+   must be <= 0.01 at the largest efficiency kept, and on chunk 0 of that
+   point the kernel's statistics on the first 1024 frames (256 at
+   N=102400) must equal the plain version's. It also times the untainted
+   greedy on the 10k alist code on the host CPU.
 4. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
    (the least time the card could take for the same work) are those of one
-   main-path chunk of phase 3, 3b, 3c or 3d (``frames`` frames, layered
+   main-path chunk of phase 3, 3b, 3c, 3d or 3e (``frames`` frames, layered
    where the kernel has it); ``plain_ms`` is its plain version on the timed
-   case of phase 2, 2b, 2c or 2d (``plain_frames`` frames); ``launches`` is
-   the main path's count.
+   case of phase 2, 2b, 2c, 2d or 2e (``plain_frames`` frames);
+   ``launches`` is the main path's count. The two frame modes have entries
+   of their own (phase 3e's chunk and count).
 
 It imports no JAX. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -173,10 +206,12 @@ def timed(fn, torch, reps=1):
     return out, (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound(frames, n, edges, iterations, schedule):
-    """(bound_ms, bound_by) of a trial-mode decode of ``frames`` frames whose
-    iteration counts sum to ``iterations``."""
-    byte_ms = (2 * frames * n + 6 * frames) / HBM_BYTES_PER_S * 1e3
+def bound(frames, n, edges, iterations, schedule, bytes_per_bit=2):
+    """(bound_ms, bound_by) of a decode of ``frames`` frames whose iteration
+    counts sum to ``iterations``: trial mode reads two int8 keys per bit,
+    frame mode Alice's int8 frame and a float32 LLR (``bytes_per_bit`` 5);
+    both write 6 bytes of statistics per frame."""
+    byte_ms = (bytes_per_bit * frames * n + 6 * frames) / HBM_BYTES_PER_S * 1e3
     op_ms = OPS_PER_EDGE[schedule] * edges * iterations / F32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
@@ -1098,6 +1133,411 @@ def phase_generic_stream_main_path(torch, card):
     return launches, diff, (kernel_ms, *chunk_bound, run_cfg.batch_size)
 
 
+# ---------------------------------------------------------------------------
+# Rate-adapted frames (phases 2e and 3e)
+# ---------------------------------------------------------------------------
+
+# Adaptation points (QBER, delta, efficiency) per code, untainted
+# puncturing from the committed .untp pools: an easy one, and one in the
+# waterfall where some of 512 frames fail.
+FRAME_POINTS = {
+    "headline": ((0.034, 0.1, 1.52), (0.034, 0.1, 1.37)),
+    "qc1k": ((0.04, 0.1, 1.6), (0.045, 0.1, 1.5)),
+    "alist10k": ((0.0252, 0.1, 1.5), (0.03, 0.1, 1.4)),
+    "alist1k_deg63": ((0.003, 0.05, 2.5), (0.004, 0.1, 2.1)),
+}
+# A primary factor above 1: on the all-shortened neighbourhood the messages
+# to its bit overflow to inf, and inf - inf gives NaN.
+BIG_FACTOR = 1.25
+# Phase 2e's depth: frames per case and the iteration cap (the plain
+# versions' time grows with the cap where frames fail).
+FRAME_CASE_FRAMES = 256
+FRAME_CASE_CAP = 50
+
+
+def untainted_point(path, matrix, point):
+    """The HMatrixParams of an adaptation point with the committed untainted
+    pool of ``path`` (read, never written)."""
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch.rate_adapt import (
+        adapt_code_rate, get_punctured_bits_untainted)
+
+    check(path.with_suffix(".untp").exists(), f"no .untp beside {path}")
+    matrix.punctured_bits_untainted = get_punctured_bits_untainted(
+        path, np.random.default_rng(0), matrix)
+    params = adapt_code_rate(np.random.default_rng(1), matrix, *point,
+                             use_untainted=True)
+    check(not params.is_empty, f"{path.name}: point {point} is skipped")
+    return params
+
+
+def all_shortened_plan(matrix, params, bit=0):
+    """``params`` with every other bit of each check on ``bit`` shortened:
+    each of those checks has all its bits but ``bit`` shortened
+    (tests/test_torch_fused_qc.py::all_shortened_plan)."""
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams
+
+    others = {int(b) for c in matrix.bit_nodes[bit]
+              for b in matrix.check_nodes[int(c)]} - {bit}
+    punct = [int(p) for p in params.punctured_bits
+             if int(p) not in others and int(p) != bit]
+    short = sorted(({int(s) for s in params.shortened_bits} | others) - {bit})
+    return HMatrixParams(punctured_bits=np.array(punct, dtype=np.int32),
+                         shortened_bits=np.array(short, dtype=np.int32))
+
+
+def build_chunk(torch, params, n, qber, frames, seed, sim_number, chunk):
+    """(alice_frame, llr) of one chunk as the rate-adaptive main path builds
+    it: the default key source's keys, errors and punctured draw, and the
+    combination's frame plan."""
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        build_frames, exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source, make_frame_plan
+
+    dev = torch.device("cuda")
+    ne = exact_error_count(n, qber)
+    alice, bits, punct = default_key_source(seed, dev)(
+        sim_number, chunk, frames, n, punctured=True)
+    bob = inject_errors(bits, alice, ne, wide=True)
+    del bits
+    pos_class, gather = make_frame_plan(n, params)
+    return build_frames(
+        alice, bob, punct, torch.tensor(pos_class == 0, device=dev),
+        torch.tensor(pos_class == 1, device=dev),
+        torch.tensor(gather.astype(np.int64), device=dev),
+        log_ratio(ne / n), torch.float32)
+
+
+def decode_tail(decode, syndrome_of):
+    """The decode tail of an engine without a frame mode, with its kernel
+    and with its plain version (``simulation.frame_engine_trial``)."""
+    from qkd_ldpc_v_tpu_torch.ops.decoders import frame_trial
+
+    trial = frame_trial(decode, syndrome_of)
+    trial.plain = frame_trial(decode.plain, syndrome_of)
+    return trial
+
+
+def phase_frame_vs_plain(torch, card):
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm, MatrixFormat
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix
+    from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+    from qkd_ldpc_v_tpu_torch.ops import (
+        fused_generic, fused_qc, generic_stream, qc_stream)
+    from qkd_ldpc_v_tpu_torch.ops.channel import calculate_syndrome, qc_syndrome
+
+    codes = [("headline", HEADLINE, MatrixFormat.QC),
+             ("qc1k", QC1K, MatrixFormat.QC),
+             ("alist10k", ALIST10K, MatrixFormat.ALIST),
+             ("alist1k_deg63", ALIST1K_DEG63, MatrixFormat.ALIST)]
+    # (code, matrix, plan name, params, QBER, schedule, alg, clamp, primary
+    # factor or None for the algorithm's own)
+    cases = []
+    for code_name, path, fmt in codes:
+        matrix = read_matrix(path, fmt)
+        is_qc = fmt == MatrixFormat.QC
+        schedules = ("flooding", "layered") if is_qc else ("flooding",)
+        easy, hard = (untainted_point(path, matrix, pt)
+                      for pt in FRAME_POINTS[code_name])
+        forced = all_shortened_plan(matrix, easy)
+        for label, params, point in (("easy", easy, FRAME_POINTS[code_name][0]),
+                                     ("waterfall", hard,
+                                      FRAME_POINTS[code_name][1])):
+            for schedule in schedules:
+                for alg in FACTORS:
+                    cases.append((code_name, matrix, label, params, point[0],
+                                  schedule, alg, False, None))
+                if label == "waterfall":
+                    cases.append((code_name, matrix, label, params, point[0],
+                                  schedule, "NMSA", True, None))
+        for schedule in schedules:
+            for clamp, factor in ((False, None), (True, None),
+                                  (False, BIG_FACTOR)):
+                cases.append((code_name, matrix, "forced", forced,
+                              FRAME_POINTS[code_name][0][0], schedule,
+                              "NMSA", clamp, factor))
+
+    frames_cache = {}
+    worst = {"fused_qc": 0, "fused_generic": 0}
+    times = {}
+    failing = {}
+    for i, (code_name, matrix, label, params, qber, schedule, alg, clamp,
+            factor) in enumerate(cases):
+        n = matrix.num_bit_nodes
+        key = (code_name, label)
+        if key not in frames_cache:
+            frames_cache[key] = build_chunk(torch, params, n, qber,
+                                            FRAME_CASE_FRAMES, 19, 0,
+                                            len(frames_cache))
+        frame, llr = frames_cache[key]
+        f1, f2 = FACTORS[alg]
+        if matrix.qc is None and alg == "NMSA":
+            f1 = 0.7
+        if factor is not None:
+            f1 = factor
+        thr = THRESHOLD if clamp else 0.0
+        algorithm = DecodingAlgorithm[alg]
+        if matrix.qc is not None:
+            kernel = "fused_qc"
+            fn = fused_qc.make_fused_qc_frame_trial(
+                matrix.qc, algorithm, FRAME_CASE_CAP, clamp, schedule)
+        else:
+            kernel = "fused_generic"
+            fn = fused_generic.make_fused_generic_frame_trial(
+                matrix, algorithm, FRAME_CASE_CAP, clamp)
+        args = (frame, llr, f1, f2, thr)
+        fn(*args)  # first launch of this configuration, untimed
+        got, ms = timed(lambda: fn(*args), torch, reps=3)
+        fn.plain(*args)  # first call: index tables to the card, untimed
+        want, plain_ms = timed(lambda: fn.plain(*args), torch)
+        diff = max_abs_diff(tuple(got), tuple(want), torch)
+        extra = ""
+        if label == "forced":
+            # The forced frames also through the kernel's decode mode
+            # (decisions compared) and, on the 10k codes, the streamed
+            # kernels' decode tails. The streamed generic kernel keeps the
+            # float32-maximum start of its second minimum and fminf / fmaxf,
+            # so it is known to differ from the plain version here (a fault
+            # recorded in ROADMAP.md section 3): its difference is printed,
+            # not held.
+            if matrix.qc is not None:
+                syn = qc_syndrome(matrix.qc, frame)
+                dec = fused_qc.make_fused_qc_decoder(
+                    matrix.qc, algorithm, FRAME_CASE_CAP, clamp, schedule)
+                tails = [("qc_stream", decode_tail(
+                    qc_stream.make_qc_stream_decoder(
+                        matrix.qc, algorithm, FRAME_CASE_CAP, clamp, schedule),
+                    lambda a: qc_syndrome(matrix.qc, a)))
+                         ] if code_name == "headline" else []
+            else:
+                layout = layout_for(matrix)
+                syn = calculate_syndrome(layout, frame)
+                dec = fused_generic.make_fused_generic_decoder(
+                    matrix, algorithm, FRAME_CASE_CAP, clamp)
+                tails = [("generic_stream", decode_tail(
+                    generic_stream.make_generic_stream_decoder(
+                        matrix, algorithm, FRAME_CASE_CAP, clamp),
+                    lambda a: calculate_syndrome(layout, a)))
+                         ] if code_name == "alist10k" else []
+            d = max_abs_diff(tuple(dec(llr, syn, f1, f2, thr)),
+                             tuple(dec.plain(llr, syn, f1, f2, thr)), torch)
+            diff = max(diff, d)
+            extra = f" decode_mode_err={d}"
+            for tail_name, tail in tails:
+                d = max_abs_diff(tuple(tail(*args)), tuple(tail.plain(*args)),
+                                 torch)
+                extra += f" {tail_name}_decode_err={d}"
+                if tail_name == "qc_stream":
+                    diff = max(diff, d)
+        worst[kernel] = max(worst[kernel], diff)
+        n_fail = int((~got[0]).sum().item())
+        failing[(code_name, label)] = failing.get((code_name, label), 0) + n_fail
+        fac = "" if factor is None else f" primary={factor}"
+        print(f"case 2e-{i:02d} {code_name} N={n} frame {label} {schedule} "
+              f"{alg}{fac} qber={qber} clamp={clamp}: unconverged={n_fail}/"
+              f"{FRAME_CASE_FRAMES} kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} "
+              f"max_abs_err={diff}{extra}", flush=True)
+        check(diff == 0, f"frame kernel != plain in case 2e-{i}")
+        if (label, schedule, alg, clamp, factor) == (
+                "easy", "layered" if matrix.qc is not None else "flooding",
+                "NMSA", False, None) and code_name in ("headline", "alist10k"):
+            times[kernel] = (plain_ms, FRAME_CASE_FRAMES)
+    for code_name, _, _ in codes:
+        check(failing[(code_name, "waterfall")] > 0,
+              f"{code_name}: no frame failed at its waterfall point")
+    print(f"phase 2e: {len(cases)} cases, frame kernels == plain exactly "
+          f"({card})")
+    return worst, times
+
+
+RA_COLUMNS = ";DELTA;EFFICIENCY;PUNCT_FRACTION;SHORT_FRACTION;R_ADAPTED"
+
+
+def read_rows(results_dir: Path):
+    csvs = sorted(results_dir.glob("*.csv"))
+    check(len(csvs) == 1, f"expected one CSV in {results_dir}, got {csvs}")
+    lines = csvs[0].read_text().splitlines()
+    check(len(lines) >= 2, f"no result row in {csvs[0]}")
+    header = lines[0].split(";")
+    return csvs[0], lines[0], [dict(zip(header, ln.split(";")))
+                               for ln in lines[1:]]
+
+
+def narrowed(config, code_rate, matrix_format, trials, efficiency=None):
+    """A copy of a committed rate-adaptive config for one matrix: its
+    format, ``trials`` trials, and optionally one efficiency (delta 0.1)
+    in the adaptation bracket the code's rate falls in."""
+    cfg = json.loads((REPO / "configs" / config).read_text())
+    cfg["matrix_format"] = matrix_format
+    cfg["trials_number"] = trials
+    if efficiency is not None:
+        ranges = cfg["code_rate_adaptation_parameters"][
+            "code_rate_adaptation_parameters_ranges"]
+        bracket = next(r for r in ranges if code_rate <= r["code_rate"])
+        bracket["delta"] = {"begin": 0.1, "end": 0.1, "step": 0.05}
+        bracket["efficiency"] = {"begin": efficiency, "end": efficiency,
+                                 "step": 0.1}
+    return cfg
+
+
+def phase_rate_adaptive_main_path(torch, card):
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch import cli
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+    from qkd_ldpc_v_tpu_torch.ops import (
+        fused_generic, fused_qc, generic_stream, qc_stream)
+    from qkd_ldpc_v_tpu_torch.ops.channel import calculate_syndrome, qc_syndrome
+    from qkd_ldpc_v_tpu_torch.rate_adapt import select_punctured_bits_untainted
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        prepare_sim_inputs, qc_kernel, select_engine)
+
+    # The untainted greedy on the host CPU (every committed asset has its
+    # .untp cache, so the main path only reads them).
+    alist10k = read_sparse_matrix_alist(ALIST10K)
+    t0 = time.perf_counter()
+    pool = select_punctured_bits_untainted(np.random.default_rng(0), alist10k)
+    print(f"rate-adaptive: untainted greedy on the 10k alist code: "
+          f"{len(pool)} positions in {time.perf_counter() - t0:.3f} s "
+          f"(host CPU)", flush=True)
+
+    counters = {"fused_qc": fused_qc, "fused_generic": fused_generic,
+                "qc_stream": qc_stream, "generic_stream": generic_stream}
+    # (name, config copy, matrix, subdirectory, kernel, frames compared)
+    runs = [
+        ("fec_headline", narrowed("campaign_fec_measurement.json", 0.70, 4,
+                                  16384), HEADLINE, "matrices_qc", "fused_qc",
+         1024),
+        ("aomsa_alist10k", narrowed("campaign_adaptive_aomsa.json", 0.7226, 1,
+                                    16384), ALIST10K, "matrices_alist",
+         "fused_generic", 1024),
+        ("fec_flagship", narrowed("campaign_fec_measurement.json", 0.70, 4,
+                                  4096, 1.52), FLAGSHIP, "matrices_qc",
+         "qc_stream", 256),
+        ("aomsa_alist100k", narrowed("campaign_adaptive_aomsa.json", 0.69, 1,
+                                     4096, 1.5), ALIST100K, "matrices_alist",
+         "generic_stream", 256),
+    ]
+    out = {}
+    for name, cfg_json, path, subdir, kernel, compared in runs:
+        work = REPO / "build" / f"chip_smoke_ra_{name}"
+        if work.exists():
+            shutil.rmtree(work)
+        matrices = work / "sparse_matrices" / subdir
+        matrices.mkdir(parents=True)
+        (matrices / path.name).symlink_to(path)
+        # The untainted cache travels with the matrix, as a copy.
+        shutil.copy(path.with_suffix(".untp"),
+                    matrices / path.with_suffix(".untp").name)
+        cdir = work / "configs"
+        cdir.mkdir()
+        (cdir / "run.json").write_text(json.dumps(cfg_json, indent=2))
+
+        for mod in counters.values():
+            mod.reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--configs", str(cdir), "--matrices",
+                       str(work / "sparse_matrices"), "--results",
+                       str(work / "results"), "--device", "cuda", "--quiet"])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"CLI ({name}) returned {rc}")
+        counts = {k: mod.counts() for k, mod in counters.items()}
+        print(f"{name}: launches " + " ".join(
+            f"{k}={c[0]}" for k, c in counts.items()) + " plain calls on the "
+            f"card={sum(c[1] for c in counts.values())}", flush=True)
+        check(counts[kernel][0] > 0, f"{name}: {kernel} did not launch")
+        check(all(c[0] == 0 for k, c in counts.items() if k != kernel),
+              f"{name}: another kernel launched")
+        check(all(c[1] == 0 for c in counts.values()),
+              f"{name}: a plain version ran on the card")
+
+        cfg = parse_config_data(cdir / "run.json")
+        sim_in = prepare_sim_inputs([matrices / path.name], cfg)[0]
+        matrix = sim_in.matrix
+        n = matrix.num_bit_nodes
+        engine = select_engine(matrix, cfg)
+        if matrix.qc is not None:
+            check(qc_kernel(matrix.qc, engine, cfg.schedule == "layered")
+                  == kernel, f"{name}: qc_kernel does not pick {kernel}")
+        csv, header, rows = read_rows(work / "results")
+        check(RA_COLUMNS in header, f"{name}: CSV lacks {RA_COLUMNS}")
+        check(len(rows) == len(sim_in.combinations),
+              f"{name}: {len(rows)} rows for {len(sim_in.combinations)} "
+              "combinations")
+        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+        for comb, row in zip(sim_in.combinations, rows):
+            out_len = n - len(comb.matrix_params.bits_to_remove)
+            us = out_len * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
+            print(f"{name}: QBER={row['CONFIG_QBER']} delta={row['DELTA']} "
+                  f"efficiency={row['EFFICIENCY']} R_adapted="
+                  f"{row['R_ADAPTED']} FER={row['FER']} iter_mean="
+                  f"{row['ITER_SUCCESS_MEAN']} decode_frames_per_s="
+                  f"{1e6 / us:.0f} (chunk timers, RTT removed; output key "
+                  f"{out_len} bits)", flush=True)
+        last = max(range(len(rows)),
+                   key=lambda i: float(rows[i]["EFFICIENCY"].replace(",", ".")))
+        fer = float(rows[last]["FER"].replace(",", "."))
+        check(fer <= 0.01, f"{name}: FER {fer} > 0.01 at the largest "
+              "efficiency kept")
+        print(f"{name}: {len(rows)} points, engine {engine}, kernel {kernel}; "
+              f"whole CLI call {wall:.1f} s ({cfg.trials_number} trials per "
+              f"point; card={card})", flush=True)
+
+        # Chunk 0 of the largest efficiency's combination again: the kernel
+        # on the whole chunk as the main path ran it, the plain version on
+        # its first frames.
+        comb = sim_in.combinations[last]
+        alg = cfg.decoding_algorithm
+        cap = cfg.decoding_alg_max_iterations
+        thr_on = cfg.enable_msg_llr_threshold
+        (frame, llr), build_ms = timed(
+            lambda: build_chunk(torch, comb.matrix_params, n, comb.config_qber,
+                                cfg.batch_size, cfg.simulation_seed, last, 0),
+            torch)
+        if kernel == "fused_qc":
+            trial = fused_qc.make_fused_qc_frame_trial(matrix.qc, alg, cap,
+                                                       thr_on, cfg.schedule)
+        elif kernel == "fused_generic":
+            trial = fused_generic.make_fused_generic_frame_trial(matrix, alg,
+                                                                 cap, thr_on)
+        elif kernel == "qc_stream":
+            trial = decode_tail(qc_stream.make_qc_stream_decoder(
+                matrix.qc, alg, cap, thr_on, cfg.schedule),
+                lambda a: qc_syndrome(matrix.qc, a))
+        else:
+            layout = layout_for(matrix)
+            trial = decode_tail(generic_stream.make_generic_stream_decoder(
+                matrix, alg, cap, thr_on),
+                lambda a: calculate_syndrome(layout, a))
+        args = (comb.scaling_factors.primary, comb.scaling_factors.secondary,
+                cfg.msg_llr_threshold)
+        full, kernel_ms = timed(lambda: trial(frame, llr, *args), torch)
+        edges = matrix.num_edges
+        chunk_bound = bound(cfg.batch_size, n, edges,
+                            int(full[2].sum().item()), cfg.schedule,
+                            bytes_per_bit=5)
+        print(f"{name}: one {cfg.batch_size}-frame chunk: keys, errors and "
+              f"frames {build_ms:.2f} ms, {kernel} "
+              f"{'frame' if kernel.startswith('fused') else 'decode tail'} "
+              f"{kernel_ms:.2f} ms (bound {chunk_bound[0]:.2f} ms, "
+              f"{chunk_bound[1]}), mean iterations "
+              f"{full[2].float().mean().item():.2f} (card={card})", flush=True)
+        got = [t[:compared] for t in full]
+        want = trial.plain(frame[:compared].contiguous(),
+                           llr[:compared].contiguous(), *args)
+        diff = max_abs_diff(got, tuple(want), torch)
+        check(diff == 0, f"{name}: chunk-0 kernel stats != plain")
+        print(f"{name}: chunk 0 frames 0-{compared - 1} kernel == plain "
+              f"({csv.name})", flush=True)
+        out[kernel] = (counts[kernel][0], diff,
+                       (kernel_ms, *chunk_bound, cfg.batch_size))
+        del frame, llr, full
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1125,21 +1565,37 @@ def main() -> int:
     for line in ptxas_lines(kernels.build_log):
         print(line)
 
+    def elapsed(phase):
+        print(f"phase {phase} done at {time.perf_counter() - start:.1f} s",
+              flush=True)
+
     worst2, headline_times = phase_kernel_vs_plain(torch, card)
+    elapsed("2")
     worst2b, generic_times = phase_generic_vs_plain(torch, card)
+    elapsed("2b")
     worst2c, stream_times = phase_stream_vs_plain(torch, card)
+    elapsed("2c")
     worst2d, generic_stream_times = phase_generic_stream_vs_plain(torch, card)
+    elapsed("2d")
+    worst2e, frame_times = phase_frame_vs_plain(torch, card)
+    elapsed("2e")
     launches, worst3, chunk3 = phase_main_path(torch, card)
+    elapsed("3")
     generic_launches, worst3b, chunk3b = phase_generic_main_path(torch, card)
+    elapsed("3b")
     stream_launches, worst3c, chunk3c = phase_stream_main_path(torch, card)
+    elapsed("3c")
     generic_stream_launches, worst3d, chunk3d = phase_generic_stream_main_path(
         torch, card)
+    elapsed("3d")
+    ra = phase_rate_adaptive_main_path(torch, card)
+    elapsed("3e")
     check("jax" not in sys.modules, "jax was imported")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s "
           f"({card})", flush=True)
 
     def entry(name, source, replaces, launches, worst, chunk, case):
-        # ms and bound_ms: one main-path chunk (phase 3, 3b, 3c or 3d;
+        # ms and bound_ms: one main-path chunk (phase 3, 3b, 3c, 3d or 3e;
         # layered where the kernel has it), at the fill the main path runs
         # at. plain_ms: the plain version on the phase-2 timed case.
         ms, bound_ms, bound_by, frames = chunk
@@ -1162,6 +1618,13 @@ def main() -> int:
         entry("generic_stream", "generic_stream.cu",
               "pallas_stream.py:303,434,524,589", generic_stream_launches,
               max(worst2d, worst3d), chunk3d, generic_stream_times),
+        entry("fused_qc_frame", "fused_qc.cu", "pallas_qc.py:869",
+              ra["fused_qc"][0], max(worst2e["fused_qc"], ra["fused_qc"][1]),
+              ra["fused_qc"][2], frame_times["fused_qc"]),
+        entry("fused_generic_frame", "fused_generic.cu",
+              "pallas_generic.py:1122", ra["fused_generic"][0],
+              max(worst2e["fused_generic"], ra["fused_generic"][1]),
+              ra["fused_generic"][2], frame_times["fused_generic"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -51,8 +51,24 @@ ported so far:
   decoding_algorithm            0 SPA, 1 SPA-lin-approx, 2 NMSA, 3 OMSA,
                                 4 ANMSA, 5 AOMSA. The SPA pair runs with
                                 tpu.use_pallas = false only.
-  enable_code_rate_adaptation   false.
-  enable_privacy_maintenance    false.
+  enable_privacy_maintenance    bool. Greedily delete one key bit per check
+                                node after reconciliation (shortens the
+                                output key that throughput counts).
+  enable_code_rate_adaptation   bool. Puncture/shorten to hit
+                                R = 1 - f_EC*h(QBER) per Elkouss et al.
+                                Frames are built in torch; the fused
+                                kernels decode them in their frame mode,
+                                the streamed kernels and the generic torch
+                                decoder in their decode mode.
+  code_rate_adaptation_parameters.enable_untainted_puncturing   bool. Select
+                                punctured bits by the untainted greedy
+                                (cached in a .untp file next to the matrix).
+  code_rate_adaptation_parameters.use_adaptation_parameters_ranges  bool.
+    true  -> code_rate_adaptation_parameters_ranges:
+             [{code_rate, delta:{begin,end,step},
+               efficiency:{begin,end,step}}] crossed with the QBER range.
+    false -> code_rate_QBER_adaptation_parameters_maps:
+             [{code_rate, QBER, delta, efficiency}] explicit points.
   trace_*                       false.
   tpu.use_pallas                true: the hand-written kernels (CUDA) or
                                 their plain torch versions (CPU) — the

@@ -1,11 +1,12 @@
 // Fused generic LDPC decoder for Hopper (sm_90a): one thread block decodes
 // one frame at a time of an arbitrary sparse parity-check matrix, from raw
-// keys (trial mode) or from LLRs and a syndrome (decode mode) to its
-// per-frame statistics or decisions.
+// keys (trial mode), from LLRs and a syndrome (decode mode) or from a
+// rate-adapted frame and its LLRs (frame mode) to its per-frame statistics
+// or decisions.
 //
 // Replaces the TPU kernel qkd_ldpc_v_tpu/ops/pallas_generic.py::_build.kernel
-// (trial and decode modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA; the
-// flooding schedule). The plain torch version it is held to, bit for bit,
+// (trial, decode and frame modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA;
+// the flooding schedule). The plain torch version it is held to, bit for bit,
 // is qkd_ldpc_v_tpu_torch/ops/decoders.py::make_decoder in float32 (wrapped
 // by ops/fused_generic.py).
 //
@@ -137,7 +138,7 @@ int fused_generic_trial(const int8_t* alice, const int8_t* bob, int batch,
   p.batch = batch;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 1;
+  p.mode = kTrial;
   p.log_p = log_p;
   p.primary = primary;
   p.secondary = secondary;
@@ -166,12 +167,40 @@ int fused_generic_decode(const float* llr, const int8_t* syn, int batch,
   p.batch = batch;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 0;
+  p.mode = kDecode;
   p.primary = primary;
   p.secondary = secondary;
   p.threshold = threshold;
   p.dec_out = dec;
   p.conv = conv;
+  p.iters = iters;
+  return launch(p, flags, msg_shared, grid, threads,
+                static_cast<cudaStream_t>(stream));
+}
+
+int fused_generic_frame(const int8_t* alice, const float* llr, int batch,
+                        const int32_t* table, int n, int m, int e, int flags,
+                        int use_threshold, int max_iter, float primary,
+                        float secondary, float threshold, float* scratch,
+                        int msg_shared, int grid, int threads, int8_t* conv,
+                        int8_t* keys, int32_t* iters, void* stream) {
+  Params p{};
+  p.alice = alice;
+  p.llr_in = llr;
+  p.table = table;
+  p.scratch = scratch;
+  p.n = n;
+  p.m = m;
+  p.e = e;
+  p.batch = batch;
+  p.max_iter = max_iter;
+  p.use_threshold = use_threshold;
+  p.mode = kFrame;
+  p.primary = primary;
+  p.secondary = secondary;
+  p.threshold = threshold;
+  p.conv = conv;
+  p.keys = keys;
   p.iters = iters;
   return launch(p, flags, msg_shared, grid, threads,
                 static_cast<cudaStream_t>(stream));

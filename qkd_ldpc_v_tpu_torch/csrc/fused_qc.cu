@@ -1,11 +1,22 @@
 // Fused QC-LDPC decoder for Hopper (sm_90a): one thread block decodes one
-// frame, from raw keys (trial mode) or from LLRs and a syndrome (decode
-// mode) to its per-frame statistics or decisions.
+// frame, from raw keys (trial mode), from LLRs and a syndrome (decode mode)
+// or from a rate-adapted frame and its LLRs (frame mode) to its per-frame
+// statistics or decisions.
 //
 // Replaces the TPU kernel qkd_ldpc_v_tpu/ops/pallas_qc.py::_build.kernel
-// (trial and decode modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA; the
-// flooding and layered schedules). The plain torch versions it is held to,
-// bit for bit, are in qkd_ldpc_v_tpu_torch/ops/qc_decoder.py.
+// (trial, decode and frame modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA;
+// the flooding and layered schedules). The plain torch versions it is held
+// to, bit for bit, are in qkd_ldpc_v_tpu_torch/ops/qc_decoder.py.
+//
+// Modes: trial forms the channel LLRs +-log_p from Bob's keys and Alice's
+// syndrome from her keys, and compares the decisions with her keys; decode
+// reads the caller's LLRs and syndrome and writes the decisions; frame
+// reads the caller's LLRs as decode does and forms the syndrome and the key
+// compare from Alice's frame as trial does. Rate-adapted LLRs carry the
+// float32 maximum on shortened bits, so sums can overflow to inf and
+// inf - inf gives NaN: min and max here propagate NaN (min_nan, max_nan),
+// as torch.minimum / torch.maximum and XLA do, where fminf / fmaxf would
+// drop it.
 //
 // Circulant convention: check-aligned index z of block edge (r, c, s) is
 // bit (c, (z + s) mod Z).
@@ -56,22 +67,37 @@ constexpr int kMaxZ = 1024;
 constexpr int kMaxBlockEdges = 256;
 constexpr int kMaxBaseChecks = 64;
 
+enum Mode { kDecode = 0, kTrial = 1, kFrame = 2 };
+
 struct Params {
-  const int8_t* alice;    // trial: [B, N] 0/1
+  const int8_t* alice;    // trial, frame: [B, N] 0/1
   const int8_t* bob;      // trial: [B, N] 0/1
-  const float* llr;       // decode: [B, N]
+  const float* llr;       // decode, frame: [B, N]
   const int8_t* syn;      // decode: [B, M] 0/1
   const int32_t* table;   // row_ptr[mb+1], cols[num_be], shifts[num_be]
-  int mb, nb, z, num_be, max_iter, use_threshold, trial;
+  int mb, nb, z, num_be, max_iter, use_threshold, mode;
   float log_p, primary, secondary, threshold;
   int8_t* dec_out;        // decode: [B, N]
   int8_t* conv;           // [B]
-  int8_t* keys;           // trial: [B]
+  int8_t* keys;           // trial, frame: [B]
   int32_t* iters;         // [B]
 };
 
+// f32 min and max that return NaN where either operand is NaN.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float clamp_msg(float x, const Params& p) {
-  return p.use_threshold ? fminf(fmaxf(x, -p.threshold), p.threshold) : x;
+  return p.use_threshold ? min_nan(max_nan(x, -p.threshold), p.threshold) : x;
 }
 
 __device__ __forceinline__ int bit_index(int c, int s, int z, int Z) {
@@ -100,7 +126,7 @@ __device__ __forceinline__ float minsum_value(float mm, float min1, float min2,
   float av = fabsf(mm);
   float excl = mm > 0.f ? 1.f : -1.f;
   float eabs = (av == min1) ? min2 : min1;
-  if (OFFSET) return row_sign * excl * fmaxf(eabs - f, 0.f);
+  if (OFFSET) return row_sign * excl * max_nan(eabs - f, 0.f);
   return f * row_sign * excl * eabs;
 }
 
@@ -121,7 +147,7 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
   for (int c = 0; c < nb; ++c) {
     const int j = c * Z + z;
     float v;
-    if (p.trial) {
+    if (p.mode == kTrial) {
       v = p.bob[frame * N + j] == 1 ? -p.log_p : p.log_p;
     } else {
       v = p.llr[frame * N + j];
@@ -134,7 +160,7 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
   unsigned long long syn_mask = 0;
   for (int r = 0; r < mb; ++r) {
     int bit = 0;
-    if (p.trial) {
+    if (p.mode != kDecode) {
       for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
         bit ^= p.alice[frame * N + bit_index(cols[e], shifts[e], z, Z)] & 1;
     } else {
@@ -165,8 +191,8 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
           if (e == b) {
             min1 = av;
           } else {
-            min2 = fminf(min2, fmaxf(min1, av));
-            min1 = fminf(min1, av);
+            min2 = min_nan(min2, max_nan(min1, av));
+            min1 = min_nan(min1, av);
           }
           neg += mm < 0.f;
           if (ADAPTIVE) par ^= t <= 0.f;
@@ -216,8 +242,8 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
           if (e == b) {
             min1 = av;
           } else {
-            min2 = fminf(min2, fmaxf(min1, av));
-            min1 = fminf(min1, av);
+            min2 = min_nan(min2, max_nan(min1, av));
+            min1 = min_nan(min1, av);
           }
           neg += msg[e] < 0.f;
         }
@@ -252,7 +278,7 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
     }
   }
 
-  if (p.trial) {
+  if (p.mode != kDecode) {
     int ok = 1;
     for (int c = 0; c < nb; ++c) {
       const int j = c * Z + z;
@@ -326,7 +352,7 @@ int fused_qc_trial(const int8_t* alice, const int8_t* bob, int batch,
   p.num_be = num_be;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 1;
+  p.mode = kTrial;
   p.log_p = log_p;
   p.primary = primary;
   p.secondary = secondary;
@@ -352,12 +378,37 @@ int fused_qc_decode(const float* llr, const int8_t* syn, int batch,
   p.num_be = num_be;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 0;
+  p.mode = kDecode;
   p.primary = primary;
   p.secondary = secondary;
   p.threshold = threshold;
   p.dec_out = dec;
   p.conv = conv;
+  p.iters = iters;
+  return dispatch(p, batch, flags, static_cast<cudaStream_t>(stream));
+}
+
+int fused_qc_frame(const int8_t* alice, const float* llr, int batch,
+                   const int32_t* table, int mb, int nb, int z, int num_be,
+                   int flags, int use_threshold, int max_iter, float primary,
+                   float secondary, float threshold, int8_t* conv,
+                   int8_t* keys, int32_t* iters, void* stream) {
+  Params p{};
+  p.alice = alice;
+  p.llr = llr;
+  p.table = table;
+  p.mb = mb;
+  p.nb = nb;
+  p.z = z;
+  p.num_be = num_be;
+  p.max_iter = max_iter;
+  p.use_threshold = use_threshold;
+  p.mode = kFrame;
+  p.primary = primary;
+  p.secondary = secondary;
+  p.threshold = threshold;
+  p.conv = conv;
+  p.keys = keys;
   p.iters = iters;
   return dispatch(p, batch, flags, static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,10 @@
 // and the streamed generic kernel (csrc/generic_stream.cu), and the fused
 // kernel's decode body. Both decode an arbitrary sparse parity-check matrix
 // from raw keys (trial mode) or from LLRs and a syndrome (decode mode), for
-// the min-sum family NMSA/OMSA/ANMSA/AOMSA on the flooding schedule.
+// the min-sum family NMSA/OMSA/ANMSA/AOMSA on the flooding schedule. The
+// fused kernel also decodes rate-adapted frames (frame mode): the caller's
+// LLRs as in decode mode, Alice's syndrome and the key compare from Alice's
+// frame as in trial mode.
 //
 // Both kernels call the same helpers for the channel LLR (input_llr,
 // llr_of_bit), the two-minimum chain (two_min), the row sign (row_sign_of),
@@ -32,6 +35,15 @@
 // messages in slot order (ascending check index), added one by one; the
 // min-sum value is +-1 sign logic and one multiply or one subtraction;
 // sources are built with -fmad=false, no fast math and no flush-to-zero.
+// Rate-adapted LLRs carry the float32 maximum on shortened bits, so sums
+// can overflow to inf, and inf - inf gives NaN. With the NONFINITE flag of
+// the helpers the fused kernel follows the plain decoder (and JAX's XLA
+// decoder) there: min and max propagate NaN as torch.minimum /
+// torch.maximum do (PTX min.NaN / max.NaN), and where every |message| of a
+// check is inf the second minimum is inf too (the plain decoder's tie rule;
+// the chain's second minimum starts at the float32 maximum and would stay
+// there). The streamed kernel keeps fminf / fmaxf and the plain chain, and
+// so differs from the plain decoder on such frames (ROADMAP.md section 3).
 // Early exit per frame: the non-adaptive algorithms test the decisions
 // after the bit pass; the adaptive pair tests the previous decisions before
 // the check pass, and the same per-check mismatch picks the secondary
@@ -50,18 +62,22 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 
+// What a launch decodes: raw keys (trial), LLRs and a syndrome (decode), or
+// Alice's rate-adapted frame and its LLRs (frame; fused kernel only).
+enum Mode { kDecode = 0, kTrial = 1, kFrame = 2 };
+
 struct Params {
-  const int8_t* alice;    // trial: [B, N] 0/1, external order
+  const int8_t* alice;    // trial, frame: [B, N] 0/1, external order
   const int8_t* bob;      // trial: [B, N] 0/1
-  const float* llr_in;    // decode: [B, N]
+  const float* llr_in;    // decode, frame: [B, N]
   const int8_t* syn_in;   // decode: [B, M] 0/1
   const int32_t* table;   // cptr, cbit, bptr, bedge, bit_ext, chk_ext
   float* scratch;         // the caller's global scratch (per-block slices)
-  int n, m, e, batch, max_iter, use_threshold, trial;
+  int n, m, e, batch, max_iter, use_threshold, mode;
   float log_p, primary, secondary, threshold;
   int8_t* dec_out;        // decode: [B, N]
   int8_t* conv;           // [B]
-  int8_t* keys;           // trial: [B]
+  int8_t* keys;           // trial, frame: [B]
   int32_t* iters;         // [B]
 };
 
@@ -85,8 +101,28 @@ __device__ __forceinline__ Tables tables_of(const Params& p) {
   return t;
 }
 
+// f32 min and max; with NONFINITE they return NaN where either operand is
+// NaN, else they drop a NaN operand as fminf / fmaxf do.
+template <bool NONFINITE>
+__device__ __forceinline__ float min_of(float a, float b) {
+  if (!NONFINITE) return fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+template <bool NONFINITE>
+__device__ __forceinline__ float max_of(float a, float b) {
+  if (!NONFINITE) return fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+template <bool NONFINITE = false>
 __device__ __forceinline__ float clamp_msg(float x, const Params& p) {
-  return p.use_threshold ? fminf(fmaxf(x, -p.threshold), p.threshold) : x;
+  if (!p.use_threshold) return x;
+  return min_of<NONFINITE>(max_of<NONFINITE>(x, -p.threshold), p.threshold);
 }
 
 // Where internal check c is unsatisfied by the decisions: 1 or 0 for planes
@@ -102,14 +138,24 @@ __device__ __forceinline__ int mismatch(int c, const int* cptr, const int* cbit,
 
 // One step of the two-minimum chain over a check's |messages|, in slot
 // order: a tie at the minimum makes min2 == min1.
+template <bool NONFINITE = false>
 __device__ __forceinline__ void two_min(float av, bool first, float& min1,
                                         float& min2) {
   if (first) {
     min1 = av;
   } else {
-    min2 = fminf(min2, fmaxf(min1, av));
-    min1 = fminf(min1, av);
+    min2 = min_of<NONFINITE>(min2, max_of<NONFINITE>(min1, av));
+    min1 = min_of<NONFINITE>(min1, av);
   }
+}
+
+// The second minimum of a check of `degree` edges once the chain is done:
+// with NONFINITE, inf where every |message| is inf (degree >= 2), as the
+// plain decoder's tie at the minimum gives.
+template <bool NONFINITE>
+__device__ __forceinline__ float last_min2(int degree, float min1,
+                                           float min2) {
+  return (NONFINITE && degree >= 2 && isinf(min1)) ? min1 : min2;
 }
 
 // The sign of a check's product: its syndrome bit times the parity of its
@@ -118,12 +164,12 @@ __device__ __forceinline__ float row_sign_of(bool syn, int neg) {
   return (syn ? -1.f : 1.f) * ((neg & 1) == 0 ? 1.f : -1.f);
 }
 
-template <bool OFFSET>
+template <bool OFFSET, bool NONFINITE = false>
 __device__ __forceinline__ float minsum_value(float mm, float min1, float min2,
                                               float row_sign, float f) {
   const float excl = mm > 0.f ? 1.f : -1.f;
   const float eabs = (fabsf(mm) == min1) ? min2 : min1;
-  if (OFFSET) return row_sign * excl * fmaxf(eabs - f, 0.f);
+  if (OFFSET) return row_sign * excl * max_of<NONFINITE>(eabs - f, 0.f);
   return f * row_sign * excl * eabs;
 }
 
@@ -144,17 +190,18 @@ __device__ __forceinline__ float llr_of_bit(const Params& p, bool one) {
 
 // The channel LLR of internal bit i of the frame whose keys or LLRs start
 // at `row`, formed from the inputs: +-log_p from Bob's bit in trial mode,
-// the caller's LLR in decode mode.
+// the caller's LLR in decode and frame mode.
 __device__ __forceinline__ float input_llr(const Params& p, const Tables& t,
                                            size_t row, int i) {
   const int j = t.bit_ext[i];
-  if (p.trial) return llr_of_bit(p, p.bob[row + j] == 1);
+  if (p.mode == kTrial) return llr_of_bit(p, p.bob[row + j] == 1);
   return p.llr_in[row + j];
 }
 
 // Initial staging of check c: each edge's first bit->check message is the
-// channel LLR of its bit. In trial mode the same pass gathers Alice's bits
-// on the check and returns their parity; one pass over the check's edges
+// channel LLR of its bit. In trial and frame mode the same pass gathers
+// Alice's bits on the check and returns their parity; one pass over the
+// check's edges
 // keeps the tables' reads at one per edge.
 __device__ __forceinline__ int stage_messages(int c, const Params& p,
                                               const Tables& t,
@@ -164,17 +211,17 @@ __device__ __forceinline__ int stage_messages(int c, const Params& p,
   for (int k = t.cptr[c]; k < t.cptr[c + 1]; ++k) {
     const int i = t.cbit[k];
     msg[k] = llr[i];
-    if (p.trial) parity ^= p.alice[row + t.bit_ext[i]] & 1;
+    if (p.mode != kDecode) parity ^= p.alice[row + t.bit_ext[i]] & 1;
   }
   return parity;
 }
 
 // Alice's syndrome bit of check c: the parity of Alice's bits on the check
-// in trial mode, the caller's syndrome in decode mode.
+// in trial and frame mode, the caller's syndrome in decode mode.
 __device__ __forceinline__ int8_t alice_syndrome(int c, const Params& p,
                                                  const Tables& t, int frame,
                                                  int parity) {
-  if (p.trial) return (int8_t)parity;
+  if (p.mode != kDecode) return (int8_t)parity;
   return (int8_t)(p.syn_in[(size_t)frame * p.m + t.chk_ext[c]] == 1);
 }
 
@@ -190,15 +237,17 @@ __device__ __forceinline__ void check_pass(int c, const Params& p,
   int neg = 0;
   for (int k = b; k < end; ++k) {
     const float mm = msg[k];
-    two_min(fabsf(mm), k == b, min1, min2);
+    two_min<true>(fabsf(mm), k == b, min1, min2);
     neg += mm < 0.f;
   }
+  min2 = last_min2<true>(end - b, min1, min2);
   const float row_sign = row_sign_of(syn[c] != 0, neg);
   const float f = (ADAPTIVE && mismatch(c, t.cptr, t.cbit, dec, syn))
                       ? p.secondary
                       : p.primary;
   for (int k = b; k < end; ++k)
-    msg[k] = clamp_msg(minsum_value<OFFSET>(msg[k], min1, min2, row_sign, f), p);
+    msg[k] = clamp_msg<true>(
+        minsum_value<OFFSET, true>(msg[k], min1, min2, row_sign, f), p);
 }
 
 // Bit pass over bit i: the llr-first sequential total, the decision, and
@@ -212,7 +261,7 @@ __device__ __forceinline__ void bit_pass(int i, const Params& p,
   dec[i] = tot <= 0.f ? 1 : 0;
   for (int k = b; k < end; ++k) {
     const int idx = t.bedge[k];
-    msg[idx] = clamp_msg(tot - msg[idx], p);
+    msg[idx] = clamp_msg<true>(tot - msg[idx], p);
   }
 }
 
@@ -278,8 +327,8 @@ __device__ __forceinline__ void decode_frames(const Params& p, char* smem) {
       }
     }
 
-    // The key compare (trial) or the decision planes (decode).
-    if (p.trial) {
+    // The key compare (trial, frame) or the decision planes (decode).
+    if (p.mode != kDecode) {
       int ok = 1;
       for (int i = tid; i < N; i += nt)
         ok &= dec[i] == (p.alice[row + t.bit_ext[i]] & 1);

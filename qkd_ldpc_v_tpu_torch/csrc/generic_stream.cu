@@ -288,7 +288,7 @@ __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
   const int slot = tid / F;        // the thread's node in a sweep
   const int per = blockDim.x / F;  // nodes per sweep
   const Tables t = tables_of(p);
-  const Slice s = slice_of<F>(N, M, p.e, p.trial != 0);
+  const Slice s = slice_of<F>(N, M, p.e, p.mode != kDecode);
   char* mine = reinterpret_cast<char*>(p.scratch) + (size_t)blockIdx.x * s.total;
   float* msg = reinterpret_cast<float*>(mine);
   Mask* bob = reinterpret_cast<Mask*>(mine + s.chan);    // trial
@@ -299,8 +299,8 @@ __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
                                    : reinterpret_cast<Mask*>(mine + s.syn);
   // The channel LLR of internal bit i for the lane's frame, from the plane.
   auto chan = [&](int i) -> float {
-    return p.trial ? llr_of_bit(p, (bob[i] >> lane) & 1)
-                   : llr[(size_t)i * F + lane];
+    return p.mode != kDecode ? llr_of_bit(p, (bob[i] >> lane) & 1)
+                             : llr[(size_t)i * F + lane];
   };
   if (tid < 3) slots[tid] = 0;
   __syncthreads();
@@ -321,12 +321,12 @@ __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
       bool one = false, a = false;
       if (on) {
         v = input_llr(p, t, row, i);
-        if (p.trial) {
+        if (p.mode != kDecode) {
           one = p.bob[row + t.bit_ext[i]] == 1;
           a = p.alice[row + t.bit_ext[i]] & 1;
         }
       }
-      if (p.trial) {
+      if (p.mode != kDecode) {
         const unsigned ones = node_bits<F>(__ballot_sync(kAllLanes, one));
         const unsigned as = node_bits<F>(__ballot_sync(kAllLanes, a));
         if (lane == 0 && i < N) {
@@ -350,12 +350,15 @@ __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
         for (int k = t.cptr[c]; k < t.cptr[c + 1]; ++k) {
           const int i = t.cbit[k];
           if (live) msg[(size_t)k * F + lane] = chan(i);
-          if (p.trial) parity ^= alice[i];
+          if (p.mode != kDecode) parity ^= alice[i];
         }
-        if (live && !p.trial) bit = alice_syndrome(c, p, t, first + lane, 0);
+        if (live && p.mode == kDecode)
+          bit = alice_syndrome(c, p, t, first + lane, 0);
       }
       const unsigned sb =
-          p.trial ? parity : node_bits<F>(__ballot_sync(kAllLanes, bit != 0));
+          p.mode != kDecode
+              ? parity
+              : node_bits<F>(__ballot_sync(kAllLanes, bit != 0));
       if (lane == 0 && c < M) syn[c] = (Mask)sb;
     }
     __syncthreads();
@@ -407,7 +410,7 @@ __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
 
     // The key compare (trial: the frames where a decision differs from
     // Alice's bit) or the decision planes (decode).
-    if (p.trial) {
+    if (p.mode != kDecode) {
       unsigned wrong = 0;
       for (int i = tid; i < N; i += blockDim.x) wrong |= dec[i] ^ alice[i];
       const unsigned bad = block_or(wrong, slots, turn);
@@ -532,7 +535,7 @@ int generic_stream_trial(const int8_t* alice, const int8_t* bob, int batch,
   p.batch = batch;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 1;
+  p.mode = kTrial;
   p.log_p = log_p;
   p.primary = primary;
   p.secondary = secondary;
@@ -561,7 +564,7 @@ int generic_stream_decode(const float* llr, const int8_t* syn, int batch,
   p.batch = batch;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 0;
+  p.mode = kDecode;
   p.primary = primary;
   p.secondary = secondary;
   p.threshold = threshold;

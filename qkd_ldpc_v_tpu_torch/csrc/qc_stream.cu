@@ -99,8 +99,24 @@ struct Params {
   int32_t* iters;         // [B]
 };
 
+// f32 min and max that return NaN where either operand is NaN, as
+// torch.minimum / torch.maximum and XLA do (fminf / fmaxf would drop it).
+// Rate-adapted LLRs carry the float32 maximum on shortened bits, so sums
+// can overflow to inf and inf - inf gives NaN.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float clamp_msg(float x, const Params& p) {
-  return p.use_threshold ? fminf(fmaxf(x, -p.threshold), p.threshold) : x;
+  return p.use_threshold ? min_nan(max_nan(x, -p.threshold), p.threshold) : x;
 }
 
 __device__ __forceinline__ int bit_index(int c, int s, int z, int Z) {
@@ -129,7 +145,7 @@ __device__ __forceinline__ float minsum_value(float mm, float min1, float min2,
   float av = fabsf(mm);
   float excl = mm > 0.f ? 1.f : -1.f;
   float eabs = (av == min1) ? min2 : min1;
-  if (OFFSET) return row_sign * excl * fmaxf(eabs - f, 0.f);
+  if (OFFSET) return row_sign * excl * max_nan(eabs - f, 0.f);
   return f * row_sign * excl * eabs;
 }
 
@@ -209,8 +225,8 @@ __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
             if (e == b) {
               min1 = av;
             } else {
-              min2 = fminf(min2, fmaxf(min1, av));
-              min1 = fminf(min1, av);
+              min2 = min_nan(min2, max_nan(min1, av));
+              min1 = min_nan(min1, av);
             }
             neg += mm < 0.f;
             if (ADAPTIVE) par ^= t <= 0.f;

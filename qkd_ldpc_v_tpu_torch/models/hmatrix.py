@@ -42,6 +42,8 @@ class HMatrix:
     # check_nodes[j]: sorted np.int32 array of bit indices for check row j
     check_nodes: List[np.ndarray]
     is_regular: bool
+    # Max-size untainted puncturable positions (filled lazily; see rate_adapt)
+    punctured_bits_untainted: Optional[np.ndarray] = None
     source_path: Optional[Path] = None
     # models.qc.QCMatrix when this matrix came from a QC code (kept untyped
     # to avoid a circular import).

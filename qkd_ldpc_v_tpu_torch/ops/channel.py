@@ -11,6 +11,8 @@ src/array_and_matrix_operations.cpp:889-950):
   * Syndrome of any code: a gather of key bits over the edge layout's
     check-major edges and a parity per check (``calculate_syndrome``).
   * Channel LLRs ``+/- log((1-q)/q)`` (``llr_from_bits``, ``log_ratio``).
+  * Rate-adapted frames and their LLRs (``build_frames``), as the JAX
+    sweep's rate-adaptive step builds them in XLA.
 
 Random numbers are inputs. ``inject_errors`` takes its per-position random
 bits from the caller, so tests can feed the exact bits JAX draws.
@@ -29,6 +31,7 @@ import torch
 
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+from qkd_ldpc_v_tpu_torch.rate_adapt import ALMOST_ZERO
 from qkd_ldpc_v_tpu_torch.utils import PlanCache
 
 
@@ -135,6 +138,40 @@ def llr_from_bits(bits: torch.Tensor, qber: float,
     log_p = torch.tensor(math.log((1.0 - qber) / qber), dtype=dtype,
                          device=bits.device)
     return torch.where(bits == 1, -log_p, log_p)
+
+
+def build_frames(alice: torch.Tensor, bob: torch.Tensor,
+                 alice_punct: torch.Tensor, is_payload: torch.Tensor,
+                 is_punct: torch.Tensor, payload_gather: torch.Tensor,
+                 log_p: float, dtype: torch.dtype = torch.float32):
+    """Rate-adapted frames ``(alice_frame [B,N] int8, llr [B,N] dtype)``
+    (reference: src/qkd_ldpc_algorithm.cpp:1121-1258; the JAX sweep's
+    rate-adaptive ``base_step``).
+
+    ``alice`` and ``bob`` [B, N] are the full-length keys, Bob's with the
+    errors injected over all N bits; frame position i carries payload key
+    bit ``payload_gather[i]`` where ``is_payload`` [N], so the payload is
+    the first n key bits and the errors inside it vary from frame to frame.
+    Alice's punctured bits come from ``alice_punct`` [B, N] (a fair draw);
+    shortened bits are 0 in both frames. The LLR is +-``log_p`` on the
+    payload (Bob's bit 1 -> negative), ``ALMOST_ZERO`` on punctured bits and
+    the largest finite value of ``dtype`` on shortened bits.
+    """
+    dev = alice.device
+    zero = torch.zeros((), dtype=torch.int8, device=dev)
+    a_payload = alice.index_select(1, payload_gather)
+    b_payload = bob.index_select(1, payload_gather)
+    alice_frame = torch.where(is_payload, a_payload,
+                              torch.where(is_punct, alice_punct, zero))
+    bob_frame = torch.where(is_payload, b_payload, zero)
+    lp = torch.tensor(log_p, dtype=dtype, device=dev)
+    payload_llr = torch.where(bob_frame == 1, -lp, lp)
+    llr = torch.where(
+        is_payload, payload_llr,
+        torch.where(is_punct, torch.tensor(ALMOST_ZERO, dtype=dtype, device=dev),
+                    torch.tensor(torch.finfo(dtype).max, dtype=dtype,
+                                 device=dev)))
+    return alice_frame.to(torch.int8).contiguous(), llr.contiguous()
 
 
 def syndrome_internal(layout: EdgeLayout, bits_int: torch.Tensor) -> torch.Tensor:

@@ -280,6 +280,23 @@ def get_decoder(
     return fn
 
 
+def frame_trial(decode: Callable[..., DecodeResult],
+                syndrome_of: Callable) -> Callable:
+    """A trial of prebuilt frames through a decode function, as the JAX
+    sweep's ``decode_tail`` runs it: ``trial(alice_frame [B,N] int8, llr
+    [B,N], primary, secondary, threshold) -> (syndromes_match, keys_match,
+    iterations)``. Alice's syndrome is ``syndrome_of(alice_frame)``; keys
+    match where every decision equals Alice's frame bit."""
+
+    def trial(alice_frame, llr, primary=1.0, secondary=1.0, threshold=0.0):
+        res = decode(llr, syndrome_of(alice_frame), primary, secondary,
+                     threshold)
+        keys = (res.decision == alice_frame).all(dim=1)
+        return res.syndromes_match, keys, res.iterations
+
+    return trial
+
+
 def make_trial(
     layout: EdgeLayout,
     algorithm: DecodingAlgorithm,
@@ -293,14 +310,13 @@ def make_trial(
     iterations)``. The LLRs are ``-log_p`` where Bob's bit is 1 and
     ``log_p`` elsewhere, in ``dtype``; Alice's syndrome comes from the
     layout; keys match where every decision equals Alice's bit."""
-    decode = get_decoder(layout, algorithm, max_iterations, use_threshold, dtype)
+    tail = frame_trial(
+        get_decoder(layout, algorithm, max_iterations, use_threshold, dtype),
+        lambda alice: calculate_syndrome(layout, alice))
 
     def trial(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
         lp = torch.tensor(log_p, dtype=dtype, device=alice.device)
-        llr = torch.where(bob == 1, -lp, lp)
-        res = decode(llr, calculate_syndrome(layout, alice), primary,
-                     secondary, threshold)
-        keys = (res.decision == alice).all(dim=1)
-        return res.syndromes_match, keys, res.iterations
+        return tail(alice, torch.where(bob == 1, -lp, lp), primary, secondary,
+                    threshold)
 
     return trial

@@ -2,15 +2,19 @@
 arbitrary sparse parity-check matrices, and their plain torch versions.
 
 Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_generic.py``
-(``make_pallas_generic_trial`` and ``make_pallas_generic_decoder``; the
-kernel is ``csrc/fused_generic.cu``), for the min-sum family NMSA, OMSA,
-ANMSA and AOMSA on the flooding schedule:
+(``make_pallas_generic_trial``, ``make_pallas_generic_frame_trial`` and
+``make_pallas_generic_decoder``; the kernel is ``csrc/fused_generic.cu``),
+for the min-sum family NMSA, OMSA, ANMSA and AOMSA on the flooding
+schedule:
 
   * ``make_fused_generic_trial`` — the Monte-Carlo sweep's hot path for
     alist / format-1 / format-2 / dense codes: Alice's and Bob's keys in;
     Alice's syndrome, the channel LLRs, the decode and the key comparison
     all happen in the kernel, which returns per-frame ``(syndromes_match,
     keys_match, iterations)``.
+  * ``make_fused_generic_frame_trial`` — the rate-adaptive sweep's step:
+    Alice's rate-adapted frame and its LLRs in; Alice's syndrome, the decode
+    and the key comparison in the kernel.
   * ``make_fused_generic_decoder`` — the library decode: LLRs and a
     syndrome in, a ``DecodeResult`` out.
 
@@ -24,6 +28,8 @@ raises. There is no fallback from a failed launch. ``generic_trial`` and
 ``generic_decoder`` are that wrapper (``fused_qc.kernel_trial`` /
 ``kernel_decoder``) with the generic plain versions; the streamed generic
 kernel (``ops/generic_stream.py``) uses them with its own launch plan.
+``make_fused_generic_frame_trial`` is ``fused_qc.kernel_frame_trial`` with
+the generic plain version.
 
 ``generic_feasible(matrix)`` is this port's gate for the ``generic``
 engine. It picks exactly the codes that the JAX package's
@@ -50,12 +56,19 @@ from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, layout_for
-from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult, get_decoder, make_trial
+from qkd_ldpc_v_tpu_torch.ops.channel import calculate_syndrome
+from qkd_ldpc_v_tpu_torch.ops.decoders import (
+    DecodeResult,
+    frame_trial,
+    get_decoder,
+    make_trial,
+)
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     MAX_SHARED_BYTES,
     KernelCounts,
     cached_plans,
     kernel_decoder,
+    kernel_frame_trial,
     kernel_trial,
     pointers,
     stream_of,
@@ -119,6 +132,8 @@ def _lib() -> ctypes.CDLL:
         lib.fused_generic_decode.argtypes = [
             p, p, i, p, i, i, i, i, i, i, f, f, f, p, i, i, i, p, p, p, p]
         lib.fused_generic_decode.restype = i
+        lib.fused_generic_frame.argtypes = lib.fused_generic_decode.argtypes
+        lib.fused_generic_frame.restype = i
         lib.fused_generic_resident_blocks.argtypes = [i, i, i, i, i, i]
         lib.fused_generic_resident_blocks.restype = i
         lib.fused_generic_shared_bytes.argtypes = [i, i, i, i]
@@ -153,9 +168,9 @@ def launch_tables(layout: EdgeLayout) -> np.ndarray:
 class _Launch:
     """Launch plan of one code, algorithm family and device: the index
     tables on the device, where the messages live, and the persistent
-    grid's size. ``trial`` and ``decode`` launch the kernel and return its
-    CUDA error code (arguments: see ``fused_qc.kernel_trial`` and
-    ``fused_qc.kernel_decoder``)."""
+    grid's size. ``trial``, ``frame`` and ``decode`` launch the kernel and
+    return its CUDA error code (arguments: see ``fused_qc.kernel_trial``,
+    ``fused_qc.kernel_frame_trial`` and ``fused_qc.kernel_decoder``)."""
 
     def __init__(self, matrix: HMatrix, flags: int, device: torch.device):
         layout = layout_for(matrix)
@@ -202,6 +217,13 @@ class _Launch:
         scratch, grid = self._scratch(alice.shape[0], alice.device)
         return _lib().fused_generic_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
+            _ptr(scratch), self.msg_shared, grid, THREADS, *pointers(*outs),
+            stream_of(alice))
+
+    def frame(self, alice, llr, scalars, outs) -> int:
+        scratch, grid = self._scratch(alice.shape[0], alice.device)
+        return _lib().fused_generic_frame(
+            *pointers(alice, llr), alice.shape[0], *self.shape, *scalars,
             _ptr(scratch), self.msg_shared, grid, THREADS, *pointers(*outs),
             stream_of(alice))
 
@@ -273,6 +295,32 @@ def make_fused_generic_trial(
     """
     return generic_trial("fused generic", COUNTS, _launch_plan, matrix,
                          algorithm, max_iterations, use_threshold)
+
+
+def make_fused_generic_frame_trial(
+    matrix: HMatrix,
+    algorithm: DecodingAlgorithm,
+    max_iterations: int,
+    use_threshold: bool,
+) -> Callable:
+    """Fused trial of prebuilt rate-adapted frames.
+
+    ``trial(alice_frame [B,N] int8, llr [B,N] f32, primary, secondary,
+    threshold) -> (syndromes_match [B] bool, keys_match [B] bool,
+    iterations [B] int32)``. The plain version is Alice's syndrome
+    (``calculate_syndrome``), the f32 generic torch decoder and the key
+    compare over the whole frame; ``trial.plain`` runs it.
+    """
+    check_algorithm(algorithm, "fused generic")
+    layout = layout_for(matrix)
+    decode = get_decoder(layout, algorithm, max_iterations, use_threshold,
+                         torch.float32)
+
+    plain = frame_trial(decode, lambda alice_frame: calculate_syndrome(
+        layout, alice_frame))
+    return kernel_frame_trial("fused generic", COUNTS, _launch_plan, matrix,
+                              _flags(algorithm), matrix.num_bit_nodes,
+                              max_iterations, use_threshold, plain)
 
 
 def make_fused_generic_decoder(

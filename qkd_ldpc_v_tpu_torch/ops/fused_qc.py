@@ -1,23 +1,28 @@
 """Fused QC decoder: wrappers of the hand-written CUDA kernel and their plain
 torch versions, and the wrapper body both QC kernels share.
 
-Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_qc.py`` (``make_pallas_qc_trial``
-and ``make_pallas_qc_decoder``; the kernel is ``csrc/fused_qc.cu``):
+Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_qc.py`` (``make_pallas_qc_trial``,
+``make_pallas_qc_frame_trial`` and ``make_pallas_qc_decoder``; the kernel is
+``csrc/fused_qc.cu``):
 
   * ``make_fused_qc_trial`` — the Monte-Carlo sweep's hot path: Alice's and
     Bob's keys in; Alice's syndrome, the channel LLRs, the decode and the
     key comparison all happen in the kernel, which returns per-frame
     ``(syndromes_match, keys_match, iterations)``.
+  * ``make_fused_qc_frame_trial`` — the rate-adaptive sweep's step: Alice's
+    rate-adapted frame and its LLRs in (``channel.build_frames``); Alice's
+    syndrome, the decode and the key comparison happen in the kernel, which
+    returns the same per-frame statistics.
   * ``make_fused_qc_decoder`` — the library decode: LLRs and a syndrome in,
     a ``DecodeResult`` out.
 
 Routing is by the tensors' device and nothing else: CPU tensors go to the
 plain version (``ops/qc_decoder.py``), CUDA tensors launch the kernel, and
 any other device raises. There is no fallback from a failed launch.
-``kernel_trial`` and ``kernel_decoder`` hold that wrapper body once for
-every kernel of the package; ``qc_trial`` and ``qc_decoder`` give it the QC
-plain versions, and the streamed QC kernel (``ops/qc_stream.py``) uses them
-with its own launch plan.
+``kernel_trial``, ``kernel_frame_trial`` and ``kernel_decoder`` hold that
+wrapper body once for every kernel of the package; ``qc_trial`` and
+``qc_decoder`` give it the QC plain versions, and the streamed QC kernel
+(``ops/qc_stream.py``) uses them with its own launch plan.
 
 ``fused_qc_fits(qc, layered)`` says, without building anything, whether the
 kernel holds a code: Z, the block-edge count and the base rows within its
@@ -42,7 +47,7 @@ from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.channel import qc_syndrome
-from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
+from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult, frame_trial
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import (
     base_tables,
     check_algorithm,
@@ -104,6 +109,20 @@ def plain_decode(qc, llr, syndrome, algorithm, max_iterations,
               primary, secondary, threshold)
 
 
+def _plain_frame_trial(qc, algorithm, max_iterations, use_threshold,
+                       layered) -> Callable:
+    """The QC kernels' plain frame trial: Alice's syndrome from her keys or
+    frame (``qc_syndrome``), the plain decoder, the key compare."""
+    check_algorithm(algorithm)
+
+    def decode(llr, syndrome, primary, secondary, threshold):
+        return plain_decode(qc, llr, syndrome, algorithm, max_iterations,
+                            use_threshold, layered, primary, secondary,
+                            threshold)
+
+    return frame_trial(decode, lambda alice: qc_syndrome(qc, alice))
+
+
 def kernel_flags(algorithm: DecodingAlgorithm, layered: bool) -> int:
     """The QC kernels' template flags: bit 0 layered, bit 1 adaptive, bit 2
     offset (OMSA/AOMSA)."""
@@ -136,6 +155,8 @@ def _lib() -> ctypes.CDLL:
         lib.fused_qc_decode.argtypes = [
             p, p, i, p, i, i, i, i, i, i, i, f, f, f, p, p, p, p]
         lib.fused_qc_decode.restype = i
+        lib.fused_qc_frame.argtypes = lib.fused_qc_decode.argtypes
+        lib.fused_qc_frame.restype = i
         for name in ("fused_qc_max_lifting", "fused_qc_max_block_edges",
                      "fused_qc_max_base_checks"):
             getattr(lib, name).argtypes = []
@@ -204,8 +225,9 @@ def cached_plans(make: Callable) -> Callable:
 class _Launch:
     """Launch plan of one code on one device: the block-edge table
     (row_ptr[mb+1], cols[num_be], shifts[num_be] int32, storage order).
-    ``trial`` and ``decode`` launch the kernel and return its CUDA error
-    code (arguments: see ``qc_trial`` and ``qc_decoder``)."""
+    ``trial``, ``frame`` and ``decode`` launch the kernel and return its
+    CUDA error code (arguments: see ``kernel_trial``,
+    ``kernel_frame_trial`` and ``kernel_decoder``)."""
 
     def __init__(self, qc: QCMatrix, layered: bool, device: torch.device):
         reason = _unfit_reason(qc, layered)
@@ -222,6 +244,11 @@ class _Launch:
     def trial(self, alice, bob, scalars, outs) -> int:
         return _lib().fused_qc_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
+            *pointers(*outs), stream_of(alice))
+
+    def frame(self, alice, llr, scalars, outs) -> int:
+        return _lib().fused_qc_frame(
+            *pointers(alice, llr), alice.shape[0], *self.shape, *scalars,
             *pointers(*outs), stream_of(alice))
 
     def decode(self, llr, syndrome, scalars, outs) -> int:
@@ -256,6 +283,48 @@ def raise_on_error(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
+def _stats_wrapper(kernel: str, what: str, counts: KernelCounts,
+                   plan_for: Callable, code, flags: int, n: int,
+                   max_iterations: int, use_threshold: bool,
+                   second: Tuple[str, torch.dtype], plain: Callable) -> Tuple[
+                       Callable, Callable]:
+    """The body of the wrappers that return per-frame statistics: checks,
+    routing by device, outputs and counting. ``call(alice, other,
+    scalars)`` takes Alice's keys or frame [B, n] int8, the second input
+    ``second = (name, dtype)`` [B, n] and the call's float scalars, and
+    launches the plan's method ``what``; ``counted_plain(alice, other,
+    *scalars)`` runs ``plain`` and counts it."""
+
+    def counted_plain(alice, other, *scalars):
+        counts.count_plain(alice)
+        return plain(alice, other, *scalars)
+
+    def call(alice, other, scalars):
+        b = alice.shape[0]
+        check_tensor("alice", alice, torch.int8, (b, n), alice.device)
+        check_tensor(second[0], other, second[1], (b, n), alice.device)
+        if alice.device.type == "cpu":
+            return counted_plain(alice, other, *scalars)
+        if alice.device.type != "cuda":
+            raise NotImplementedError(
+                f"{kernel} {what}: no kernel for device {alice.device}")
+        plan = plan_for(code, flags, alice.device)
+        conv = torch.empty(b, dtype=torch.int8, device=alice.device)
+        keys = torch.empty(b, dtype=torch.int8, device=alice.device)
+        iters = torch.empty(b, dtype=torch.int32, device=alice.device)
+        if b == 0:
+            return conv.bool(), keys.bool(), iters
+        launch_scalars = (flags, int(use_threshold), int(max_iterations),
+                          *(float(x) for x in scalars))
+        raise_on_error(getattr(plan, what)(alice, other, launch_scalars,
+                                           (conv, keys, iters)),
+                       f"{kernel} {what}")
+        counts.launches += 1
+        return conv.bool(), keys.bool(), iters
+
+    return call, counted_plain
+
+
 def kernel_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
                  code, flags: int, n: int, max_iterations: int,
                  use_threshold: bool, plain: Callable) -> Callable:
@@ -268,35 +337,31 @@ def kernel_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
     threshold)`` and ``outs = (conv, keys, iters)`` and returns the CUDA
     error code. ``plain`` is the plain version, with the trial's
     signature."""
-
-    def counted_plain(alice, bob, log_p, primary=1.0, secondary=1.0,
-                      threshold=0.0):
-        counts.count_plain(alice)
-        return plain(alice, bob, log_p, primary, secondary, threshold)
+    call, counted_plain = _stats_wrapper(
+        kernel, "trial", counts, plan_for, code, flags, n, max_iterations,
+        use_threshold, ("bob", torch.int8), plain)
 
     def trial(alice, bob, log_p, primary=1.0, secondary=1.0, threshold=0.0):
-        b = alice.shape[0]
-        check_tensor("alice", alice, torch.int8, (b, n), alice.device)
-        check_tensor("bob", bob, torch.int8, (b, n), alice.device)
-        if alice.device.type == "cpu":
-            return counted_plain(alice, bob, log_p, primary, secondary,
-                                 threshold)
-        if alice.device.type != "cuda":
-            raise NotImplementedError(
-                f"{kernel} trial: no kernel for device {alice.device}")
-        plan = plan_for(code, flags, alice.device)
-        conv = torch.empty(b, dtype=torch.int8, device=alice.device)
-        keys = torch.empty(b, dtype=torch.int8, device=alice.device)
-        iters = torch.empty(b, dtype=torch.int32, device=alice.device)
-        if b == 0:
-            return conv.bool(), keys.bool(), iters
-        scalars = (flags, int(use_threshold), int(max_iterations),
-                   float(log_p), float(primary), float(secondary),
-                   float(threshold))
-        raise_on_error(plan.trial(alice, bob, scalars, (conv, keys, iters)),
-                       f"{kernel} trial")
-        counts.launches += 1
-        return conv.bool(), keys.bool(), iters
+        return call(alice, bob, (log_p, primary, secondary, threshold))
+
+    trial.plain = counted_plain
+    return trial
+
+
+def kernel_frame_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
+                       code, flags: int, n: int, max_iterations: int,
+                       use_threshold: bool, plain: Callable) -> Callable:
+    """The frame-trial wrapper body, as ``kernel_trial``: the plan's
+    ``frame(alice_frame, llr, scalars, outs)`` launches the kernel's frame
+    mode with ``scalars = (flags, use_threshold, max_iterations, primary,
+    secondary, threshold)``; ``plain(alice_frame, llr, primary, secondary,
+    threshold)`` returns ``(conv, keys, iters)``."""
+    call, counted_plain = _stats_wrapper(
+        kernel, "frame", counts, plan_for, code, flags, n, max_iterations,
+        use_threshold, ("llr", torch.float32), plain)
+
+    def trial(alice_frame, llr, primary=1.0, secondary=1.0, threshold=0.0):
+        return call(alice_frame, llr, (primary, secondary, threshold))
 
     trial.plain = counted_plain
     return trial
@@ -347,21 +412,33 @@ def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
              use_threshold: bool, schedule: str) -> Callable:
     """``kernel_trial`` of a QC kernel, with the QC plain version
     (``ops/qc_decoder.py``) in the schedule asked for."""
-    check_algorithm(algorithm)
     layered = check_schedule(schedule)
+    tail = _plain_frame_trial(qc, algorithm, max_iterations, use_threshold,
+                              layered)
 
     def plain(alice, bob, log_p, primary, secondary, threshold):
         lp = torch.tensor(log_p, dtype=torch.float32, device=alice.device)
-        llr = torch.where(bob == 1, -lp, lp)
-        res = plain_decode(qc, llr, qc_syndrome(qc, alice), algorithm,
-                           max_iterations, use_threshold, layered, primary,
-                           secondary, threshold)
-        keys = (res.decision == alice).all(dim=1)
-        return res.syndromes_match, keys, res.iterations
+        return tail(alice, torch.where(bob == 1, -lp, lp), primary, secondary,
+                    threshold)
 
     return kernel_trial(kernel, counts, plan_for, qc,
                         kernel_flags(algorithm, layered), qc.num_bit_nodes,
                         max_iterations, use_threshold, plain)
+
+
+def qc_frame_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
+                   qc: QCMatrix, algorithm: DecodingAlgorithm,
+                   max_iterations: int, use_threshold: bool,
+                   schedule: str) -> Callable:
+    """``kernel_frame_trial`` of a QC kernel. Its plain version is Alice's
+    syndrome from her frame (``qc_syndrome``), the QC plain decoder in the
+    schedule asked for, and the key compare over the whole frame."""
+    layered = check_schedule(schedule)
+    return kernel_frame_trial(kernel, counts, plan_for, qc,
+                              kernel_flags(algorithm, layered),
+                              qc.num_bit_nodes, max_iterations, use_threshold,
+                              _plain_frame_trial(qc, algorithm, max_iterations,
+                                                 use_threshold, layered))
 
 
 def qc_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
@@ -400,6 +477,25 @@ def make_fused_qc_trial(
     """
     return qc_trial("fused QC", COUNTS, _launch_plan, qc, algorithm,
                     max_iterations, use_threshold, schedule)
+
+
+def make_fused_qc_frame_trial(
+    qc: QCMatrix,
+    algorithm: DecodingAlgorithm,
+    max_iterations: int,
+    use_threshold: bool,
+    schedule: str = "flooding",
+) -> Callable:
+    """Fused trial of prebuilt rate-adapted frames.
+
+    ``trial(alice_frame [B,N] int8, llr [B,N] f32, primary, secondary,
+    threshold) -> (syndromes_match [B] bool, keys_match [B] bool,
+    iterations [B] int32)``: the kernel forms Alice's syndrome from her
+    frame, decodes the LLRs and compares the decisions with her frame.
+    ``trial.plain`` is the plain torch version with the same signature.
+    """
+    return qc_frame_trial("fused QC", COUNTS, _launch_plan, qc, algorithm,
+                          max_iterations, use_threshold, schedule)
 
 
 def make_fused_qc_decoder(

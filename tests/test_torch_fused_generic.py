@@ -9,8 +9,10 @@ tests/test_pallas_generic.py::test_matches_xla_decoder. The launch counter
 stays 0 on the CPU, and the engine gate equals the JAX package's.
 
 Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
-card and skip without one. They import no JAX, so on a machine without JAX
-they run with the conftest left out:
+card and skip without one: the trial and decode modes, and the frame mode on
+rate-adapted frames (ragged batches, and the all-shortened neighbourhood of
+one bit, where sums overflow to inf and NaN). They import no JAX, so on a
+machine without JAX they run with the conftest left out:
 
     python -m pytest tests/test_torch_fused_generic.py -m cuda --noconftest -q
 """
@@ -32,6 +34,8 @@ from qkd_ldpc_v_tpu_torch.ops.channel import (
     log_ratio,
 )
 from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+from qkd_ldpc_v_tpu_torch.rate_adapt import adapt_code_rate
+from test_torch_fused_qc import all_shortened_plan, rate_adapted_frames
 
 torch.set_num_threads(2)
 
@@ -312,3 +316,41 @@ def test_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", list(FACTORS))
+@pytest.mark.parametrize("use_thr", [False, True])
+def test_frame_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
+    """The frame mode on rate-adapted frames: the medium code (R=0.5 to
+    about 0.48 at QBER 0.08) and the 1k alist code with check degree 63 (at
+    QBER 0.005), ragged batches of 1, 7 and 13 frames, and the all-shortened
+    neighbourhood of bit 0 (also at a primary factor of 1.25), with the
+    clamp off and on."""
+    codes = [
+        (generate_regular_ldpc(num_bits=512, num_checks=256, column_weight=3,
+                               seed=3), 0.08, 1.3),
+        (read_sparse_matrix_alist(ALIST / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"),
+         0.005, 1.5),
+    ]
+    f1, f2 = FACTORS[alg]
+    thr = THRESHOLD if use_thr else 0.0
+    for matrix, qber, eff in codes:
+        params = adapt_code_rate(np.random.default_rng(3), matrix, qber, 0.1,
+                                 eff)
+        assert len(params.punctured_bits) and len(params.shortened_bits)
+        trial = fused_generic.make_fused_generic_frame_trial(
+            matrix, TAlg[alg], CAP, use_thr)
+        forced = all_shortened_plan(matrix, params)
+        # The forced plan also at a primary factor of 1.25: its messages
+        # overflow to inf and inf - inf gives NaN.
+        for plan, batch, fac in ((params, 1, f1), (params, 7, f1),
+                                 (params, 13, f1), (forced, 13, f1),
+                                 (forced, 13, 1.25)):
+            frame, llr = rate_adapted_frames(matrix, plan, batch, qber,
+                                             seed=9, device=cuda_device)
+            got = trial(frame, llr, fac, f2, thr)
+            want = trial.plain(frame, llr, fac, f2, thr)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w.cpu())

@@ -7,8 +7,11 @@ is checked with NMSA and OMSA across both schedules. The launch counter
 stays 0 on the CPU.
 
 Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
-card and skip without one. They import no JAX, so on a machine without JAX
-they run with the conftest left out:
+card and skip without one: the trial and decode modes, and the frame mode on
+rate-adapted frames (ragged batches, and a frame whose checks around one bit
+have every other bit shortened, so that sums overflow to inf and NaN). They
+import no JAX, so on a machine without JAX they run with the conftest left
+out:
 
     python -m pytest tests/test_torch_fused_qc.py -m cuda --noconftest -q
 """
@@ -20,14 +23,17 @@ import pytest
 import torch
 
 from qkd_ldpc_v_tpu_torch import kernels
+from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.models.qc import generate_qc_ldpc, read_qc_matrix
 from qkd_ldpc_v_tpu_torch.ops import fused_qc
 from qkd_ldpc_v_tpu_torch.ops.channel import (
+    build_frames,
     inject_errors,
     log_ratio,
     qc_syndrome,
 )
+from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams, adapt_code_rate
 
 torch.set_num_threads(2)
 
@@ -42,6 +48,40 @@ def _keys(n, batch, num_errors, seed, device="cpu"):
     bits = torch.tensor(rng.integers(0, 2**32, (batch, n)), dtype=torch.int64,
                         device=device)
     return alice, inject_errors(bits, alice, num_errors, wide=True)
+
+
+def all_shortened_plan(matrix, params, bit=0):
+    """``params`` with every other bit of each check on ``bit`` shortened
+    (and taken out of the punctured set), ``bit`` itself in the payload:
+    each check of ``bit`` then has all its other bits shortened. Their
+    float32-maximum LLRs make check->bit messages of that size, whose sums
+    overflow to inf, and inf - inf gives NaN when the clamp is off."""
+    others = {int(b) for c in matrix.bit_nodes[bit]
+              for b in matrix.check_nodes[int(c)]} - {bit}
+    punct = [int(p) for p in params.punctured_bits
+             if int(p) not in others and int(p) != bit]
+    short = sorted(({int(s) for s in params.shortened_bits} | others) - {bit})
+    return HMatrixParams(punctured_bits=np.array(punct, dtype=np.int32),
+                         shortened_bits=np.array(short, dtype=np.int32))
+
+
+def rate_adapted_frames(matrix, params, batch, qber, seed, device="cpu",
+                        dtype=torch.float32):
+    """(alice_frame int8, llr) [batch, N] of ``params``' frame plan, built
+    by ``channel.build_frames`` from seeded keys with exactly
+    ``floor(N * qber)`` errors over the full N bits."""
+    n = matrix.num_bit_nodes
+    ne = int(n * qber)
+    alice, bob = _keys(n, batch, ne, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    punct = torch.tensor(rng.integers(0, 2, (batch, n)), dtype=torch.int8,
+                         device=device)
+    pos_class, gather = tsim.make_frame_plan(n, params)
+    return build_frames(
+        alice, bob, punct, torch.tensor(pos_class == 0, device=device),
+        torch.tensor(pos_class == 1, device=device),
+        torch.tensor(gather.astype(np.int64), device=device),
+        log_ratio(ne / n, dtype), dtype)
 
 
 @pytest.fixture(scope="module")
@@ -196,6 +236,40 @@ def test_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, schedule,
                                              schedule)
         got = dec(llr, syn, f1, f2, thr)
         want = dec.plain(llr, syn, f1, f2, thr)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,f1,f2", [("NMSA", 0.8, 1.0), ("OMSA", 0.3, 1.0),
+                                       ("ANMSA", 0.88, 0.5),
+                                       ("AOMSA", 0.3, 0.6)])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("use_thr", [False, True])
+def test_frame_kernel_matches_plain_on_card(cuda_device, alg, f1, f2,
+                                            schedule, use_thr):
+    """The frame mode on rate-adapted frames of the 1k QC code (R=0.5 to
+    about 0.48 at QBER 0.08): ragged batches of 1, 7 and 13 frames, and the
+    all-shortened neighbourhood of bit 0 (also at a primary factor of 1.25),
+    with the clamp off and on."""
+    code = generate_qc_ldpc(8, 4, 128, 3, seed=5)
+    matrix = code.to_hmatrix()
+    params = adapt_code_rate(np.random.default_rng(3), matrix, 0.08, 0.1, 1.3)
+    assert len(params.punctured_bits) and len(params.shortened_bits)
+    thr = THRESHOLD if use_thr else 0.0
+    trial = fused_qc.make_fused_qc_frame_trial(code, TAlg[alg], CAP, use_thr,
+                                               schedule)
+    forced = all_shortened_plan(matrix, params)
+    # The forced plan also at a primary factor of 1.25: its messages
+    # overflow to inf and inf - inf gives NaN.
+    for plan, batch, fac in ((params, 1, f1), (params, 7, f1),
+                             (params, 13, f1), (forced, 13, f1),
+                             (forced, 13, 1.25)):
+        frame, llr = rate_adapted_frames(matrix, plan, batch, 0.08, seed=9,
+                                         device=cuda_device)
+        got = trial(frame, llr, fac, f2, thr)
+        want = trial.plain(frame, llr, fac, f2, thr)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())

@@ -10,10 +10,15 @@ on the CPU must equal JAX's ``run_combination`` field by field, and
   * on a 1k alist code, the port's ``generic`` engine and its ``xla``
     engine in float32 and float64, each against JAX with ``use_pallas =
     false`` (its XLA decoder; JAX's own generic Pallas kernel is only
-    statistically equal to it).
+    statistically equal to it);
+  * rate-adaptive runs (the key source also replays JAX's punctured draw):
+    the ``qc`` engine against JAX's interpret-mode frame kernel in both
+    schedules; the 1k alist code through ``generic`` and ``xla`` (float32
+    and float64) against JAX's XLA decoder, AOMSA with privacy maintenance
+    on; runs pinned to ``qc_stream`` and to ``stream``.
 The engine cascade names the JAX package's engine on every committed
 asset. The CLI runs end to end with ``--device cpu`` on QC and alist
-workspaces.
+workspaces, and on CPU-sized variants of the three rate-adaptive configs.
 """
 
 import dataclasses
@@ -30,17 +35,20 @@ import torch
 
 from qkd_ldpc_v_tpu import simulation as jsim
 from qkd_ldpc_v_tpu.config import Config, DecodingAlgorithm, MatrixFormat, RQBERRange
+from qkd_ldpc_v_tpu.config import parse_config_data as jparse_config
 from qkd_ldpc_v_tpu.models.hmatrix import read_matrix as jread_matrix
 from qkd_ldpc_v_tpu.models.qc import generate_qc_ldpc, write_qc_matrix
 from qkd_ldpc_v_tpu.ops import channel as jch
 from qkd_ldpc_v_tpu.rate_adapt import HMatrixParams as JParams
+from qkd_ldpc_v_tpu.rate_adapt import get_punctured_bits_untainted as juntp
 from qkd_ldpc_v_tpu_torch import cli as tcli
 from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import MatrixFormat as TFormat
 from qkd_ldpc_v_tpu_torch.convert import config_from_dict, qc_from_arrays
 from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
 from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix as tread_matrix
-from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, generic_stream
+from qkd_ldpc_v_tpu_torch import rate_adapt as tra
+from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, generic_stream, qc_stream
 from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams as TParams
 
 torch.set_num_threads(2)
@@ -69,11 +77,18 @@ def _jax_cfg(schedule, **kw):
 
 
 def _jax_key_source(seed):
-    def source(sim_number, chunk_index, batch, n):
-        ka, ke, _ = jch.trial_keys(seed, sim_number, chunk_index)
+    """JAX's chunk streams: Alice's keys (``ka``), the error-position bits
+    (``ke``) and, in rate-adaptive runs, Alice's punctured draw
+    (``kpa, _ = split(kp)``)."""
+    def source(sim_number, chunk_index, batch, n, punctured=False):
+        ka, ke, kp = jch.trial_keys(seed, sim_number, chunk_index)
         alice = np.asarray(jch.generate_keys(ka, batch, n))
         bits = np.asarray(jax.random.bits(ke, (batch, n), jnp.uint32))
-        return alice, bits.astype(np.int64)
+        if not punctured:
+            return alice, bits.astype(np.int64)
+        kpa, _ = jax.random.split(kp)
+        punct = np.asarray(jax.random.bernoulli(kpa, 0.5, (batch, n)))
+        return alice, bits.astype(np.int64), punct.astype(np.int8)
     return source
 
 
@@ -150,11 +165,26 @@ def _stream_sized_code():
     (dict(trace_decoding_alg=True), "traced"),
 ])
 def test_unported_engines_raise(matrices, change, match):
-    """What is not ported raises; the stream-sized case, which raised until
-    the streamed generic kernel came, now runs through the ``stream``
-    engine (8 frames of the N=22000 code on the CPU)."""
+    """What is not ported raises, naming its ROADMAP item. Two cases raised
+    until their slice came and now run: the stream-sized case through the
+    ``stream`` engine (8 frames of the N=22000 code on the CPU), and rate
+    adaptation through the ``qc`` engine's frame trial (a real adaptation
+    point of the 1k QC code)."""
     _, tm = matrices
     comb = tsim.SimCombination(QBER, TParams(), tsim.ScalingFactors(0.8))
+    if match == "rate adaptation":
+        tcfg = config_from_dict(dataclasses.asdict(_jax_cfg("flooding", **change)))
+        params = tra.adapt_code_rate(np.random.default_rng(3), tm, RA_QBER,
+                                     0.1, 1.3)
+        tra.finalize_bits_to_remove(tm, params, False)
+        comb = tsim.SimCombination(RA_QBER, params, tsim.ScalingFactors(0.8))
+        assert tsim.check_engine(tm, tcfg) == "qc"
+        fused_qc.reset_counts()
+        got = tsim.run_combination(tm, comb, tcfg, 0, "cpu")
+        assert fused_qc.counts() == (0, 0)
+        assert 0.0 < got.ratio_trials_success_decoding <= 1.0
+        assert got.adapted_code_rate == params.adapted_code_rate
+        return
     if change == "stream-sized":
         tcfg = config_from_dict(dataclasses.asdict(
             _jax_cfg("flooding", trials_number=8, batch_size=8)))
@@ -166,8 +196,150 @@ def test_unported_engines_raise(matrices, change, match):
         assert 0.0 < got.ratio_trials_success_decoding <= 1.0
         return
     tcfg = config_from_dict(dataclasses.asdict(_jax_cfg("flooding", **change)))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as raised:
         tsim.run_combination(tm, comb, tcfg, 0, "cpu")
+    assert "ROADMAP.md" in str(raised.value)
+
+
+# ---------------------------------------------------------------------------
+# Rate-adaptive runs against the JAX package
+# ---------------------------------------------------------------------------
+
+RA_QBER = 0.08  # the 1k QC code (R = 0.5) adapted to about 0.48
+
+
+def _adapted(jm, tm, qber, delta, efficiency, privacy, scaling,
+             untainted=False):
+    """One adaptation point as a (JAX, port) pair of combinations, each
+    package computing its own parameters from the same generator seed."""
+    from qkd_ldpc_v_tpu import rate_adapt as jra
+
+    jp = jra.adapt_code_rate(np.random.default_rng(3), jm, qber, delta,
+                             efficiency, use_untainted=untainted)
+    tp = tra.adapt_code_rate(np.random.default_rng(3), tm, qber, delta,
+                             efficiency, use_untainted=untainted)
+    assert not jp.is_empty
+    jra.finalize_bits_to_remove(jm, jp, privacy)
+    tra.finalize_bits_to_remove(tm, tp, privacy)
+    np.testing.assert_array_equal(tp.bits_to_remove, jp.bits_to_remove)
+    return (jsim.SimCombination(qber, jp, jsim.ScalingFactors(*scaling)),
+            tsim.SimCombination(qber, tp, tsim.ScalingFactors(*scaling)))
+
+
+def _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch):
+    """(JAX SimResult, port SimResult) of one rate-adaptive combination with
+    JAX's keys, the output key lengths both passed to the statistics, and
+    the CSVs' equality."""
+    lengths = {}
+    for name, mod in (("jax", jsim), ("torch", tsim)):
+        orig = mod.process_trials_results
+
+        def spy(*args, _orig=orig, _name=name):
+            lengths[_name] = args[5]
+            return _orig(*args)
+
+        monkeypatch.setattr(mod, "process_trials_results", spy)
+    want = jsim.run_combination(jm, combs[0], jcfg, sim_number=1)
+    got = tsim.run_combination(tm, combs[1], tcfg, 1, "cpu",
+                               key_source=_jax_key_source(jcfg.simulation_seed))
+    assert lengths["torch"] == lengths["jax"] == \
+        tm.num_bit_nodes - len(combs[1].matrix_params.bits_to_remove)
+    assert _asdict(got) == _asdict(want)
+    jpath = jsim.write_file([want], jcfg, "00h-00m-01s", tmp_path / "jax")
+    tpath = tsim.write_file([got], tcfg, "00h-00m-01s", tmp_path / "torch")
+    assert tpath.name == jpath.name
+    assert tpath.read_bytes() == jpath.read_bytes()
+    assert ";FER;DELTA;EFFICIENCY;PUNCT_FRACTION;SHORT_FRACTION;R_ADAPTED;" \
+        in tpath.read_text().splitlines()[0]
+    return want, got
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_rate_adaptive_qc_matches_jax_frame_kernel(matrices, schedule,
+                                                   tmp_path, monkeypatch):
+    jm, tm = matrices
+    jcfg = _jax_cfg(schedule, enable_code_rate_adaptation=True)
+    tcfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert jsim.pallas_engine(jm, jcfg) == tsim.check_engine(tm, tcfg) == "qc"
+    combs = _adapted(jm, tm, RA_QBER, 0.1, 1.3, False, (0.8,))
+    fused_qc.reset_counts()
+    _, got = _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch)
+    assert fused_qc.counts() == (0, 0)
+    assert 0.0 < got.ratio_trials_success_ldpc < 1.0
+
+
+RA_ALIST_QBER = 0.05  # the 1k alist code (R = 0.62) adapted to 0.60
+
+
+@pytest.mark.parametrize("engine,dtype,alg,privacy", [
+    ("generic", "float32", DecodingAlgorithm.NMSA, False),
+    ("xla", "float32", DecodingAlgorithm.NMSA, False),
+    ("xla", "float64", DecodingAlgorithm.NMSA, False),
+    ("generic", "float32", DecodingAlgorithm.AOMSA, True),
+])
+def test_rate_adaptive_alist_matches_jax_xla(alist_1k, engine, dtype, alg,
+                                             privacy, tmp_path, monkeypatch):
+    """Untainted puncturing from the committed ``.untp`` cache; privacy
+    maintenance shortens the output key by its own selection."""
+    jm, tm = alist_1k
+    jm.punctured_bits_untainted = juntp(ALIST_1K, np.random.default_rng(0), jm)
+    tm.punctured_bits_untainted = tra.get_punctured_bits_untainted(
+        ALIST_1K, np.random.default_rng(0), tm)
+    kw = dict(dtype=dtype, decoding_algorithm=alg,
+              enable_code_rate_adaptation=True,
+              enable_untainted_puncturing=True,
+              enable_privacy_maintenance=privacy)
+    jcfg = _alist_cfg(**kw)
+    tcfg = config_from_dict(dataclasses.asdict(
+        _alist_cfg(use_pallas=engine == "generic", **kw)))
+    assert tsim.check_engine(tm, tcfg) == engine
+    assert jsim.pallas_engine(jm, jcfg) == "xla"
+    scaling = (0.8,) if alg == DecodingAlgorithm.NMSA else (0.3, 0.6)
+    combs = _adapted(jm, tm, RA_ALIST_QBER, 0.1, 1.4, privacy, scaling,
+                     untainted=True)
+    fused_generic.reset_counts()
+    _, got = _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch)
+    assert fused_generic.counts() == (0, 0)
+    assert 0.0 < got.ratio_trials_success_ldpc < 1.0
+
+
+def test_rate_adaptive_pinned_qc_stream_matches_jax(matrices, tmp_path,
+                                                    monkeypatch):
+    """``force_engine = qc_stream``: the streamed QC kernel's decode tail
+    (Alice's syndrome in torch, its decode mode, the key compare) equals
+    JAX's forced streamed run (its library decoder in interpret mode)."""
+    jm, tm = matrices
+    jcfg = _jax_cfg("layered", enable_code_rate_adaptation=True,
+                    force_engine="qc_stream")
+    tcfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert jsim.pallas_engine(jm, jcfg) == tsim.check_engine(tm, tcfg) \
+        == "qc_stream"
+    combs = _adapted(jm, tm, RA_QBER, 0.1, 1.3, False, (0.8,))
+    qc_stream.reset_counts()
+    fused_qc.reset_counts()
+    _, got = _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch)
+    assert qc_stream.counts() == (0, 0) and fused_qc.counts() == (0, 0)
+    assert 0.0 < got.ratio_trials_success_ldpc < 1.0
+
+
+def test_rate_adaptive_pinned_stream_matches_jax_xla(tmp_path, monkeypatch):
+    """``force_engine = stream`` on the 10k alist code: the streamed generic
+    kernel's decode tail equals JAX's XLA decoder run (its own streamed
+    kernel rounds messages to bf16 in flight)."""
+    path = ALIST_DIR / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"
+    jm = jread_matrix(path, MatrixFormat.ALIST)
+    tm = tread_matrix(path, TFormat.ALIST)
+    kw = dict(enable_code_rate_adaptation=True, trials_number=12,
+              batch_size=8, decoding_alg_max_iterations=20)
+    jcfg = _alist_cfg(**kw)
+    tcfg = config_from_dict(dataclasses.asdict(
+        _alist_cfg(use_pallas=True, force_engine="stream", **kw)))
+    assert tsim.check_engine(tm, tcfg) == "stream"
+    combs = _adapted(jm, tm, 0.03, 0.1, 1.5, False, (0.8,))
+    generic_stream.reset_counts()
+    _, got = _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch)
+    assert generic_stream.counts() == (0, 0)
+    assert got.ratio_trials_success_decoding > 0.0
 
 
 def _alist_cfg(**kw):
@@ -359,23 +531,37 @@ def test_cli_end_to_end_on_cpu(workspace, capsys):
 
 
 def test_cli_reports_unported_config(workspace, capsys):
+    """A rate-adaptive config, which this test once expected to be
+    reported as unported, now runs and writes the adaptation columns; a
+    trace flag is still reported."""
+    def run():
+        return tcli.main([
+            "--configs", str(workspace / "configs"),
+            "--matrices", str(workspace / "sparse_matrices"),
+            "--results", str(workspace / "results"),
+            "--device", "cpu", "--quiet",
+        ])
+
     (workspace / "configs" / "run.json").write_text(
         json.dumps(_cli_config(enable_code_rate_adaptation=True,
                                code_rate_adaptation_parameters={
                                    "enable_untainted_puncturing": False,
                                    "use_adaptation_parameters_ranges": False,
                                    "code_rate_QBER_adaptation_parameters_maps": [
-                                       {"code_rate": 0.5, "QBER": 0.03,
-                                        "delta": 0.1, "efficiency": 1.1}],
+                                       {"code_rate": 0.5, "QBER": 0.08,
+                                        "delta": 0.1, "efficiency": 1.3}],
                                })))
-    rc = tcli.main([
-        "--configs", str(workspace / "configs"),
-        "--matrices", str(workspace / "sparse_matrices"),
-        "--results", str(workspace / "results"),
-        "--device", "cpu", "--quiet",
-    ])
-    assert rc == 1
-    assert "NotImplementedError" in capsys.readouterr().err
+    assert run() == 0, capsys.readouterr().err
+    lines = next((workspace / "results").glob("*.csv")).read_text().splitlines()
+    assert len(lines) == 2
+    assert ";FER;DELTA;EFFICIENCY;PUNCT_FRACTION;SHORT_FRACTION;R_ADAPTED;" \
+        in lines[0]
+    assert lines[1].split(";")[15:17] == ["0,100", "1,300"]
+    (workspace / "configs" / "run.json").write_text(
+        json.dumps(_cli_config(trace_decoding_algorithm=True)))
+    assert run() == 1
+    err = capsys.readouterr().err
+    assert "NotImplementedError" in err and "traced" in err
 
 
 def test_cli_help_config(capsys):
@@ -415,3 +601,44 @@ def test_cli_end_to_end_on_alist(alist_workspace, capsys):
                                          "384", "1024"]
     assert "successfully completed" in out.out
     assert fused_generic.counts() == (0, 0)
+
+
+RA_CONFIGS = {
+    "example_rate_adapt": ("matrices_alist", "(N=1024,M=384,R=0.62,CW=3,SEED=62)"),
+    "campaign_fec_measurement": ("matrices_qc",
+                                 "(N=1024,M=384,R=0.62,CW=3,Z=128,SEED=33)"),
+    "campaign_adaptive_aomsa": ("matrices_qc",
+                                "(N=1024,M=512,R=0.50,CW=3,Z=128,SEED=12)"),
+}
+
+
+@pytest.mark.parametrize("name", list(RA_CONFIGS))
+def test_cli_runs_rate_adaptive_configs_on_cpu(name, tmp_path, capsys):
+    """CPU-sized variants of the three rate-adaptive configs (16 trials in
+    chunks of 8, over one committed 1k matrix and its ``.untp`` cache, cap
+    30) run through the CLI with ``--device cpu``: one CSV row per
+    combination JAX's sweep makes, with the adaptation columns."""
+    subdir, stem = RA_CONFIGS[name]
+    cfg = json.loads((REPO / "configs" / f"{name}.json").read_text())
+    cfg.update(trials_number=16, decoding_algorithm_max_iterations=30)
+    cfg.setdefault("tpu", {})["batch_size"] = 8
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "configs" / "run.json").write_text(json.dumps(cfg))
+    matrices = tmp_path / "sparse_matrices" / subdir
+    matrices.mkdir(parents=True)
+    for suffix in (".mtrx", ".untp"):
+        shutil.copy(REPO / "sparse_matrices" / subdir / (stem + suffix),
+                    matrices / (stem + suffix))
+    rc = tcli.main(["--configs", str(tmp_path / "configs"), "--matrices",
+                    str(tmp_path / "sparse_matrices"), "--results",
+                    str(tmp_path / "results"), "--device", "cpu", "--quiet"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    want = jsim.prepare_sim_inputs(
+        [matrices / (stem + ".mtrx")],
+        jparse_config(tmp_path / "configs" / "run.json"))
+    csv = next((tmp_path / "results").glob("*.csv"))
+    lines = csv.read_text().splitlines()
+    assert len(lines) - 1 == len(want[0].combinations) > 0
+    assert "rate_adapt=ON[punct=untainted]" in csv.name
+    assert ";R_ADAPTED;THROUGHPUT_MEAN;" in lines[0]
