@@ -57,29 +57,48 @@ Phases (each raises on failure, and the script then exits non-zero):
    factor 1.25, which brings inf and NaN), where the kernels' decode mode
    (decisions) and, on the 10k codes, the streamed kernels' decode tails
    run too. Conv, keys and iterations (and the decode mode's decisions)
-   must be exactly equal; the streamed generic kernel's decode tail is
-   known to differ on the forced frames (ROADMAP.md section 3) and its
-   difference is printed.
+   must be exactly equal, the streamed kernels' decode tails included.
+2f. mc kernels vs plain: the mc modes (keys drawn in the kernel from the
+   chunk's Philox stream) against ``channel.mc_channel`` and the plain
+   trial, 509 frames from chunk frame 1000 (128 at N=102400): the fused QC
+   kernel on the headline and 1k QC codes, both schedules,
+   NMSA/OMSA/ANMSA/AOMSA, QBER 0.03 and a waterfall QBER; the streamed QC
+   kernel on the flagship, both schedules, NMSA and AOMSA, QBER 0.03 and
+   0.0375, and on the headline code, where it must also equal the fused QC
+   kernel's mc mode; the fused generic kernel on the 10k alist and
+   degree-63 1k alist codes, the four algorithms at an easy and a waterfall
+   QBER, and one case with the clamp each. Conv, keys and iterations must
+   be exactly equal.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
-   committed headline asset. Each CSV must carry the JAX package's columns
-   and FER <= 0.01; the kernel's launch counter must be > 0 and the plain
-   version must not have run on the card; on the first 1024 frames of
-   chunk 0 the kernel's statistics must equal the plain version's.
+   committed headline asset. A default run draws its keys in the kernel:
+   the fused QC kernel's mc launch counter must be > 0, no trial kernel may
+   launch and no plain version run on the card. Each CSV must carry the JAX
+   package's columns and FER <= 0.01. The trial path then runs as a
+   library caller with its own keys runs it (``qkd_ldpc_batch_simulation``
+   with the default key source fed as ``key_source``: torch keys,
+   ``kthvalue``, the trial kernel), which must launch the trial kernel
+   alone, at FER <= 0.01. On chunk 0 the mc kernel's statistics on the
+   first 1024 frames equal the mc plain version's and the trial kernel's
+   its plain version's; the mc chunk and the whole trial path are timed in
+   turns (mc, trial, trial, mc), with the trial path split into keys,
+   error injection and kernel.
 3b. Generic main path: the same on a copy of
    configs/campaign_fer_1k_alist.json narrowed to QBER 0.025 (its R=0.78
    bracket, NMSA alpha 0.70, cap 100, flooding), over the committed 10k
    alist asset, through the fused generic kernel.
-3c. 100k QC main path: the CLI on a copy of
+3c. 100k QC main path: the same on a copy of
    configs/campaign_fer_sweep_100k.json narrowed to the flagship asset,
    NMSA alpha 0.8, QBER 0.03, cap 100, 16384 trials in 4096-frame chunks,
    in both schedules, through the streamed QC kernel (the engine is ``qc``;
    ``simulation.qc_kernel`` picks the streamed kernel because the fused one
-   cannot hold the code). Each CSV must carry the JAX package's columns and
-   FER <= 0.01; the streamed kernel must have launched, the fused QC kernel
-   not, and no plain version may have run on the card; chunk 0's first 256
-   frames must equal the plain version.
+   cannot hold the code; the fused QC kernel must not launch), chunk 0's
+   first 256 frames compared.
+3f. CPU against card: the CLI on configs/example_qc_layered.json over the
+   1k QC asset, 64 trials, with ``--device cpu`` (the mc plain version) and
+   ``--device cuda`` (the mc kernel): the CSV rows must be equal apart from
+   the throughput columns.
 3d. 100k alist main path: the CLI on a copy of
    configs/campaign_fer_sweep_100k.json switched to matrix format 1 over
    the committed N=102400 alist asset, its R=0.71 bracket narrowed to QBER
@@ -119,9 +138,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    (the least time the card could take for the same work) are those of one
    main-path chunk of phase 3, 3b, 3c, 3d or 3e (``frames`` frames, layered
    where the kernel has it); ``plain_ms`` is its plain version on the timed
-   case of phase 2, 2b, 2c, 2d or 2e (``plain_frames`` frames);
-   ``launches`` is the main path's count. The two frame modes have entries
-   of their own (phase 3e's chunk and count).
+   case of phase 2, 2b, 2c, 2d, 2e or 2f (``plain_frames`` frames);
+   ``launches`` is the main path's count. The frame and mc modes have
+   entries of their own (phase 3e's chunk and count; phases 3, 3b and 3c's
+   mc chunk, timed in turns, and the CLI runs' mc launches); the trial
+   entries of the fused QC, fused generic and streamed QC kernels take the
+   fed trial path's chunk and launches.
 
 It imports no JAX. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -176,6 +198,20 @@ CSV_COLUMNS = (
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
 OPS_PER_EDGE = {"flooding": 13, "layered": 14}
+# The mc modes also draw the keys: 32 integer operations per bit, 30 for
+# the generator and 2 for the selection (a compare and a count per key). A
+# Philox4x32-10 call is ten rounds of two 32-bit multiplies, two
+# multiply-highs and two three-input XORs: 60 operations. Its key schedule
+# depends only on the chunk seed, the same for every call of a launch, so
+# it is no work per bit. A call gives the words of four positions, and a
+# bit takes two streams: 2 * 60 / 4 = 30. One warp instruction issues per
+# clock and SM sub-partition whatever its type, so the f32 and integer
+# operations share the 33.5 T issue slots per second; the integer ones
+# alone also need the INT32 lanes, 64 per SM (half the FP32 lanes of the
+# same data sheet's 67 TFLOP/s), 132 SMs, 1.98 GHz: 16.7 T/s. The operation
+# time is the larger of the two.
+INT32_OPS_PER_S = 16.7e12
+MC_INT_OPS_PER_BIT = 32
 
 
 class SmokeError(RuntimeError):
@@ -213,6 +249,27 @@ def bound(frames, n, edges, iterations, schedule, bytes_per_bit=2):
     both write 6 bytes of statistics per frame."""
     byte_ms = (bytes_per_bit * frames * n + 6 * frames) / HBM_BYTES_PER_S * 1e3
     op_ms = OPS_PER_EDGE[schedule] * edges * iterations / F32_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def decode_bound(frames, n, m, edges, iterations, schedule):
+    """(bound_ms, bound_by) of a decode-mode launch: f32 LLRs and the
+    syndrome in, decisions and 5 bytes of statistics out per frame."""
+    byte_ms = frames * (5 * n + m + 5) / HBM_BYTES_PER_S * 1e3
+    op_ms = OPS_PER_EDGE[schedule] * edges * iterations / F32_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def mc_bound(frames, n, edges, iterations, schedule):
+    """(bound_ms, bound_by) of an mc launch: no key bytes in, 6 bytes of
+    statistics out per frame; the decode's f32 operations (``bound``) plus
+    the generator's and the selection's integer operations, in the same
+    issue slots and, alone, on the INT32 lanes."""
+    byte_ms = 6 * frames / HBM_BYTES_PER_S * 1e3
+    f32_ops = OPS_PER_EDGE[schedule] * edges * iterations
+    int_ops = MC_INT_OPS_PER_BIT * frames * n
+    op_ms = max((f32_ops + int_ops) / F32_OPS_PER_S,
+                int_ops / INT32_OPS_PER_S) * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -313,6 +370,13 @@ def phase_kernel_vs_plain(torch, card):
         if (code_name, qber, schedule, alg, mode, clamp) == (
                 "headline", 0.03, "layered", "NMSA", "trial", False):
             headline_times = (plain_ms, FRAMES)
+        if (code_name, qber, schedule, alg, mode, clamp) == (
+                "headline", 0.03, "flooding", "NMSA", "decode", False):
+            b = decode_bound(FRAMES, n, qc.num_check_nodes,
+                             len(qc.block_edges) * qc.lifting,
+                             int(got[2].sum().item()), schedule)
+            print(f"case {i:02d}: the decode mode's timed case, bound "
+                  f"{b[0]:.3f} ms ({b[1]})", flush=True)
     for code_name, _, qbers in codes:
         check(failing[(code_name, qbers[1])] > 0,
               f"{code_name}: no frame failed at QBER {qbers[1]}")
@@ -411,6 +475,13 @@ def phase_generic_vs_plain(torch, card):
         if (code_name, qber, alg, mode, clamp) == (
                 "alist10k", 0.025, "NMSA", "trial", False):
             times = (plain_ms, FRAMES)
+        if (code_name, qber, alg, mode, clamp) == (
+                "alist10k", 0.025, "NMSA", "decode", False):
+            b = decode_bound(FRAMES, n, matrix.num_check_nodes,
+                             matrix.num_edges, int(got[2].sum().item()),
+                             "flooding")
+            print(f"case 2b-{i:02d}: the decode mode's timed case, bound "
+                  f"{b[0]:.3f} ms ({b[1]})", flush=True)
     for code_name, _, qbers, waterfall in codes:
         if waterfall:
             check(failing[(code_name, qbers[-1])] > 0,
@@ -623,14 +694,153 @@ def phase_generic_stream_vs_plain(torch, card):
     return worst, times
 
 
-def phase_generic_main_path(torch, card):
+def read_csv(results_dir: Path):
+    csvs = sorted(results_dir.glob("*.csv"))
+    check(len(csvs) == 1, f"expected one CSV in {results_dir}, got {csvs}")
+    lines = csvs[0].read_text().splitlines()
+    check(len(lines) == 2, f"expected header + one row in {csvs[0]}")
+    header = lines[0]
+    check(header == CSV_COLUMNS, f"CSV columns differ: {header}")
+    row = dict(zip(header.split(";"), lines[1].split(";")))
+    return csvs[0], row
+
+
+def run_cli(cdir: Path, matrices: Path, results: Path, device: str):
+    """The CLI in-process on one config directory; its wall seconds."""
     from qkd_ldpc_v_tpu_torch import cli
-    from qkd_ldpc_v_tpu_torch.config import parse_config_data
-    from qkd_ldpc_v_tpu_torch.ops import fused_generic
-    from qkd_ldpc_v_tpu_torch.ops.channel import (
-        exact_error_count, inject_errors, log_ratio)
+
+    t0 = time.perf_counter()
+    rc = cli.main(["--configs", str(cdir), "--matrices", str(matrices),
+                   "--results", str(results), "--device", device, "--quiet"])
+    check(rc == 0, f"CLI ({cdir.name}, {device}) returned {rc}")
+    return time.perf_counter() - t0
+
+
+def check_mc_counts(label, kernel_mod, others):
+    """After a fixed-rate main path: the mc kernel of ``kernel_mod``
+    launched, no trial kernel did, no other kernel launched, and no plain
+    version ran on the card. Returns the mc launches."""
+    c = kernel_mod.COUNTS
+    other_launches = sum(m.COUNTS.launches + m.COUNTS.mc_launches
+                         for m in others)
+    plain = c.plain_on_cuda + sum(m.COUNTS.plain_on_cuda for m in others)
+    print(f"{label}: mc launches={c.mc_launches} trial launches={c.launches} "
+          f"other kernels' launches={other_launches} plain calls on the "
+          f"card={plain}", flush=True)
+    check(c.mc_launches > 0, f"{label}: the mc kernel did not launch")
+    check(c.launches == 0, f"{label}: a trial kernel launched")
+    check(other_launches == 0, f"{label}: another kernel launched")
+    check(plain == 0, f"{label}: a plain version ran on the card")
+    return c.mc_launches
+
+
+def trial_path_run(torch, label, path, cfg, kernel_mod):
+    """The trial path as a library caller runs it: ``qkd_ldpc_batch_simulation``
+    with the default key source fed as ``key_source`` (torch keys,
+    ``kthvalue``, the trial kernel). Returns its trial launches."""
     from qkd_ldpc_v_tpu_torch.simulation import (
-        default_key_source, prepare_sim_inputs)
+        default_key_source, prepare_sim_inputs, qkd_ldpc_batch_simulation)
+
+    dev = torch.device("cuda")
+    sim_inputs = prepare_sim_inputs([path], cfg)
+    kernel_mod.reset_counts()
+    results = qkd_ldpc_batch_simulation(
+        sim_inputs, cfg, dev,
+        key_source=default_key_source(cfg.simulation_seed, dev))
+    c = kernel_mod.COUNTS
+    fer = 1.0 - results[0].ratio_trials_success_ldpc
+    print(f"{label}: trial path (key_source fed): trial launches="
+          f"{c.launches} mc launches={c.mc_launches} plain calls on the "
+          f"card={c.plain_on_cuda} FER={fer}", flush=True)
+    check(c.launches > 0 and c.mc_launches == 0 and c.plain_on_cuda == 0,
+          f"{label}: the fed trial path did not run the trial kernel alone")
+    check(fer <= 0.01, f"{label}: trial path FER {fer} > 0.01")
+    return c.launches
+
+
+def mc_and_trial_chunk(torch, card, label, mc, trial, cfg, n, ne, args, edges,
+                       schedule, compared):
+    """Chunk 0 of a fixed-rate main path again: the mc kernel on the whole
+    chunk as the main path ran it, the mc plain version on its first
+    ``compared`` frames; the same chunk through the trial path (torch keys,
+    ``kthvalue``, the trial kernel, each timed) with the trial kernel held
+    to its plain version on the same frames; and the mc chunk against the
+    whole trial path in turns (mc, trial, trial, mc). Returns the
+    worst difference, the mc chunk (ms, bound_ms, bound_by, frames) and the
+    trial kernel's (ms, bound_ms, bound_by, frames)."""
+    from qkd_ldpc_v_tpu_torch.ops.channel import chunk_seed, inject_errors
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
+    dev = torch.device("cuda")
+    batch = cfg.batch_size
+    seed = chunk_seed(cfg.simulation_seed, 0, 0)
+
+    def run_mc():
+        return mc(seed, 0, batch, ne, *args, device=dev)
+
+    full = run_mc()
+    want = mc.plain(seed, 0, compared, ne, *args, device=dev)
+    diff = max_abs_diff(tuple(t[:compared] for t in full), tuple(want), torch)
+    check(diff == 0, f"{label}: chunk-0 mc kernel stats != mc plain")
+    mc_iters = int(full[2].sum().item())
+    del full, want
+
+    source = default_key_source(cfg.simulation_seed, dev)
+    (alice, bits), keys_ms = timed(lambda: source(0, 0, batch, n), torch)
+    bob, errors_ms = timed(lambda: inject_errors(bits, alice, ne, wide=True),
+                           torch)
+    del bits
+    tfull, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
+    want = trial.plain(alice[:compared].contiguous(),
+                       bob[:compared].contiguous(), *args)
+    tdiff = max_abs_diff(tuple(t[:compared] for t in tfull), tuple(want),
+                         torch)
+    check(tdiff == 0, f"{label}: chunk-0 trial kernel stats != plain")
+    trial_bound = bound(batch, n, edges, int(tfull[2].sum().item()), schedule)
+    del alice, bob, tfull, want
+
+    def run_trial_path():
+        a, b = source(0, 0, batch, n)
+        return trial(a, inject_errors(b, a, ne, wide=True), *args)
+
+    turns = {"mc": [], "trial": []}
+    for which in ("mc", "trial", "trial", "mc"):
+        turns[which].append(timed(run_mc if which == "mc" else run_trial_path,
+                                  torch)[1])
+    mc_ms = sum(turns["mc"]) / 2
+    path_ms = sum(turns["trial"]) / 2
+    mcb = mc_bound(batch, n, edges, mc_iters, schedule)
+    print(f"{label}: one {batch}-frame chunk: mc kernel {mc_ms:.2f} ms "
+          f"(bound {mcb[0]:.2f} ms, {mcb[1]}; mean iterations "
+          f"{mc_iters / batch:.2f}) against the trial path {path_ms:.2f} ms "
+          f"in turns (mc {turns['mc'][0]:.2f}, trial {turns['trial'][0]:.2f}, "
+          f"trial {turns['trial'][1]:.2f}, mc {turns['mc'][1]:.2f}); trial "
+          f"path split: keys {keys_ms:.2f} ms, error injection "
+          f"{errors_ms:.2f} ms, trial kernel {kernel_ms:.2f} ms (bound "
+          f"{trial_bound[0]:.2f} ms, {trial_bound[1]}) (card={card})",
+          flush=True)
+    print(f"{label}: chunk 0 frames 0-{compared - 1}: mc kernel == mc plain, "
+          f"trial kernel == plain", flush=True)
+    return (max(diff, tdiff), (mc_ms, *mcb, batch),
+            (kernel_ms, *trial_bound, batch))
+
+
+def print_rate(label, row, cfg, n, wall, card):
+    rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+    us_per_frame = n * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
+    fer = float(row["FER"].replace(",", "."))
+    print(f"{label}: FER={fer} iter_mean={row['ITER_SUCCESS_MEAN']} "
+          f"decode_frames_per_s={1e6 / us_per_frame:.0f} (chunk timers, RTT "
+          f"removed) cli_wall_frames_per_s={cfg.trials_number / wall:.0f} "
+          f"(whole CLI call, {wall:.1f} s) card={card}", flush=True)
+    return fer
+
+
+def phase_generic_main_path(torch, card):
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream
+    from qkd_ldpc_v_tpu_torch.ops.channel import exact_error_count, log_ratio
+    from qkd_ldpc_v_tpu_torch.simulation import prepare_sim_inputs
 
     work = REPO / "build" / "chip_smoke_generic"
     if work.exists():
@@ -649,88 +859,46 @@ def phase_generic_main_path(torch, card):
     (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
 
     fused_generic.reset_counts()
-    t0 = time.perf_counter()
-    rc = cli.main(["--configs", str(cdir), "--matrices",
-                   str(work / "sparse_matrices"), "--results",
-                   str(work / "results"), "--device", "cuda", "--quiet"])
-    wall = time.perf_counter() - t0
-    check(rc == 0, f"CLI (alist) returned {rc}")
-    launches, plain_on_cuda = fused_generic.counts()
-    print(f"generic main path: kernel launches={launches} "
-          f"plain calls on the card={plain_on_cuda}")
-    check(launches > 0, "the generic main path launched no kernel")
-    check(plain_on_cuda == 0,
-          "the generic main path ran the plain version on the card")
+    generic_stream.reset_counts()
+    wall = run_cli(cdir, work / "sparse_matrices", work / "results", "cuda")
+    launches = check_mc_counts("generic main path", fused_generic,
+                               [generic_stream])
 
     path, row = read_csv(work / "results")
     check(row["N"] == "10240", f"N = {row['N']}")
     check(row["CONFIG_QBER"] == "0,0250", f"QBER = {row['CONFIG_QBER']}")
     check(row["ALPHA"] == "0,700", f"alpha = {row['ALPHA']}")
-    fer = float(row["FER"].replace(",", "."))
-    check(fer <= 0.01, f"alist: FER {fer} > 0.01")
     run_cfg = parse_config_data(cdir / "run.json")
-    rtt_us = run_cfg.rtt_ms * 1000.0 if run_cfg.consider_rtt else 0.0
-    us_per_frame = 10240 * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
-    print(f"generic main path: FER={fer} iter_mean={row['ITER_SUCCESS_MEAN']} "
-          f"decode_frames_per_s={1e6 / us_per_frame:.0f} "
-          f"(chunk timers, RTT removed) "
-          f"cli_wall_frames_per_s={run_cfg.trials_number / wall:.0f} "
-          f"(whole CLI call, {wall:.1f} s) card={card}", flush=True)
+    fer = print_rate("generic main path", row, run_cfg, 10240, wall, card)
+    check(fer <= 0.01, f"alist: FER {fer} > 0.01")
+    trial_launches = trial_path_run(torch, "generic main path", ALIST10K,
+                                    run_cfg, fused_generic)
 
-    # Chunk 0 of combination 0 again: kernel on the whole chunk as the main
-    # path ran it, plain on its first 1024 frames.
-    dev = torch.device("cuda")
     sim_in = prepare_sim_inputs([ALIST10K], run_cfg)[0]
     comb = sim_in.combinations[0]
     matrix = sim_in.matrix
     n = matrix.num_bit_nodes
     ne = exact_error_count(n, comb.config_qber)
-    (alice, bits), keys_ms = timed(
-        lambda: default_key_source(run_cfg.simulation_seed, dev)(
-            0, 0, run_cfg.batch_size, n), torch)
-    bob, errors_ms = timed(
-        lambda: inject_errors(bits, alice, ne, wide=True), torch)
-    trial = fused_generic.make_fused_generic_trial(
-        matrix, run_cfg.decoding_algorithm, run_cfg.decoding_alg_max_iterations,
-        run_cfg.enable_msg_llr_threshold)
+    alg = run_cfg.decoding_algorithm
+    cap = run_cfg.decoding_alg_max_iterations
+    thr_on = run_cfg.enable_msg_llr_threshold
     args = (log_ratio(ne / n), comb.scaling_factors.primary,
             comb.scaling_factors.secondary, run_cfg.msg_llr_threshold)
-    full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
-    chunk_bound = bound(run_cfg.batch_size, n, matrix.num_edges,
-                        int(full[2].sum().item()), "flooding")
-    print(f"generic main path: one {run_cfg.batch_size}-frame chunk: "
-          f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
-          f"fused_generic kernel {kernel_ms:.2f} ms "
-          f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}; card={card})")
-    got = [t[:1024] for t in full]
-    want = trial.plain(alice[:1024].contiguous(), bob[:1024].contiguous(),
-                       *args)
-    diff = max_abs_diff(got, want, torch)
-    check(diff == 0, "alist: chunk-0 kernel stats != plain")
-    print(f"generic main path: chunk 0 frames 0-1023 kernel == plain "
-          f"({path.name})")
-    return launches, diff, (kernel_ms, *chunk_bound, run_cfg.batch_size)
-
-
-def read_csv(results_dir: Path):
-    csvs = sorted(results_dir.glob("*.csv"))
-    check(len(csvs) == 1, f"expected one CSV in {results_dir}, got {csvs}")
-    lines = csvs[0].read_text().splitlines()
-    check(len(lines) == 2, f"expected header + one row in {csvs[0]}")
-    header = lines[0]
-    check(header == CSV_COLUMNS, f"CSV columns differ: {header}")
-    row = dict(zip(header.split(";"), lines[1].split(";")))
-    return csvs[0], row
+    diff, mc_chunk, trial_chunk = mc_and_trial_chunk(
+        torch, card, "generic main path",
+        fused_generic.make_fused_generic_montecarlo(matrix, alg, cap, thr_on),
+        fused_generic.make_fused_generic_trial(matrix, alg, cap, thr_on),
+        run_cfg, n, ne, args, matrix.num_edges, "flooding", 1024)
+    print(f"generic main path: {path.name}", flush=True)
+    return {"mc": (launches, diff, mc_chunk),
+            "trial": (trial_launches, diff, trial_chunk)}
 
 
 def phase_main_path(torch, card):
-    from qkd_ldpc_v_tpu_torch import cli
     from qkd_ldpc_v_tpu_torch.config import parse_config_data
     from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
-    from qkd_ldpc_v_tpu_torch.ops.channel import (
-        exact_error_count, inject_errors, log_ratio)
-    from qkd_ldpc_v_tpu_torch.simulation import (
-        default_key_source, prepare_sim_inputs)
+    from qkd_ldpc_v_tpu_torch.ops.channel import exact_error_count, log_ratio
+    from qkd_ldpc_v_tpu_torch.simulation import prepare_sim_inputs
 
     work = REPO / "build" / "chip_smoke"
     if work.exists():
@@ -752,89 +920,52 @@ def phase_main_path(torch, card):
 
     fused_qc.reset_counts()
     qc_stream.reset_counts()
-    walls = {}
-    for schedule, cdir in runs.items():
-        t0 = time.perf_counter()
-        rc = cli.main(["--configs", str(cdir), "--matrices",
-                       str(work / "sparse_matrices"), "--results",
-                       str(work / f"results_{schedule}"), "--device", "cuda",
-                       "--quiet"])
-        walls[schedule] = time.perf_counter() - t0
-        check(rc == 0, f"CLI ({schedule}) returned {rc}")
-    launches, plain_on_cuda = fused_qc.counts()
-    print(f"main path: kernel launches={launches} "
-          f"plain calls on the card={plain_on_cuda}")
-    check(launches > 0, "the main path launched no kernel")
-    check(plain_on_cuda == 0, "the main path ran the plain version on the card")
-    check(qc_stream.counts() == (0, 0),
-          "the headline main path went to the streamed kernel")
+    walls = {schedule: run_cli(cdir, work / "sparse_matrices",
+                               work / f"results_{schedule}", "cuda")
+             for schedule, cdir in runs.items()}
+    launches = check_mc_counts("main path", fused_qc, [qc_stream])
 
     worst = 0
-    dev = torch.device("cuda")
+    trial_launches = 0
     for schedule, cdir in runs.items():
+        label = f"main path {schedule}"
         path, row = read_csv(work / f"results_{schedule}")
         check(row["N"] == "10240", f"N = {row['N']}")
-        fer = float(row["FER"].replace(",", "."))
-        check(fer <= 0.01, f"{schedule}: FER {fer} > 0.01")
         cfg = parse_config_data(cdir / "run.json")
-        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
-        tp_mean = float(row["THROUGHPUT_MEAN"])
-        us_per_frame = 10240 * 1e6 / tp_mean - rtt_us
-        print(f"main path {schedule}: FER={fer} "
-              f"iter_mean={row['ITER_SUCCESS_MEAN']} "
-              f"decode_frames_per_s={1e6 / us_per_frame:.0f} "
-              f"(chunk timers, RTT removed) "
-              f"cli_wall_frames_per_s={cfg.trials_number / walls[schedule]:.0f} "
-              f"(whole CLI call, {walls[schedule]:.1f} s) card={card}",
-              flush=True)
+        fer = print_rate(label, row, cfg, 10240, walls[schedule], card)
+        check(fer <= 0.01, f"{schedule}: FER {fer} > 0.01")
+        trial_launches += trial_path_run(torch, label, HEADLINE, cfg,
+                                         fused_qc)
 
-        # Chunk 0 of combination 0 again: kernel on the whole chunk as the
-        # main path ran it, plain on its first 1024 frames.
         sim_in = prepare_sim_inputs([HEADLINE], cfg)[0]
         comb = sim_in.combinations[0]
         qc = sim_in.matrix.qc
         n = qc.num_bit_nodes
         ne = exact_error_count(n, comb.config_qber)
-        (alice, bits), keys_ms = timed(
-            lambda: default_key_source(cfg.simulation_seed, dev)(
-                0, 0, cfg.batch_size, n), torch)
-        bob, errors_ms = timed(
-            lambda: inject_errors(bits, alice, ne, wide=True), torch)
-        trial = fused_qc.make_fused_qc_trial(
-            qc, cfg.decoding_algorithm, cfg.decoding_alg_max_iterations,
-            cfg.enable_msg_llr_threshold, cfg.schedule)
+        made = [make(qc, cfg.decoding_algorithm,
+                     cfg.decoding_alg_max_iterations,
+                     cfg.enable_msg_llr_threshold, cfg.schedule)
+                for make in (fused_qc.make_fused_qc_montecarlo,
+                             fused_qc.make_fused_qc_trial)]
         args = (log_ratio(ne / n), comb.scaling_factors.primary,
                 comb.scaling_factors.secondary, cfg.msg_llr_threshold)
-        full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
-        edges = len(qc.block_edges) * qc.lifting
-        chunk_bound = bound(cfg.batch_size, n, edges,
-                            int(full[2].sum().item()), schedule)
-        if schedule == "layered":
-            chunk_times = (kernel_ms, *chunk_bound, cfg.batch_size)
-        print(f"main path {schedule}: one {cfg.batch_size}-frame chunk: "
-              f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
-              f"fused_qc kernel {kernel_ms:.2f} ms "
-              f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}; "
-              f"card={card})")
-        got = [t[:1024] for t in full]
-        want = trial.plain(alice[:1024].contiguous(), bob[:1024].contiguous(),
-                           *args)
-        diff = max_abs_diff(got, want, torch)
+        diff, mc_chunk, trial_chunk = mc_and_trial_chunk(
+            torch, card, label, *made, cfg, n, ne, args,
+            len(qc.block_edges) * qc.lifting, schedule, 1024)
         worst = max(worst, diff)
-        check(diff == 0, f"{schedule}: chunk-0 kernel stats != plain")
-        print(f"main path {schedule}: chunk 0 frames 0-1023 kernel == plain "
-              f"({path.name})")
-    return launches, worst, chunk_times
+        if schedule == "layered":
+            chunks = (mc_chunk, trial_chunk)
+        print(f"{label}: {path.name}", flush=True)
+    return {"mc": (launches, worst, chunks[0]),
+            "trial": (trial_launches, worst, chunks[1])}
 
 
 def phase_stream_main_path(torch, card):
-    from qkd_ldpc_v_tpu_torch import cli
     from qkd_ldpc_v_tpu_torch.config import parse_config_data
     from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
-    from qkd_ldpc_v_tpu_torch.ops.channel import (
-        exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.ops.channel import exact_error_count, log_ratio
     from qkd_ldpc_v_tpu_torch.simulation import (
-        default_key_source, prepare_sim_inputs, qc_kernel, select_engine)
+        prepare_sim_inputs, qc_kernel, select_engine)
 
     work = REPO / "build" / "chip_smoke_qc100k"
     if work.exists():
@@ -865,47 +996,25 @@ def phase_stream_main_path(torch, card):
 
     fused_qc.reset_counts()
     qc_stream.reset_counts()
-    walls = {}
-    for schedule, cdir in runs.items():
-        t0 = time.perf_counter()
-        rc = cli.main(["--configs", str(cdir), "--matrices",
-                       str(work / "sparse_matrices"), "--results",
-                       str(work / f"results_{schedule}"), "--device", "cuda",
-                       "--quiet"])
-        walls[schedule] = time.perf_counter() - t0
-        check(rc == 0, f"CLI (qc100k, {schedule}) returned {rc}")
-    launches, plain_on_cuda = qc_stream.counts()
-    fused_launches, fused_plain = fused_qc.counts()
-    print(f"qc100k main path: streamed kernel launches={launches} "
-          f"fused QC launches={fused_launches} plain calls on the card="
-          f"{plain_on_cuda + fused_plain}")
-    check(launches > 0, "the 100k main path launched no streamed kernel")
-    check(fused_launches == 0, "the 100k main path launched the fused kernel")
-    check(plain_on_cuda + fused_plain == 0,
-          "the 100k main path ran a plain version on the card")
+    walls = {schedule: run_cli(cdir, work / "sparse_matrices",
+                               work / f"results_{schedule}", "cuda")
+             for schedule, cdir in runs.items()}
+    launches = check_mc_counts("qc100k main path", qc_stream, [fused_qc])
 
     worst = 0
-    dev = torch.device("cuda")
+    trial_launches = 0
     for schedule, cdir in runs.items():
+        label = f"qc100k main path {schedule}"
         path, row = read_csv(work / f"results_{schedule}")
         check(row["N"] == "102400", f"N = {row['N']}")
         check(row["CONFIG_QBER"] == "0,0300", f"QBER = {row['CONFIG_QBER']}")
         check(row["ALPHA"] == "0,800", f"alpha = {row['ALPHA']}")
-        fer = float(row["FER"].replace(",", "."))
-        check(fer <= 0.01, f"qc100k {schedule}: FER {fer} > 0.01")
         cfg = parse_config_data(cdir / "run.json")
-        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
-        us_per_frame = 102400 * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
-        print(f"qc100k main path {schedule}: FER={fer} "
-              f"iter_mean={row['ITER_SUCCESS_MEAN']} "
-              f"decode_frames_per_s={1e6 / us_per_frame:.0f} "
-              f"(chunk timers, RTT removed) "
-              f"cli_wall_frames_per_s={cfg.trials_number / walls[schedule]:.0f} "
-              f"(whole CLI call, {walls[schedule]:.1f} s) card={card}",
-              flush=True)
+        fer = print_rate(label, row, cfg, 102400, walls[schedule], card)
+        check(fer <= 0.01, f"qc100k {schedule}: FER {fer} > 0.01")
+        trial_launches += trial_path_run(torch, label, FLAGSHIP, cfg,
+                                         qc_stream)
 
-        # Chunk 0 of combination 0 again: kernel on the whole chunk as the
-        # main path ran it, plain on its first 256 frames.
         sim_in = prepare_sim_inputs([FLAGSHIP], cfg)[0]
         comb = sim_in.combinations[0]
         check(qc_kernel(sim_in.matrix.qc, select_engine(sim_in.matrix, cfg),
@@ -914,38 +1023,63 @@ def phase_stream_main_path(torch, card):
         qc = sim_in.matrix.qc
         n = qc.num_bit_nodes
         ne = exact_error_count(n, comb.config_qber)
-        (alice, bits), keys_ms = timed(
-            lambda: default_key_source(cfg.simulation_seed, dev)(
-                0, 0, cfg.batch_size, n), torch)
-        bob, errors_ms = timed(
-            lambda: inject_errors(bits, alice, ne, wide=True), torch)
-        del bits
-        trial = qc_stream.make_qc_stream_trial(
-            qc, cfg.decoding_algorithm, cfg.decoding_alg_max_iterations,
-            cfg.enable_msg_llr_threshold, cfg.schedule)
+        made = [make(qc, cfg.decoding_algorithm,
+                     cfg.decoding_alg_max_iterations,
+                     cfg.enable_msg_llr_threshold, cfg.schedule)
+                for make in (qc_stream.make_qc_stream_montecarlo,
+                             qc_stream.make_qc_stream_trial)]
         args = (log_ratio(ne / n), comb.scaling_factors.primary,
                 comb.scaling_factors.secondary, cfg.msg_llr_threshold)
-        full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
-        edges = len(qc.block_edges) * qc.lifting
-        chunk_bound = bound(cfg.batch_size, n, edges,
-                            int(full[2].sum().item()), schedule)
-        if schedule == "layered":
-            chunk_times = (kernel_ms, *chunk_bound, cfg.batch_size)
-        print(f"qc100k main path {schedule}: one {cfg.batch_size}-frame "
-              f"chunk: keys {keys_ms:.2f} ms, error injection "
-              f"{errors_ms:.2f} ms, qc_stream kernel {kernel_ms:.2f} ms "
-              f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}), mean "
-              f"iterations {full[2].float().mean().item():.2f} (card={card})",
-              flush=True)
-        got = [t[:256] for t in full]
-        want = trial.plain(alice[:256].contiguous(), bob[:256].contiguous(),
-                           *args)
-        diff = max_abs_diff(got, want, torch)
+        diff, mc_chunk, trial_chunk = mc_and_trial_chunk(
+            torch, card, label, *made, cfg, n, ne, args,
+            len(qc.block_edges) * qc.lifting, schedule, 256)
         worst = max(worst, diff)
-        check(diff == 0, f"qc100k {schedule}: chunk-0 kernel stats != plain")
-        print(f"qc100k main path {schedule}: chunk 0 frames 0-255 kernel == "
-              f"plain ({path.name})")
-    return launches, worst, chunk_times
+        if schedule == "layered":
+            chunks = (mc_chunk, trial_chunk)
+        print(f"{label}: {path.name}", flush=True)
+    return {"mc": (launches, worst, chunks[0]),
+            "trial": (trial_launches, worst, chunks[1])}
+
+
+def phase_cli_cpu_vs_card(torch, card):
+    """A default run draws its keys from each chunk's Philox stream, on the
+    CPU (the mc plain version) and on the card (the mc kernel) alike: the 1k
+    QC code through the CLI with 64 trials on both devices gives the same
+    CSV rows apart from the throughput columns."""
+    from qkd_ldpc_v_tpu_torch.ops import fused_qc
+
+    work = REPO / "build" / "chip_smoke_cpu_card"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_qc"
+    matrices.mkdir(parents=True)
+    (matrices / QC1K.name).symlink_to(QC1K)
+    cfg = json.loads((REPO / "configs" / "example_qc_layered.json").read_text())
+    cfg["trials_number"] = 64
+    cdir = work / "configs"
+    cdir.mkdir()
+    (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+    rows = {}
+    for device in ("cpu", "cuda"):
+        fused_qc.reset_counts()
+        run_cli(cdir, work / "sparse_matrices", work / f"results_{device}",
+                device)
+        c = fused_qc.COUNTS
+        if device == "cuda":
+            routed = c.mc_launches > 0 and c.plain_on_cuda == 0
+        else:
+            routed = c.mc_launches == 0 and c.plain("mc") > 0
+        check(routed and c.launches == 0 and c.plain("trial") == 0,
+              f"CLI on {device}: mc launches {c.mc_launches}, trial "
+              f"launches {c.launches}, plain calls {dict(c.plain_calls)}")
+        path, row = read_csv(work / f"results_{device}")
+        rows[device] = {k: v for k, v in row.items()
+                        if not k.startswith("THROUGHPUT")}
+        print(f"CLI on {device}: {rows[device]}", flush=True)
+    check(rows["cpu"] == rows["cuda"],
+          "the CPU and card CSVs differ outside the throughput columns")
+    print(f"CLI 1k QC, 64 trials: the CPU and card CSV rows are equal apart "
+          f"from the throughput columns ({card})", flush=True)
 
 
 def phase_generic_stream_main_path(torch, card):
@@ -1297,11 +1431,7 @@ def phase_frame_vs_plain(torch, card):
         if label == "forced":
             # The forced frames also through the kernel's decode mode
             # (decisions compared) and, on the 10k codes, the streamed
-            # kernels' decode tails. The streamed generic kernel keeps the
-            # float32-maximum start of its second minimum and fminf / fmaxf,
-            # so it is known to differ from the plain version here (a fault
-            # recorded in ROADMAP.md section 3): its difference is printed,
-            # not held.
+            # kernels' decode tails, all held exactly.
             if matrix.qc is not None:
                 syn = qc_syndrome(matrix.qc, frame)
                 dec = fused_qc.make_fused_qc_decoder(
@@ -1329,8 +1459,7 @@ def phase_frame_vs_plain(torch, card):
                 d = max_abs_diff(tuple(tail(*args)), tuple(tail.plain(*args)),
                                  torch)
                 extra += f" {tail_name}_decode_err={d}"
-                if tail_name == "qc_stream":
-                    diff = max(diff, d)
+                diff = max(diff, d)
         worst[kernel] = max(worst[kernel], diff)
         n_fail = int((~got[0]).sum().item())
         failing[(code_name, label)] = failing.get((code_name, label), 0) + n_fail
@@ -1349,6 +1478,118 @@ def phase_frame_vs_plain(torch, card):
               f"{code_name}: no frame failed at its waterfall point")
     print(f"phase 2e: {len(cases)} cases, frame kernels == plain exactly "
           f"({card})")
+    return worst, times
+
+
+# ---------------------------------------------------------------------------
+# The mc modes (phase 2f)
+# ---------------------------------------------------------------------------
+
+# Phase 2f's depth: frames per case of the fused kernels (odd, so the last
+# blocks of a wave are ragged) and the chunk frame they start at.
+MC_FRAMES = 509
+MC_FRAME0 = 1000
+
+
+def phase_mc_vs_plain(torch, card):
+    """Each mc kernel against ``channel.mc_channel`` and the plain trial on
+    the card, exactly (conv, keys, iterations)."""
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, qc_stream
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        chunk_seed, exact_error_count, log_ratio)
+
+    dev = torch.device("cuda")
+    headline, qc1k, flagship = (read_qc_matrix(p) for p in
+                                (HEADLINE, QC1K, FLAGSHIP))
+    alist10k, alist1k = (read_sparse_matrix_alist(p) for p in
+                         (ALIST10K, ALIST1K_DEG63))
+    # (kernel, code name, code, frames, QBER, schedule, alg, clamp); the
+    # second QBER of each code sits in its waterfall.
+    cases = []
+    for name, code, qbers in (("headline", headline, (0.03, 0.036)),
+                              ("qc1k", qc1k, (0.03, 0.045))):
+        for qber in qbers:
+            for schedule in ("flooding", "layered"):
+                for alg in FACTORS:
+                    cases.append(("fused_qc_mc", name, code, MC_FRAMES, qber,
+                                  schedule, alg, False))
+    for qber in (0.03, 0.0375):
+        for schedule in ("flooding", "layered"):
+            for alg in ("NMSA", "AOMSA"):
+                cases.append(("qc_stream_mc", "flagship", flagship, 128, qber,
+                              schedule, alg, False))
+    for schedule in ("flooding", "layered"):
+        cases.append(("qc_stream_mc", "headline", headline, MC_FRAMES, 0.03,
+                      schedule, "NMSA", False))
+    for name, code, qbers in (("alist10k", alist10k, (0.025, 0.032)),
+                              ("alist1k_deg63", alist1k, (0.002, 0.004))):
+        for qber in qbers:
+            for alg in FACTORS:
+                cases.append(("fused_generic_mc", name, code, MC_FRAMES, qber,
+                              "flooding", alg, False))
+        cases.append(("fused_generic_mc", name, code, MC_FRAMES, qbers[1],
+                      "flooding", "NMSA", True))
+
+    makers = {
+        "fused_qc_mc": lambda code, alg, clamp, schedule:
+            fused_qc.make_fused_qc_montecarlo(code, alg, 100, clamp, schedule),
+        "qc_stream_mc": lambda code, alg, clamp, schedule:
+            qc_stream.make_qc_stream_montecarlo(code, alg, 100, clamp,
+                                                schedule),
+        "fused_generic_mc": lambda code, alg, clamp, schedule:
+            fused_generic.make_fused_generic_montecarlo(code, alg, 100, clamp),
+    }
+    timed_cases = {("fused_qc_mc", "headline", 0.03, "layered"),
+                   ("qc_stream_mc", "flagship", 0.03, "layered"),
+                   ("fused_generic_mc", "alist10k", 0.025, "flooding")}
+    worst = {k: 0 for k in makers}
+    times = {}
+    failing = {}
+    for i, (kernel, name, code, frames, qber, schedule, alg, clamp) in \
+            enumerate(cases):
+        n = code.num_bit_nodes
+        ne = exact_error_count(n, qber)
+        f1, f2 = FACTORS[alg]
+        if alg == "NMSA":
+            f1 = {"flagship": 0.8, "alist10k": 0.7}.get(name, f1)
+        thr = THRESHOLD if clamp else 0.0
+        mc = makers[kernel](code, DecodingAlgorithm[alg], clamp, schedule)
+        args = (chunk_seed(23, 0, i), MC_FRAME0, frames, ne, log_ratio(ne / n),
+                f1, f2, thr)
+        mc(*args, device=dev)  # first launch of this configuration, untimed
+        got, ms = timed(lambda: mc(*args, device=dev), torch, reps=3)
+        mc.plain(*args, device=dev)  # first call: tables to the card, untimed
+        want, plain_ms = timed(lambda: mc.plain(*args, device=dev), torch)
+        diff = max_abs_diff(tuple(got), tuple(want), torch)
+        extra = ""
+        if kernel == "qc_stream_mc" and name == "headline":
+            fused = makers["fused_qc_mc"](code, DecodingAlgorithm[alg], clamp,
+                                          schedule)(*args, device=dev)
+            d = max_abs_diff(tuple(got), tuple(fused), torch)
+            diff = max(diff, d)
+            extra = f" fused_qc_mc_err={d}"
+        worst[kernel] = max(worst[kernel], diff)
+        n_fail = int((~got[0]).sum().item())
+        failing[(name, qber)] = failing.get((name, qber), 0) + n_fail
+        print(f"case 2f-{i:02d} {kernel} {name} N={n} {schedule} {alg} "
+              f"qber={qber} clamp={clamp} frames {MC_FRAME0}-"
+              f"{MC_FRAME0 + frames - 1}: unconverged={n_fail}/{frames} "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} "
+              f"max_abs_err={diff}{extra}", flush=True)
+        check(diff == 0, f"mc kernel != plain in case 2f-{i}")
+        if (kernel, name, qber, schedule) in timed_cases and alg == "NMSA" \
+                and not clamp:
+            times[kernel] = (plain_ms, frames)
+    for name, qber in (("headline", 0.036), ("qc1k", 0.045),
+                       ("flagship", 0.0375), ("alist10k", 0.032),
+                       ("alist1k_deg63", 0.004)):
+        check(failing[(name, qber)] > 0, f"{name}: no frame failed at QBER "
+              f"{qber}")
+    print(f"phase 2f: {len(cases)} cases, mc kernels == mc_channel + plain "
+          f"trial exactly ({card})")
     return worst, times
 
 
@@ -1579,12 +1820,16 @@ def main() -> int:
     elapsed("2d")
     worst2e, frame_times = phase_frame_vs_plain(torch, card)
     elapsed("2e")
-    launches, worst3, chunk3 = phase_main_path(torch, card)
+    worst2f, mc_times = phase_mc_vs_plain(torch, card)
+    elapsed("2f")
+    main3 = phase_main_path(torch, card)
     elapsed("3")
-    generic_launches, worst3b, chunk3b = phase_generic_main_path(torch, card)
+    main3b = phase_generic_main_path(torch, card)
     elapsed("3b")
-    stream_launches, worst3c, chunk3c = phase_stream_main_path(torch, card)
+    main3c = phase_stream_main_path(torch, card)
     elapsed("3c")
+    phase_cli_cpu_vs_card(torch, card)
+    elapsed("3f")
     generic_stream_launches, worst3d, chunk3d = phase_generic_stream_main_path(
         torch, card)
     elapsed("3d")
@@ -1608,13 +1853,23 @@ def main() -> int:
                 "bound_by": bound_by, "library_ms": None, "frames": frames,
                 "plain_frames": plain_frames}
 
+    def trial_entry(name, source, replaces, worst2x, main, case):
+        launches, worst, chunk = main["trial"]
+        return entry(name, source, replaces, launches, max(worst2x, worst),
+                     chunk, case)
+
+    def mc_entry(name, source, replaces, main):
+        launches, worst, chunk = main["mc"]
+        return entry(name, source, replaces, launches,
+                     max(worst2f[name], worst), chunk, mc_times[name])
+
     print(json.dumps({"kernels": [
-        entry("fused_qc", "fused_qc.cu", "pallas_qc.py:249", launches,
-              max(worst2, worst3), chunk3, headline_times),
-        entry("fused_generic", "fused_generic.cu", "pallas_generic.py:395",
-              generic_launches, max(worst2b, worst3b), chunk3b, generic_times),
-        entry("qc_stream", "qc_stream.cu", "pallas_qc_stream.py:207",
-              stream_launches, max(worst2c, worst3c), chunk3c, stream_times),
+        trial_entry("fused_qc", "fused_qc.cu", "pallas_qc.py:249", worst2,
+                    main3, headline_times),
+        trial_entry("fused_generic", "fused_generic.cu",
+                    "pallas_generic.py:395", worst2b, main3b, generic_times),
+        trial_entry("qc_stream", "qc_stream.cu", "pallas_qc_stream.py:207",
+                    worst2c, main3c, stream_times),
         entry("generic_stream", "generic_stream.cu",
               "pallas_stream.py:303,434,524,589", generic_stream_launches,
               max(worst2d, worst3d), chunk3d, generic_stream_times),
@@ -1625,6 +1880,11 @@ def main() -> int:
               "pallas_generic.py:1122", ra["fused_generic"][0],
               max(worst2e["fused_generic"], ra["fused_generic"][1]),
               ra["fused_generic"][2], frame_times["fused_generic"]),
+        mc_entry("fused_qc_mc", "fused_qc.cu", "pallas_qc.py:801", main3),
+        mc_entry("qc_stream_mc", "qc_stream.cu", "pallas_qc_stream.py:811",
+                 main3c),
+        mc_entry("fused_generic_mc", "fused_generic.cu",
+                 "pallas_generic.py:1179", main3b),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,14 +1,17 @@
 // Fused generic LDPC decoder for Hopper (sm_90a): one thread block decodes
 // one frame at a time of an arbitrary sparse parity-check matrix, from raw
-// keys (trial mode), from LLRs and a syndrome (decode mode) or from a
-// rate-adapted frame and its LLRs (frame mode) to its per-frame statistics
-// or decisions.
+// keys (trial mode), from LLRs and a syndrome (decode mode), from a
+// rate-adapted frame and its LLRs (frame mode) or from keys it draws itself
+// (mc mode) to its per-frame statistics or decisions.
 //
 // Replaces the TPU kernel qkd_ldpc_v_tpu/ops/pallas_generic.py::_build.kernel
-// (trial, decode and frame modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA;
-// the flooding schedule). The plain torch version it is held to, bit for bit,
-// is qkd_ldpc_v_tpu_torch/ops/decoders.py::make_decoder in float32 (wrapped
-// by ops/fused_generic.py).
+// (trial, decode, frame and mc modes; the min-sum family
+// NMSA/OMSA/ANMSA/AOMSA; the flooding schedule). The plain torch version it
+// is held to, bit for bit, is qkd_ldpc_v_tpu_torch/ops/decoders.py::
+// make_decoder in float32 (wrapped by ops/fused_generic.py), and for the mc
+// mode's keys ops/channel.py::mc_channel. The mc mode draws each bit's keys
+// at its external position, not at the TPU kernel's flat, lane-padded plane
+// position (generic_decode.cuh::mc_stage).
 //
 // The decode body, its index tables and what makes it exact are in
 // csrc/generic_decode.cuh, whose per-edge steps the streamed generic kernel
@@ -34,7 +37,8 @@
 // tables, which do not fit in shared memory beside the messages and come
 // from L2 (the 10k alist code's cbit and bedge are 160 KB each), and three
 // barriers. Keys or LLRs are read once per frame. At the 10k alist code a
-// block takes 217,888 bytes of shared memory, so one block of 1024 threads
+// block takes 217,888 bytes of shared memory (the mc mode 3,092 more for its
+// selection state), so one block of 1024 threads
 // runs per SM; ptxas reports 32 registers per thread and no spill
 // (chip_smoke.py prints it). Messages in a global
 // scratch (four blocks of 512 threads per SM, 84 MB of message state
@@ -46,30 +50,39 @@
 namespace {
 
 // The decode body is generic_decode.cuh's decode_frames; the messages are
-// shared where they fit.
-template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED>
-__global__ void __launch_bounds__(kMaxThreads) fused_generic_kernel(Params p) {
+// shared where they fit. MC: the mc mode (d: what it draws from; unused by
+// the other modes), compiled apart so that its staging's registers do not
+// weigh on the other modes.
+template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED, bool MC>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_generic_kernel(Params p, McDraw d) {
   extern __shared__ float4 smem[];
-  decode_frames<ADAPTIVE, OFFSET, MSG_SHARED>(p,
-                                             reinterpret_cast<char*>(smem));
+  decode_frames<ADAPTIVE, OFFSET, MSG_SHARED, MC>(
+      p, d, reinterpret_cast<char*>(smem));
 }
 
-typedef void (*KernelFn)(Params);
+typedef void (*KernelFn)(Params, McDraw);
 
-template <bool ADAPTIVE, bool OFFSET>
+template <bool ADAPTIVE, bool OFFSET, bool MC>
 KernelFn pick(bool msg_shared) {
-  return msg_shared ? fused_generic_kernel<ADAPTIVE, OFFSET, true>
-                    : fused_generic_kernel<ADAPTIVE, OFFSET, false>;
+  return msg_shared ? fused_generic_kernel<ADAPTIVE, OFFSET, true, MC>
+                    : fused_generic_kernel<ADAPTIVE, OFFSET, false, MC>;
+}
+
+template <bool MC>
+KernelFn kernel_of(int flags, bool msg_shared) {
+  switch (flags & 3) {
+    case 0: return pick<false, false, MC>(msg_shared);
+    case 1: return pick<true, false, MC>(msg_shared);
+    case 2: return pick<false, true, MC>(msg_shared);
+    default: return pick<true, true, MC>(msg_shared);
+  }
 }
 
 // flags: bit 0 adaptive, bit 1 offset (OMSA/AOMSA).
-KernelFn kernel_for(int flags, bool msg_shared) {
-  switch (flags & 3) {
-    case 0: return pick<false, false>(msg_shared);
-    case 1: return pick<true, false>(msg_shared);
-    case 2: return pick<false, true>(msg_shared);
-    default: return pick<true, true>(msg_shared);
-  }
+KernelFn kernel_for(int flags, bool msg_shared, bool mc) {
+  return mc ? kernel_of<true>(flags, msg_shared)
+            : kernel_of<false>(flags, msg_shared);
 }
 
 int prepare(KernelFn kernel, size_t smem) {
@@ -78,15 +91,16 @@ int prepare(KernelFn kernel, size_t smem) {
 }
 
 int launch(const Params& p, int flags, int msg_shared, int grid, int threads,
-           cudaStream_t stream) {
+           cudaStream_t stream, const McDraw& d = McDraw{}) {
   if (threads < 32 || threads > kMaxThreads || grid < 1 || p.batch < 1 ||
       (!msg_shared && p.scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  KernelFn kernel = kernel_for(flags, msg_shared != 0);
-  const size_t smem = shared_bytes(p.n, p.m, p.e, msg_shared != 0);
+  const bool mc = p.mode == kMc;
+  KernelFn kernel = kernel_for(flags, msg_shared != 0, mc);
+  const size_t smem = shared_bytes(p.n, p.m, p.e, msg_shared != 0, mc);
   int err = prepare(kernel, smem);
   if (err != 0) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p, d);
   return (int)cudaGetLastError();
 }
 
@@ -94,17 +108,19 @@ int launch(const Params& p, int flags, int msg_shared, int grid, int threads,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block takes.
-long long fused_generic_shared_bytes(int n, int m, int e, int msg_shared) {
-  return (long long)shared_bytes(n, m, e, msg_shared != 0);
+// Bytes of dynamic shared memory one block takes (mc: in the mc mode).
+long long fused_generic_shared_bytes(int n, int m, int e, int msg_shared,
+                                     int mc) {
+  return (long long)shared_bytes(n, m, e, msg_shared != 0, mc != 0);
 }
 
-// Blocks of this configuration that fit on the current device at once
-// (occupancy per SM times the SM count), or a negative CUDA error.
+// Blocks of this configuration (mc: of the mc mode's kernel) that fit on
+// the current device at once (occupancy per SM times the SM count), or a
+// negative CUDA error.
 int fused_generic_resident_blocks(int n, int m, int e, int flags,
-                                  int msg_shared, int threads) {
-  KernelFn kernel = kernel_for(flags, msg_shared != 0);
-  const size_t smem = shared_bytes(n, m, e, msg_shared != 0);
+                                  int msg_shared, int threads, int mc) {
+  KernelFn kernel = kernel_for(flags, msg_shared != 0, mc != 0);
+  const size_t smem = shared_bytes(n, m, e, msg_shared != 0, mc != 0);
   int err = prepare(kernel, smem);
   if (err != 0) return -err;
   int per_sm = 0;
@@ -176,6 +192,37 @@ int fused_generic_decode(const float* llr, const int8_t* syn, int batch,
   p.iters = iters;
   return launch(p, flags, msg_shared, grid, threads,
                 static_cast<cudaStream_t>(stream));
+}
+
+int fused_generic_mc(unsigned k0, unsigned k1, int frame0, int num_errors,
+                     int batch, const int32_t* table, int n, int m, int e,
+                     int flags, int use_threshold, int max_iter, float log_p,
+                     float primary, float secondary, float threshold,
+                     float* scratch, int msg_shared, int grid, int threads,
+                     int8_t* conv, int8_t* keys, int32_t* iters,
+                     void* stream) {
+  Params p{};
+  p.table = table;
+  p.scratch = scratch;
+  p.n = n;
+  p.m = m;
+  p.e = e;
+  p.batch = batch;
+  p.max_iter = max_iter;
+  p.use_threshold = use_threshold;
+  p.mode = kMc;
+  p.log_p = log_p;
+  p.primary = primary;
+  p.secondary = secondary;
+  p.threshold = threshold;
+  p.conv = conv;
+  p.keys = keys;
+  p.iters = iters;
+  const McDraw d{McKey{k0, k1}, frame0, num_errors, mc_idx_bits(n)};
+  if (num_errors < 0 || num_errors > n || frame0 < 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(p, flags, msg_shared, grid, threads,
+                static_cast<cudaStream_t>(stream), d);
 }
 
 int fused_generic_frame(const int8_t* alice, const float* llr, int batch,

@@ -1,19 +1,27 @@
 // Fused QC-LDPC decoder for Hopper (sm_90a): one thread block decodes one
-// frame, from raw keys (trial mode), from LLRs and a syndrome (decode mode)
-// or from a rate-adapted frame and its LLRs (frame mode) to its per-frame
-// statistics or decisions.
+// frame, from raw keys (trial mode), from LLRs and a syndrome (decode mode),
+// from a rate-adapted frame and its LLRs (frame mode) or from keys it draws
+// itself (mc mode) to its per-frame statistics or decisions.
 //
 // Replaces the TPU kernel qkd_ldpc_v_tpu/ops/pallas_qc.py::_build.kernel
-// (trial, decode and frame modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA;
-// the flooding and layered schedules). The plain torch versions it is held
-// to, bit for bit, are in qkd_ldpc_v_tpu_torch/ops/qc_decoder.py.
+// (trial, decode, frame and mc modes; the min-sum family
+// NMSA/OMSA/ANMSA/AOMSA; the flooding and layered schedules). The plain
+// torch versions it is held to, bit for bit, are in
+// qkd_ldpc_v_tpu_torch/ops/qc_decoder.py, and for the mc mode's keys
+// ops/channel.py::mc_channel.
 //
 // Modes: trial forms the channel LLRs +-log_p from Bob's keys and Alice's
 // syndrome from her keys, and compares the decisions with her keys; decode
 // reads the caller's LLRs and syndrome and writes the decisions; frame
 // reads the caller's LLRs as decode does and forms the syndrome and the key
-// compare from Alice's frame as trial does. Rate-adapted LLRs carry the
-// float32 maximum on shortened bits, so sums can overflow to inf and
+// compare from Alice's frame as trial does; mc is trial on keys drawn in the
+// kernel from the chunk's Philox stream (philox.cuh: Alice's bits, the error
+// sort keys and the exact selection of the num_errors smallest), so that
+// nothing of size [B, N] touches HBM. It holds the keys in the totals plane
+// until the LLRs replace them and draws Alice's bits again for the key
+// compare; the selection's state takes 3 KB more shared memory.
+// Rate-adapted LLRs carry the float32 maximum on shortened bits, so sums can
+// overflow to inf and
 // inf - inf gives NaN: min and max here propagate NaN (min_nan, max_nan),
 // as torch.minimum / torch.maximum and XLA do, where fminf / fmaxf would
 // drop it.
@@ -61,13 +69,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kMaxZ = 1024;
 constexpr int kMaxBlockEdges = 256;
 constexpr int kMaxBaseChecks = 64;
 
-enum Mode { kDecode = 0, kTrial = 1, kFrame = 2 };
+enum Mode { kDecode = 0, kTrial = 1, kFrame = 2, kMc = 3 };
 
 struct Params {
   const int8_t* alice;    // trial, frame: [B, N] 0/1
@@ -79,7 +89,7 @@ struct Params {
   float log_p, primary, secondary, threshold;
   int8_t* dec_out;        // decode: [B, N]
   int8_t* conv;           // [B]
-  int8_t* keys;           // trial, frame: [B]
+  int8_t* keys;           // trial, frame, mc: [B]
   int32_t* iters;         // [B]
 };
 
@@ -130,8 +140,64 @@ __device__ __forceinline__ float minsum_value(float mm, float min1, float min2,
   return f * row_sign * excl * eabs;
 }
 
-template <bool LAYERED, bool ADAPTIVE, bool OFFSET>
-__global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
+// The mc mode's prologue: Alice's bits and the errors of the block's frame
+// (chunk frame d.frame0 + block), drawn from the counter at the thread's
+// positions c*Z + z. Until the LLRs
+// replace it, the plane `tot` holds each position's sort key with Alice's
+// bit in its position field (the index gives the position back). Returns
+// the thread's row mask of Alice's syndrome, and leaves the channel LLRs
+// +-log_p of Bob's bits (Alice's, flipped at the num_errors smallest keys)
+// in tot and, flooding, in llr.
+template <bool LAYERED>
+__device__ unsigned long long mc_prologue(const Params& p, const McDraw& d,
+                                          const int* row_ptr, const int* cols,
+                                          const int* shifts, float* tot,
+                                          float* llr, Selection& sel) {
+  const int Z = p.z, z = threadIdx.x, nb = p.nb, mb = p.mb;
+  const int frame = d.frame0 + (int)blockIdx.x;
+  const uint32_t low = mc_low_mask(d.idx_bits);
+  uint32_t* held = reinterpret_cast<uint32_t*>(tot);
+  for (int c = 0; c < nb; ++c) {
+    const int j = c * Z + z;
+    held[j] = (mc_sort_key(d.key, j, frame, d.idx_bits) & ~low) |
+              (uint32_t)mc_alice(d.key, j, frame);
+  }
+  __syncthreads();  // the keys, and the block-edge table
+  uint32_t kth = 0;
+  if (d.num_errors > 0)
+    kth = kth_smallest(
+        [&](auto visit) {
+          for (int c = 0; c < nb; ++c) {
+            const int j = c * Z + z;
+            visit((held[j] & ~low) | (uint32_t)j);
+          }
+        },
+        d.num_errors, sel);
+  unsigned long long syn_mask = 0;
+  for (int r = 0; r < mb; ++r) {
+    unsigned bit = 0;
+    for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
+      bit ^= held[bit_index(cols[e], shifts[e], z, Z)] & 1u;
+    syn_mask |= (unsigned long long)bit << r;
+  }
+  __syncthreads();  // every thread has read Alice's bits
+  for (int c = 0; c < nb; ++c) {
+    const int j = c * Z + z;
+    const uint32_t h = held[j];
+    const bool flip = d.num_errors > 0 && ((h & ~low) | (uint32_t)j) <= kth;
+    const float v = ((h & 1u) != 0) != flip ? -p.log_p : p.log_p;
+    tot[j] = v;
+    if (!LAYERED) llr[j] = v;
+  }
+  __syncthreads();
+  return syn_mask;
+}
+
+// MC: the mc mode (d: what it draws from; unused by the other modes),
+// compiled apart so that its prologue's registers do not weigh on the other
+// modes.
+template <bool LAYERED, bool ADAPTIVE, bool OFFSET, bool MC>
+__global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p, McDraw d) {
   extern __shared__ int smem[];
   const int Z = p.z, mb = p.mb, nb = p.nb, num_be = p.num_be;
   const int N = nb * Z;
@@ -144,29 +210,34 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
   float* llr = tot + N;  // flooding only
 
   for (int i = z; i < mb + 1 + 2 * num_be; i += Z) smem[i] = p.table[i];
-  for (int c = 0; c < nb; ++c) {
-    const int j = c * Z + z;
-    float v;
-    if (p.mode == kTrial) {
-      v = p.bob[frame * N + j] == 1 ? -p.log_p : p.log_p;
-    } else {
-      v = p.llr[frame * N + j];
-    }
-    tot[j] = v;
-    if (!LAYERED) llr[j] = v;
-  }
-  __syncthreads();
-
   unsigned long long syn_mask = 0;
-  for (int r = 0; r < mb; ++r) {
-    int bit = 0;
-    if (p.mode != kDecode) {
-      for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
-        bit ^= p.alice[frame * N + bit_index(cols[e], shifts[e], z, Z)] & 1;
-    } else {
-      bit = p.syn[frame * (size_t)(mb * Z) + r * Z + z] == 1;
+  if constexpr (MC) {
+    syn_mask = mc_prologue<LAYERED>(
+        p, d, row_ptr, cols, shifts, tot, llr,
+        *reinterpret_cast<Selection*>(tot + (LAYERED ? 1 : 2) * N));
+  } else {
+    for (int c = 0; c < nb; ++c) {
+      const int j = c * Z + z;
+      float v;
+      if (p.mode == kTrial) {
+        v = p.bob[frame * N + j] == 1 ? -p.log_p : p.log_p;
+      } else {
+        v = p.llr[frame * N + j];
+      }
+      tot[j] = v;
+      if (!LAYERED) llr[j] = v;
     }
-    syn_mask |= (unsigned long long)bit << r;
+    __syncthreads();
+    for (int r = 0; r < mb; ++r) {
+      int bit = 0;
+      if (p.mode != kDecode) {
+        for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
+          bit ^= p.alice[frame * N + bit_index(cols[e], shifts[e], z, Z)] & 1;
+      } else {
+        bit = p.syn[frame * (size_t)(mb * Z) + r * Z + z] == 1;
+      }
+      syn_mask |= (unsigned long long)bit << r;
+    }
   }
 
   // Flooding: bit->check messages (channel LLRs at first); layered:
@@ -282,7 +353,12 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
     int ok = 1;
     for (int c = 0; c < nb; ++c) {
       const int j = c * Z + z;
-      ok &= (tot[j] <= 0.f ? 1 : 0) == (p.alice[frame * N + j] & 1);
+      if constexpr (MC) {
+        ok &= (tot[j] <= 0.f ? 1 : 0) ==
+              mc_alice(d.key, j, d.frame0 + (int)frame);
+      } else {
+        ok &= (tot[j] <= 0.f ? 1 : 0) == (p.alice[frame * N + j] & 1);
+      }
     }
     ok = __syncthreads_and(ok);
     if (z == 0) p.keys[frame] = (int8_t)ok;
@@ -299,32 +375,36 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p) {
 }
 
 template <bool LAYERED, bool ADAPTIVE, bool OFFSET>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+int launch(const Params& p, const McDraw& d, int batch, cudaStream_t stream) {
+  const bool mc = p.mode == kMc;
   const size_t table_bytes = sizeof(int) * (p.mb + 1 + 2 * p.num_be);
   const size_t plane_bytes = sizeof(float) * (size_t)p.nb * p.z;
-  const size_t smem = table_bytes + (LAYERED ? 1 : 2) * plane_bytes;
-  auto kernel = fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET>;
+  const size_t smem = table_bytes + (LAYERED ? 1 : 2) * plane_bytes +
+                      (mc ? sizeof(Selection) : 0);
+  auto kernel = mc ? fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET, true>
+                   : fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<batch, p.z, smem, stream>>>(p);
+  kernel<<<batch, p.z, smem, stream>>>(p, d);
   return (int)cudaGetLastError();
 }
 
 // flags: bit 0 layered, bit 1 adaptive, bit 2 offset (OMSA/AOMSA).
-int dispatch(const Params& p, int batch, int flags, cudaStream_t stream) {
+int dispatch(const Params& p, int batch, int flags, cudaStream_t stream,
+             const McDraw& d = McDraw{}) {
   if (p.z < 1 || p.z > kMaxZ || p.num_be > kMaxBlockEdges ||
       p.mb > kMaxBaseChecks || batch < 1)
     return (int)cudaErrorInvalidValue;
   switch (flags & 7) {
-    case 0: return launch<false, false, false>(p, batch, stream);
-    case 1: return launch<true, false, false>(p, batch, stream);
-    case 2: return launch<false, true, false>(p, batch, stream);
-    case 3: return launch<true, true, false>(p, batch, stream);
-    case 4: return launch<false, false, true>(p, batch, stream);
-    case 5: return launch<true, false, true>(p, batch, stream);
-    case 6: return launch<false, true, true>(p, batch, stream);
-    default: return launch<true, true, true>(p, batch, stream);
+    case 0: return launch<false, false, false>(p, d, batch, stream);
+    case 1: return launch<true, false, false>(p, d, batch, stream);
+    case 2: return launch<false, true, false>(p, d, batch, stream);
+    case 3: return launch<true, true, false>(p, d, batch, stream);
+    case 4: return launch<false, false, true>(p, d, batch, stream);
+    case 5: return launch<true, false, true>(p, d, batch, stream);
+    case 6: return launch<false, true, true>(p, d, batch, stream);
+    default: return launch<true, true, true>(p, d, batch, stream);
   }
 }
 
@@ -386,6 +466,38 @@ int fused_qc_decode(const float* llr, const int8_t* syn, int batch,
   p.conv = conv;
   p.iters = iters;
   return dispatch(p, batch, flags, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of the mc mode's selection state in shared memory.
+int mc_selection_bytes() { return (int)sizeof(Selection); }
+
+int fused_qc_mc(unsigned k0, unsigned k1, int frame0, int num_errors,
+                int batch, const int32_t* table, int mb, int nb, int z,
+                int num_be, int flags, int use_threshold, int max_iter,
+                float log_p, float primary, float secondary, float threshold,
+                int8_t* conv, int8_t* keys, int32_t* iters, void* stream) {
+  Params p{};
+  p.table = table;
+  p.mb = mb;
+  p.nb = nb;
+  p.z = z;
+  p.num_be = num_be;
+  p.max_iter = max_iter;
+  p.use_threshold = use_threshold;
+  p.mode = kMc;
+  p.log_p = log_p;
+  p.primary = primary;
+  p.secondary = secondary;
+  p.threshold = threshold;
+  p.conv = conv;
+  p.keys = keys;
+  p.iters = iters;
+  const McDraw d{McKey{k0, k1}, frame0, num_errors,
+                 mc_idx_bits((long long)nb * z)};
+  if (num_errors < 0 || (long long)num_errors > (long long)nb * z ||
+      frame0 < 0)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(p, batch, flags, static_cast<cudaStream_t>(stream), d);
 }
 
 int fused_qc_frame(const int8_t* alice, const float* llr, int batch,

@@ -5,7 +5,10 @@
 // the min-sum family NMSA/OMSA/ANMSA/AOMSA on the flooding schedule. The
 // fused kernel also decodes rate-adapted frames (frame mode): the caller's
 // LLRs as in decode mode, Alice's syndrome and the key compare from Alice's
-// frame as in trial mode.
+// frame as in trial mode; and it draws its own keys (mc mode): internal bit
+// i takes the Philox stream's bits of its external position bit_ext[i]
+// (philox.cuh), so that the mc modes of all three kernels share one channel,
+// ops/channel.py::mc_channel.
 //
 // Both kernels call the same helpers for the channel LLR (input_llr,
 // llr_of_bit), the two-minimum chain (two_min), the row sign (row_sign_of),
@@ -19,8 +22,9 @@
 // own (generic_stream.cu).
 //
 // decode_frames keeps the channel LLRs (N f32), the decisions (N bytes) and
-// Alice's syndrome (M bytes) in shared memory, and the messages there too
-// when MSG_SHARED, else in the caller's global scratch (E floats per block).
+// Alice's syndrome (M bytes) in shared memory, the messages there too when
+// MSG_SHARED, else in the caller's global scratch (E floats per block), and
+// in mc mode the selection state after them.
 //
 // Edges are addressed directly through index tables built on the host from
 // models/layout.py::EdgeLayout, in its internal (degree-sorted) node order:
@@ -42,8 +46,7 @@
 // torch.maximum do (PTX min.NaN / max.NaN), and where every |message| of a
 // check is inf the second minimum is inf too (the plain decoder's tie rule;
 // the chain's second minimum starts at the float32 maximum and would stay
-// there). The streamed kernel keeps fminf / fmaxf and the plain chain, and
-// so differs from the plain decoder on such frames (ROADMAP.md section 3).
+// there). The streamed kernel takes the same NONFINITE helpers.
 // Early exit per frame: the non-adaptive algorithms test the decisions
 // after the bit pass; the adaptive pair tests the previous decisions before
 // the check pass, and the same per-check mismatch picks the secondary
@@ -58,13 +61,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
 
-// What a launch decodes: raw keys (trial), LLRs and a syndrome (decode), or
-// Alice's rate-adapted frame and its LLRs (frame; fused kernel only).
-enum Mode { kDecode = 0, kTrial = 1, kFrame = 2 };
+// What a launch decodes: raw keys (trial), LLRs and a syndrome (decode),
+// Alice's rate-adapted frame and its LLRs (frame; fused kernel only), or keys
+// it draws itself (mc; fused kernel only).
+enum Mode { kDecode = 0, kTrial = 1, kFrame = 2, kMc = 3 };
 
 struct Params {
   const int8_t* alice;    // trial, frame: [B, N] 0/1, external order
@@ -77,7 +83,7 @@ struct Params {
   float log_p, primary, secondary, threshold;
   int8_t* dec_out;        // decode: [B, N]
   int8_t* conv;           // [B]
-  int8_t* keys;           // trial, frame: [B]
+  int8_t* keys;           // trial, frame, mc: [B]
   int32_t* iters;         // [B]
 };
 
@@ -173,13 +179,19 @@ __device__ __forceinline__ float minsum_value(float mm, float min1, float min2,
   return f * row_sign * excl * eabs;
 }
 
+__host__ __device__ inline size_t align16(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
+}
+
 // Dynamic shared memory of one fused block: the LLR plane, decisions,
-// syndrome, then the messages at a 16-byte boundary when they are shared.
+// syndrome, then the messages at a 16-byte boundary when they are shared,
+// then in mc mode the selection state at a 16-byte boundary (the other
+// modes do not reserve it).
 __host__ __device__ inline size_t shared_bytes(int n, int m, int e,
-                                               bool msg_shared) {
-  size_t bytes = sizeof(float) * (size_t)n + (size_t)n + (size_t)m;
-  bytes = (bytes + 15) & ~(size_t)15;
+                                               bool msg_shared, bool mc) {
+  size_t bytes = align16(sizeof(float) * (size_t)n + (size_t)n + (size_t)m);
   if (msg_shared) bytes += sizeof(float) * (size_t)e;
+  if (mc) bytes = align16(bytes) + sizeof(Selection);
   return bytes;
 }
 
@@ -201,8 +213,9 @@ __device__ __forceinline__ float input_llr(const Params& p, const Tables& t,
 // Initial staging of check c: each edge's first bit->check message is the
 // channel LLR of its bit. In trial and frame mode the same pass gathers
 // Alice's bits on the check and returns their parity; one pass over the
-// check's edges
-// keeps the tables' reads at one per edge.
+// check's edges keeps the tables' reads at one per edge. The mc mode (MC)
+// has formed Alice's syndrome already.
+template <bool MC>
 __device__ __forceinline__ int stage_messages(int c, const Params& p,
                                               const Tables& t,
                                               const float* llr, size_t row,
@@ -211,7 +224,7 @@ __device__ __forceinline__ int stage_messages(int c, const Params& p,
   for (int k = t.cptr[c]; k < t.cptr[c + 1]; ++k) {
     const int i = t.cbit[k];
     msg[k] = llr[i];
-    if (p.mode != kDecode) parity ^= p.alice[row + t.bit_ext[i]] & 1;
+    if (!MC && p.mode != kDecode) parity ^= p.alice[row + t.bit_ext[i]] & 1;
   }
   return parity;
 }
@@ -275,12 +288,61 @@ __device__ __forceinline__ int any_unsatisfied(const Params& p, const Tables& t,
   return __syncthreads_or(bad);
 }
 
+// The mc mode's staging of one frame (chunk frame d.frame0 + frame): Alice's
+// bits and the errors drawn from the counter at each internal bit's external
+// position. Until the LLRs
+// replace it, the LLR plane holds each bit's sort key with Alice's bit in its
+// position field (bit_ext gives the position back). Leaves Alice's syndrome
+// in syn, the channel LLRs +-log_p of Bob's bits (Alice's, flipped at the
+// num_errors smallest keys) in llr and the first decisions in dec.
+__device__ __forceinline__ void mc_stage(const Params& p, const McDraw& d,
+                                         const Tables& t, int frame,
+                                         float* llr, int8_t* dec, int8_t* syn,
+                                         Selection& sel) {
+  const int N = p.n, M = p.m, tid = threadIdx.x, nt = blockDim.x;
+  const int fr = d.frame0 + frame;
+  const uint32_t low = mc_low_mask(d.idx_bits);
+  uint32_t* held = reinterpret_cast<uint32_t*>(llr);
+  for (int i = tid; i < N; i += nt) {
+    const int j = t.bit_ext[i];
+    held[i] = (mc_sort_key(d.key, j, fr, d.idx_bits) & ~low) |
+              (uint32_t)mc_alice(d.key, j, fr);
+  }
+  __syncthreads();
+  uint32_t kth = 0;
+  if (d.num_errors > 0)
+    kth = kth_smallest(
+        [&](auto visit) {
+          for (int i = tid; i < N; i += nt)
+            visit((held[i] & ~low) | (uint32_t)t.bit_ext[i]);
+        },
+        d.num_errors, sel);
+  for (int c = tid; c < M; c += nt) {
+    unsigned parity = 0;
+    for (int k = t.cptr[c]; k < t.cptr[c + 1]; ++k)
+      parity ^= held[t.cbit[k]] & 1u;
+    syn[c] = (int8_t)parity;
+  }
+  __syncthreads();  // every thread has read Alice's bits
+  for (int i = tid; i < N; i += nt) {
+    const uint32_t h = held[i];
+    const bool flip =
+        d.num_errors > 0 && ((h & ~low) | (uint32_t)t.bit_ext[i]) <= kth;
+    const float v = llr_of_bit(p, ((h & 1u) != 0) != flip);
+    llr[i] = v;
+    dec[i] = v <= 0.f ? 1 : 0;
+  }
+}
+
 // The fused kernel's persistent block loop: block b decodes frames b,
 // b + grid, ... Threads stride over internal checks in the check steps and
 // over internal bits in the bit steps; each edge has one owner in each
 // pass, so neither pass races, and a barrier separates them.
-template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED>
-__device__ __forceinline__ void decode_frames(const Params& p, char* smem) {
+// MC: the mc mode, which draws from d (launches of any other mode take
+// MC = false and leave d unused).
+template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED, bool MC>
+__device__ __forceinline__ void decode_frames(const Params& p,
+                                              const McDraw& d, char* smem) {
   const int N = p.n, M = p.m, E = p.e;
   const int tid = threadIdx.x, nt = blockDim.x;
   const Tables t = tables_of(p);
@@ -288,21 +350,30 @@ __device__ __forceinline__ void decode_frames(const Params& p, char* smem) {
   int8_t* dec = reinterpret_cast<int8_t*>(smem + sizeof(float) * (size_t)N);
   int8_t* syn = dec + N;
   float* msg = MSG_SHARED
-                   ? reinterpret_cast<float*>(smem +
-                                              shared_bytes(N, M, E, false))
+                   ? reinterpret_cast<float*>(
+                         smem + shared_bytes(N, M, E, false, false))
                    : p.scratch + (size_t)blockIdx.x * E;
+  Selection& sel = *reinterpret_cast<Selection*>(
+      smem + shared_bytes(N, M, E, MSG_SHARED, true) - sizeof(Selection));
 
   for (int frame = blockIdx.x; frame < p.batch; frame += gridDim.x) {
     const size_t row = (size_t)frame * N;
-    for (int i = tid; i < N; i += nt) {
-      const float v = input_llr(p, t, row, i);
-      llr[i] = v;
-      dec[i] = v <= 0.f ? 1 : 0;
-    }
-    __syncthreads();
-    for (int c = tid; c < M; c += nt) {
-      const int parity = stage_messages(c, p, t, llr, row, msg);
-      syn[c] = alice_syndrome(c, p, t, frame, parity);
+    if constexpr (MC) {
+      mc_stage(p, d, t, frame, llr, dec, syn, sel);
+      __syncthreads();
+      for (int c = tid; c < M; c += nt)
+        stage_messages<true>(c, p, t, llr, row, msg);
+    } else {
+      for (int i = tid; i < N; i += nt) {
+        const float v = input_llr(p, t, row, i);
+        llr[i] = v;
+        dec[i] = v <= 0.f ? 1 : 0;
+      }
+      __syncthreads();
+      for (int c = tid; c < M; c += nt) {
+        const int parity = stage_messages<false>(c, p, t, llr, row, msg);
+        syn[c] = alice_syndrome(c, p, t, frame, parity);
+      }
     }
     __syncthreads();
 
@@ -327,11 +398,17 @@ __device__ __forceinline__ void decode_frames(const Params& p, char* smem) {
       }
     }
 
-    // The key compare (trial, frame) or the decision planes (decode).
+    // The key compare (trial, frame; mc draws Alice's bits again) or the
+    // decision planes (decode).
     if (p.mode != kDecode) {
       int ok = 1;
-      for (int i = tid; i < N; i += nt)
-        ok &= dec[i] == (p.alice[row + t.bit_ext[i]] & 1);
+      for (int i = tid; i < N; i += nt) {
+        if constexpr (MC) {
+          ok &= dec[i] == mc_alice(d.key, t.bit_ext[i], d.frame0 + frame);
+        } else {
+          ok &= dec[i] == (p.alice[row + t.bit_ext[i]] & 1);
+        }
+      }
       ok = __syncthreads_and(ok);
       if (tid == 0) p.keys[frame] = (int8_t)ok;
     } else {

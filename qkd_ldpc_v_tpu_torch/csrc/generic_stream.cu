@@ -55,7 +55,10 @@
 //     start.
 //   * One f32 association with the plain decoder: totals llr-first, then
 //     the messages in bedge order one by one; min-sum by two_min,
-//     row_sign_of, minsum_value and clamp_msg.
+//     row_sign_of, minsum_value and clamp_msg, with their NONFINITE flag as
+//     in the fused kernel: min and max keep NaN, and where every |message|
+//     of a check is inf its second minimum is inf (last_min2), so that
+//     rate-adapted frames whose sums overflow follow the plain decoder too.
 //
 // What bounds it: the message traffic to HBM. Each group iteration moves
 // the [E, F] array four times (check-pass read and write, bit-pass gather
@@ -178,27 +181,29 @@ __device__ __forceinline__ void check_group(int c, int lane, const Params& p,
 #pragma unroll
     for (int j = 0; j < kCheckRun; ++j) {
       if (j < deg) {
-        two_min(fabsf(v[j]), j == 0, min1, min2);
+        two_min<true>(fabsf(v[j]), j == 0, min1, min2);
         neg += v[j] < 0.f;
       }
     }
+    min2 = last_min2<true>(deg, min1, min2);
     const float rs = row_sign_of(s, neg);
 #pragma unroll
     for (int j = 0; j < kCheckRun; ++j)
       if (j < deg)
-        run[(size_t)j * F] =
-            clamp_msg(minsum_value<OFFSET>(v[j], min1, min2, rs, f), p);
+        run[(size_t)j * F] = clamp_msg<true>(
+            minsum_value<OFFSET, true>(v[j], min1, min2, rs, f), p);
     return;
   }
   for (int j = 0; j < deg; ++j) {
     const float mm = run[(size_t)j * F];
-    two_min(fabsf(mm), j == 0, min1, min2);
+    two_min<true>(fabsf(mm), j == 0, min1, min2);
     neg += mm < 0.f;
   }
+  min2 = last_min2<true>(deg, min1, min2);
   const float rs = row_sign_of(s, neg);
   for (int j = 0; j < deg; ++j)
-    run[(size_t)j * F] = clamp_msg(
-        minsum_value<OFFSET>(run[(size_t)j * F], min1, min2, rs, f), p);
+    run[(size_t)j * F] = clamp_msg<true>(
+        minsum_value<OFFSET, true>(run[(size_t)j * F], min1, min2, rs, f), p);
 }
 
 // Bit pass over R bits is[r] (those with on[r]) for the lane's frame, from
@@ -242,7 +247,7 @@ __device__ __forceinline__ void bit_nodes(const int* is, const bool* on,
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int j = 0; j < D; ++j)
-        if (j < deg[r]) msg[idx[r][j]] = clamp_msg(tot[r] - v[r][j], p);
+        if (j < deg[r]) msg[idx[r][j]] = clamp_msg<true>(tot[r] - v[r][j], p);
     return;
   }
 #pragma unroll
@@ -252,7 +257,7 @@ __device__ __forceinline__ void bit_nodes(const int* is, const bool* on,
       tot[r] = tot[r] + msg[(size_t)t.bedge[k] * F + lane];
     for (int k = k0; k < k1; ++k) {
       const size_t idx = (size_t)t.bedge[k] * F + lane;
-      msg[idx] = clamp_msg(tot[r] - msg[idx], p);
+      msg[idx] = clamp_msg<true>(tot[r] - msg[idx], p);
     }
   }
 }

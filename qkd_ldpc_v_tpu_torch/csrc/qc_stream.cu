@@ -1,16 +1,23 @@
 // Streamed QC-LDPC decoder for Hopper (sm_90a): one thread block decodes one
 // frame at a time, with the frame's bit totals and check->bit extrinsics in a
-// global scratch of its own, from raw keys (trial mode) or from LLRs and a
-// syndrome (decode mode) to its per-frame statistics or decisions.
+// global scratch of its own, from raw keys (trial mode), from LLRs and a
+// syndrome (decode mode) or from keys it draws itself (mc mode) to its
+// per-frame statistics or decisions.
 //
 // Replaces the TPU kernel
-// qkd_ldpc_v_tpu/ops/pallas_qc_stream.py::_build.kernel (trial and decode
-// modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA; the flooding and layered
-// schedules). It serves the QC codes whose per-frame state does not fit in
-// one block's shared memory (csrc/fused_qc.cu's limit), e.g. every N=102400
-// asset. The plain torch versions it is held to, bit for bit, are in
-// qkd_ldpc_v_tpu_torch/ops/qc_decoder.py; they equal the fused QC kernel,
-// so the two kernels give the same results wherever both run.
+// qkd_ldpc_v_tpu/ops/pallas_qc_stream.py::_build.kernel (trial, decode and
+// mc modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA; the flooding and
+// layered schedules). The mc mode draws Alice's keys and the error sort keys
+// from the chunk's Philox stream (philox.cuh), keeps the sort keys in the
+// slice's extrinsic region for the exact selection and Alice's and Bob's
+// keys as byte planes in the slice (where the TPU kernel spills Alice's keys
+// to HBM), and then decodes as trial mode does; the plain version of its
+// keys is ops/channel.py::mc_channel. It serves the QC codes whose per-frame
+// state does not fit in one block's shared memory (csrc/fused_qc.cu's
+// limit), e.g. every N=102400 asset. The plain torch versions it is held to,
+// bit for bit, are in qkd_ldpc_v_tpu_torch/ops/qc_decoder.py; they equal the
+// fused QC kernel, so the two kernels give the same results wherever both
+// run.
 //
 // Circulant convention: check-aligned index z of block edge (r, c, s) is
 // bit (c, (z + s) mod Z).
@@ -76,12 +83,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxLifting = 32768;
 constexpr int kMaxBlockEdges = 1024;
 constexpr int kMaxBaseChecks = 1024;
+
+// What a launch decodes: LLRs and a syndrome, raw keys, or keys it draws.
+enum Mode { kDecode = 0, kTrial = 1, kMc = 2 };
 
 struct Params {
   const int8_t* alice;    // trial: [B, N] 0/1
@@ -91,11 +103,11 @@ struct Params {
   const int32_t* table;   // row_ptr[mb+1], cols[num_be], shifts[num_be]
   float* scratch;         // [grid, per_block] f32
   long long per_block;    // scratch floats per block
-  int mb, nb, z, num_be, batch, max_iter, use_threshold, trial;
+  int mb, nb, z, num_be, batch, max_iter, use_threshold, mode;
   float log_p, primary, secondary, threshold;
   int8_t* dec_out;        // decode: [B, N]
   int8_t* conv;           // [B]
-  int8_t* keys;           // trial: [B]
+  int8_t* keys;           // trial, mc: [B]
   int32_t* iters;         // [B]
 };
 
@@ -125,9 +137,14 @@ __device__ __forceinline__ int bit_index(int c, int s, int z, int Z) {
   return c * Z + j;
 }
 
-__device__ __forceinline__ float channel_llr(const Params& p, size_t fo,
+// The channel LLR of bit j of the frame at offset fo: +-log_p from Bob's key
+// (the caller's, or in mc mode the slice's plane bob_mc), or the caller's LLR.
+template <bool MC>
+__device__ __forceinline__ float channel_llr(const Params& p,
+                                             const int8_t* bob_mc, size_t fo,
                                              int j) {
-  if (p.trial) return p.bob[fo + j] == 1 ? -p.log_p : p.log_p;
+  if constexpr (MC) return bob_mc[j] == 1 ? -p.log_p : p.log_p;
+  if (p.mode != kDecode) return p.bob[fo + j] == 1 ? -p.log_p : p.log_p;
   return p.llr[fo + j];
 }
 
@@ -153,19 +170,65 @@ __host__ __device__ inline int table_ints(int mb, int num_be) {
   return mb + 1 + 2 * num_be;
 }
 
+// Rows of Z floats in a slice's extrinsic region: one per block edge and,
+// in mc mode, at least one per base column, so that the sort keys fit there.
+__host__ __device__ inline int ext_rows(int nb, int num_be, bool mc) {
+  return mc && nb > num_be ? nb : num_be;
+}
+
+// Scratch floats of one block: the totals, flooding's accumulator, the
+// extrinsics, then Alice's syndrome (M bytes; trial and mc) and, in mc mode,
+// Alice's and Bob's key planes (N bytes each).
 size_t scratch_floats(int mb, int nb, int z, int num_be, bool layered,
-                      bool trial) {
+                      int mode) {
   const size_t n = (size_t)nb * z, m = (size_t)mb * z;
-  size_t floats = (layered ? 1 : 2) * n + (size_t)num_be * z;
-  if (trial) floats += (m + 3) / 4;
+  size_t floats =
+      (layered ? 1 : 2) * n + (size_t)ext_rows(nb, num_be, mode == kMc) * z;
+  if (mode != kDecode) floats += (m + (mode == kMc ? 2 * n : 0) + 3) / 4;
   return (floats + 31) / 32 * 32;  // 128-byte aligned slices
 }
 
+// Dynamic shared memory of one block: the block-edge table and, in mc mode,
+// the selection state.
+size_t shared_bytes(int mb, int num_be, bool mc) {
+  return sizeof(int) * table_ints(mb, num_be) + (mc ? sizeof(Selection) : 0);
+}
+
+// The mc mode's prologue for frame f (chunk frame d.frame0 + f): Alice's key
+// plane and the sort keys (in the extrinsic region, free until the first
+// sweep writes it) from the counter, the exact selection of the num_errors
+// smallest keys, and Bob's key plane. The decode then reads the two planes
+// as trial mode reads the caller's keys.
+__device__ void mc_prologue(const Params& p, const McDraw& d, int f,
+                            uint32_t* keys, int8_t* alice, int8_t* bob,
+                            Selection& sel) {
+  const int N = p.nb * p.z, T = blockDim.x, tid = threadIdx.x;
+  const int frame = d.frame0 + f;
+  for (int j = tid; j < N; j += T) {
+    alice[j] = (int8_t)mc_alice(d.key, j, frame);
+    keys[j] = mc_sort_key(d.key, j, frame, d.idx_bits);
+  }
+  __syncthreads();
+  uint32_t kth = 0;
+  if (d.num_errors > 0)
+    kth = kth_smallest(
+        [&](auto visit) {
+          for (int j = tid; j < N; j += T) visit(keys[j]);
+        },
+        d.num_errors, sel);
+  for (int j = tid; j < N; j += T)
+    bob[j] = (int8_t)(alice[j] ^ (d.num_errors > 0 && keys[j] <= kth));
+  __syncthreads();
+}
+
 // Blocks per SM the compiler is asked to fit by registers: two flooding,
-// one layered (see the note at the top of this file).
-template <bool LAYERED, bool ADAPTIVE, bool OFFSET>
+// one layered (see the note at the top of this file). MC: the mc mode (d:
+// what it draws from; unused by the other modes), compiled apart so that its
+// prologue's registers do not weigh on the other modes; the same bounds give
+// it the same blocks per SM.
+template <bool LAYERED, bool ADAPTIVE, bool OFFSET, bool MC>
 __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
-    qc_stream_kernel(Params p) {
+    qc_stream_kernel(Params p, McDraw d) {
   extern __shared__ int table[];
   const int Z = p.z, mb = p.mb, nb = p.nb, num_be = p.num_be;
   const int N = nb * Z;
@@ -181,20 +244,32 @@ __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
   float* const base = p.scratch + (size_t)blockIdx.x * (size_t)p.per_block;
   float* const ext = base + (LAYERED ? 1 : 2) * (size_t)N;
   int8_t* const syn_scratch =
-      reinterpret_cast<int8_t*>(ext + (size_t)num_be * Z);
+      reinterpret_cast<int8_t*>(ext + (size_t)ext_rows(nb, num_be, MC) * Z);
+  int8_t* const alice_mc = syn_scratch + M;  // mc: Alice's key plane
+  int8_t* const bob_mc = alice_mc + N;       // mc: Bob's key plane
 
   for (int f = blockIdx.x; f < p.batch; f += gridDim.x) {
     const size_t fo = (size_t)f * N;
     float* tot = base;
     float* acc = base + N;  // flooding's rebuild accumulator
-    for (int j = tid; j < N; j += T) tot[j] = channel_llr(p, fo, j);
+    if constexpr (MC)
+      mc_prologue(
+          p, d, f, reinterpret_cast<uint32_t*>(ext), alice_mc, bob_mc,
+          *reinterpret_cast<Selection*>(table + table_ints(mb, num_be)));
+    for (int j = tid; j < N; j += T) tot[j] = channel_llr<MC>(p, bob_mc, fo, j);
     const int8_t* syn;
-    if (p.trial) {
+    if (p.mode != kDecode) {
       for (int r = 0; r < mb; ++r)
         for (int z = tid; z < Z; z += T) {
           int bit = 0;
-          for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e)
-            bit ^= p.alice[fo + bit_index(cols[e], shifts[e], z, Z)] & 1;
+          for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e) {
+            const int j = bit_index(cols[e], shifts[e], z, Z);
+            if constexpr (MC) {
+              bit ^= alice_mc[j] & 1;
+            } else {
+              bit ^= p.alice[fo + j] & 1;
+            }
+          }
           syn_scratch[(size_t)r * Z + z] = (int8_t)bit;
         }
       syn = syn_scratch;  // each thread reads back only its own checks
@@ -207,7 +282,8 @@ __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
     int iters = p.max_iter;
     for (int it = 0; it < p.max_iter; ++it) {
       if (!LAYERED) {
-        for (int j = tid; j < N; j += T) acc[j] = channel_llr(p, fo, j);
+        for (int j = tid; j < N; j += T)
+          acc[j] = channel_llr<MC>(p, bob_mc, fo, j);
         __syncthreads();
       }
       int unsatisfied = 0;  // adaptive flooding: decisions before the update
@@ -283,10 +359,15 @@ __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
       }
     }
 
-    if (p.trial) {
+    if (p.mode != kDecode) {
       int ok = 1;
-      for (int j = tid; j < N; j += T)
-        ok &= (tot[j] <= 0.f ? 1 : 0) == (p.alice[fo + j] & 1);
+      for (int j = tid; j < N; j += T) {
+        if constexpr (MC) {
+          ok &= (tot[j] <= 0.f ? 1 : 0) == (alice_mc[j] & 1);
+        } else {
+          ok &= (tot[j] <= 0.f ? 1 : 0) == (p.alice[fo + j] & 1);
+        }
+      }
       ok = __syncthreads_and(ok);
       if (tid == 0) p.keys[f] = (int8_t)ok;
     } else {
@@ -301,20 +382,25 @@ __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
   }
 }
 
-typedef void (*KernelFn)(Params);
+typedef void (*KernelFn)(Params, McDraw);
 
 // flags: bit 0 layered, bit 1 adaptive, bit 2 offset (OMSA/AOMSA).
-KernelFn kernel_for(int flags) {
+template <bool MC>
+KernelFn kernel_of(int flags) {
   switch (flags & 7) {
-    case 0: return qc_stream_kernel<false, false, false>;
-    case 1: return qc_stream_kernel<true, false, false>;
-    case 2: return qc_stream_kernel<false, true, false>;
-    case 3: return qc_stream_kernel<true, true, false>;
-    case 4: return qc_stream_kernel<false, false, true>;
-    case 5: return qc_stream_kernel<true, false, true>;
-    case 6: return qc_stream_kernel<false, true, true>;
-    default: return qc_stream_kernel<true, true, true>;
+    case 0: return qc_stream_kernel<false, false, false, MC>;
+    case 1: return qc_stream_kernel<true, false, false, MC>;
+    case 2: return qc_stream_kernel<false, true, false, MC>;
+    case 3: return qc_stream_kernel<true, true, false, MC>;
+    case 4: return qc_stream_kernel<false, false, true, MC>;
+    case 5: return qc_stream_kernel<true, false, true, MC>;
+    case 6: return qc_stream_kernel<false, true, true, MC>;
+    default: return qc_stream_kernel<true, true, true, MC>;
   }
+}
+
+KernelFn kernel_for(int flags, bool mc) {
+  return mc ? kernel_of<true>(flags) : kernel_of<false>(flags);
 }
 
 int threads_for(int z) { return z < kMaxThreads ? z : kMaxThreads; }
@@ -325,15 +411,17 @@ bool shape_ok(int mb, int nb, int z, int num_be) {
          nb >= 1 && (long long)nb * z <= INT_MAX;
 }
 
-int launch(const Params& p, int flags, int grid, cudaStream_t stream) {
+int launch(const Params& p, int flags, int grid, cudaStream_t stream,
+           const McDraw& d = McDraw{}) {
   if (!shape_ok(p.mb, p.nb, p.z, p.num_be) || p.batch < 1 || grid < 1 ||
       p.scratch == nullptr ||
       (size_t)p.per_block < scratch_floats(p.mb, p.nb, p.z, p.num_be,
-                                           flags & 1, p.trial))
+                                           flags & 1, p.mode))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * table_ints(p.mb, p.num_be);
-  KernelFn kernel = kernel_for(flags);
-  kernel<<<grid, threads_for(p.z), smem, stream>>>(p);
+  const bool mc = p.mode == kMc;
+  const size_t smem = shared_bytes(p.mb, p.num_be, mc);
+  KernelFn kernel = kernel_for(flags, mc);
+  kernel<<<grid, threads_for(p.z), smem, stream>>>(p, d);
   return (int)cudaGetLastError();
 }
 
@@ -346,19 +434,21 @@ int qc_stream_max_lifting() { return kMaxLifting; }
 int qc_stream_max_block_edges() { return kMaxBlockEdges; }
 int qc_stream_max_base_checks() { return kMaxBaseChecks; }
 
-// Scratch floats one block needs (flags bit 0: layered).
+// Scratch floats one block needs (flags bit 0: layered; mode 0 decode, 1
+// trial, 2 mc).
 long long qc_stream_scratch_floats(int mb, int nb, int z, int num_be,
-                                   int flags, int trial) {
-  return (long long)scratch_floats(mb, nb, z, num_be, flags & 1, trial != 0);
+                                   int flags, int mode) {
+  return (long long)scratch_floats(mb, nb, z, num_be, flags & 1, mode);
 }
 
-// Blocks of this configuration that fit on the current device at once
-// (occupancy per SM times the SM count), or a negative CUDA error.
-int qc_stream_resident_blocks(int mb, int z, int num_be, int flags) {
-  const size_t smem = sizeof(int) * table_ints(mb, num_be);
+// Blocks of this configuration (mc: of the mc mode's kernel) that fit on
+// the current device at once (occupancy per SM times the SM count), or a
+// negative CUDA error.
+int qc_stream_resident_blocks(int mb, int z, int num_be, int flags, int mc) {
+  const size_t smem = shared_bytes(mb, num_be, mc != 0);
   int per_sm = 0;
   int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_for(flags), threads_for(z), smem);
+      &per_sm, kernel_for(flags, mc != 0), threads_for(z), smem);
   if (err != 0) return -err;
   int device = 0, sms = 0;
   err = (int)cudaGetDevice(&device);
@@ -389,7 +479,7 @@ int qc_stream_trial(const int8_t* alice, const int8_t* bob, int batch,
   p.batch = batch;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 1;
+  p.mode = kTrial;
   p.log_p = log_p;
   p.primary = primary;
   p.secondary = secondary;
@@ -419,7 +509,7 @@ int qc_stream_decode(const float* llr, const int8_t* syn, int batch,
   p.batch = batch;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
-  p.trial = 0;
+  p.mode = kDecode;
   p.primary = primary;
   p.secondary = secondary;
   p.threshold = threshold;
@@ -427,6 +517,39 @@ int qc_stream_decode(const float* llr, const int8_t* syn, int batch,
   p.conv = conv;
   p.iters = iters;
   return launch(p, flags, grid, static_cast<cudaStream_t>(stream));
+}
+
+int qc_stream_mc(unsigned k0, unsigned k1, int frame0, int num_errors,
+                 int batch, const int32_t* table, int mb, int nb, int z,
+                 int num_be, int flags, int use_threshold, int max_iter,
+                 float log_p, float primary, float secondary, float threshold,
+                 float* scratch, long long per_block, int grid, int8_t* conv,
+                 int8_t* keys, int32_t* iters, void* stream) {
+  Params p{};
+  p.table = table;
+  p.scratch = scratch;
+  p.per_block = per_block;
+  p.mb = mb;
+  p.nb = nb;
+  p.z = z;
+  p.num_be = num_be;
+  p.batch = batch;
+  p.max_iter = max_iter;
+  p.use_threshold = use_threshold;
+  p.mode = kMc;
+  p.log_p = log_p;
+  p.primary = primary;
+  p.secondary = secondary;
+  p.threshold = threshold;
+  p.conv = conv;
+  p.keys = keys;
+  p.iters = iters;
+  const McDraw d{McKey{k0, k1}, frame0, num_errors,
+                 mc_idx_bits((long long)nb * z)};
+  if (num_errors < 0 || (long long)num_errors > (long long)nb * z ||
+      frame0 < 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(p, flags, grid, static_cast<cudaStream_t>(stream), d);
 }
 
 }  // extern "C"

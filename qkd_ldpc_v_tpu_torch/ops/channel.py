@@ -16,21 +16,28 @@ src/array_and_matrix_operations.cpp:889-950):
 
 Random numbers are inputs. ``inject_errors`` takes its per-position random
 bits from the caller, so tests can feed the exact bits JAX draws.
-``simulation.run_combination`` draws keys and bits from one
-``torch.Generator`` per decode chunk, seeded by ``chunk_seed`` — the
-port's replacement for JAX's threefry ``trial_keys``. The two packages therefore agree statistically, and
-exactly only when given the same keys.
+``mc_channel`` is the keys of the kernels' mc mode: Alice's bits and the
+error sort keys from the Philox stream of a chunk seed (``ops/philox.py``),
+with the 32-bit sort-key rule of the JAX mc kernels
+(``mc_channel_from_bits``, which the tests feed JAX's stubbed stream).
+``simulation.run_combination`` seeds each decode chunk with ``chunk_seed``
+(the port's replacement for JAX's threefry ``trial_keys``) and runs the mc
+mode on it where the engine has one, else draws keys and bits from one
+``torch.Generator`` per chunk. The two packages therefore agree
+statistically, and exactly only when given the same keys.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+from qkd_ldpc_v_tpu_torch.ops.philox import ALICE, ERRORS, stream_words
 from qkd_ldpc_v_tpu_torch.rate_adapt import ALMOST_ZERO
 from qkd_ldpc_v_tpu_torch.utils import PlanCache
 
@@ -127,6 +134,31 @@ def inject_errors(
     kth = torch.kthvalue(keys, num_errors, dim=1).values
     flips = (keys <= kth[:, None]).to(torch.int8)
     return alice ^ flips
+
+
+def mc_channel_from_bits(alice_bits: torch.Tensor, error_bits: torch.Tensor,
+                         num_errors: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mc channel's rule on given random words (the JAX mc kernels'
+    prologue, ``ops/pallas_qc.py:316-349``): Alice's bit is bit 0 of her
+    word; Bob's key flips the ``num_errors`` positions with the smallest
+    32-bit sort keys ``(word >> idx_bits << idx_bits) | p``, and nothing
+    where ``num_errors`` is 0. ``alice_bits`` and ``error_bits`` [B, N] hold
+    32-bit values in an integer dtype; returns ``(alice, bob)`` int8."""
+    alice = (alice_bits.to(torch.int64) & 1).to(torch.int8)
+    return alice, inject_errors(error_bits, alice, num_errors, wide=False)
+
+
+def mc_channel(seed: int, frame0: int, frames: int, n: int, num_errors: int,
+               device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The keys of the kernels' mc mode, ``(alice, bob)`` [frames, n] int8,
+    for frames ``frame0 .. frame0 + frames - 1`` of the chunk whose seed is
+    ``seed`` (``chunk_seed``): ``mc_channel_from_bits`` on the Philox streams
+    of ``ops/philox.py``. The mc kernels draw the same bits in the kernel."""
+    if not 0 <= num_errors <= n:
+        raise ValueError(f"num_errors = {num_errors} is outside 0 .. {n}")
+    words = [stream_words(seed, frame0, frames, n, stream, device)
+             for stream in (ALICE, ERRORS)]
+    return mc_channel_from_bits(*words, num_errors)
 
 
 def llr_from_bits(bits: torch.Tensor, qber: float,

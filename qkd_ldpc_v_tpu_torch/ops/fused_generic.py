@@ -2,16 +2,22 @@
 arbitrary sparse parity-check matrices, and their plain torch versions.
 
 Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_generic.py``
-(``make_pallas_generic_trial``, ``make_pallas_generic_frame_trial`` and
-``make_pallas_generic_decoder``; the kernel is ``csrc/fused_generic.cu``),
-for the min-sum family NMSA, OMSA, ANMSA and AOMSA on the flooding
-schedule:
+(``make_pallas_generic_trial``, ``make_pallas_generic_montecarlo``,
+``make_pallas_generic_frame_trial`` and ``make_pallas_generic_decoder``; the
+kernel is ``csrc/fused_generic.cu``), for the min-sum family NMSA, OMSA,
+ANMSA and AOMSA on the flooding schedule:
 
-  * ``make_fused_generic_trial`` — the Monte-Carlo sweep's hot path for
+  * ``make_fused_generic_trial`` — the Monte-Carlo trial of given keys for
     alist / format-1 / format-2 / dense codes: Alice's and Bob's keys in;
     Alice's syndrome, the channel LLRs, the decode and the key comparison
     all happen in the kernel, which returns per-frame ``(syndromes_match,
     keys_match, iterations)``.
+  * ``make_fused_generic_montecarlo`` — the Monte-Carlo sweep's hot path: a
+    seed in, the keys drawn in the kernel. Each bit draws its keys at its
+    external position, so the port's three mc kernels share one channel
+    (``channel.mc_channel``). This departs on purpose from the TPU kernel,
+    which draws over its flat, lane-padded node planes: its hardware
+    generator's bits cannot be matched anyway.
   * ``make_fused_generic_frame_trial`` — the rate-adaptive sweep's step:
     Alice's rate-adapted frame and its LLRs in; Alice's syndrome, the decode
     and the key comparison in the kernel.
@@ -38,10 +44,9 @@ degree-grouped 128-lane plane layout needs at most ``MAX_TILES``
 128 x 128 tiles (about N = 32k at bit degree 2). The kernel serves every
 code inside it.
 
-Counters: ``COUNTS.launches`` counts kernel launches;
-``COUNTS.plain_on_cuda`` counts plain-version calls on CUDA tensors, which
-only tests and the card smoke's comparisons make. ``reset_counts`` zeroes
-both and ``counts`` reads them.
+Counters: as ``fused_qc.KernelCounts`` (``launches``, ``mc_launches``,
+``plain_calls``, ``plain_on_cuda``); ``reset_counts`` zeroes them and
+``counts`` reads ``(launches, plain_on_cuda)``.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     cached_plans,
     kernel_decoder,
     kernel_frame_trial,
+    kernel_montecarlo,
     kernel_trial,
     pointers,
     stream_of,
@@ -125,7 +131,8 @@ def _lib() -> ctypes.CDLL:
     global _SIGNATURES_SET
     lib = kernels.library()
     if not _SIGNATURES_SET:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint)
         lib.fused_generic_trial.argtypes = [
             p, p, i, p, i, i, i, i, i, i, f, f, f, f, p, i, i, i, p, p, p, p]
         lib.fused_generic_trial.restype = i
@@ -134,9 +141,13 @@ def _lib() -> ctypes.CDLL:
         lib.fused_generic_decode.restype = i
         lib.fused_generic_frame.argtypes = lib.fused_generic_decode.argtypes
         lib.fused_generic_frame.restype = i
-        lib.fused_generic_resident_blocks.argtypes = [i, i, i, i, i, i]
+        lib.fused_generic_mc.argtypes = [
+            u, u, i, i, i, p, i, i, i, i, i, i, f, f, f, f, p, i, i, i, p, p,
+            p, p]
+        lib.fused_generic_mc.restype = i
+        lib.fused_generic_resident_blocks.argtypes = [i, i, i, i, i, i, i]
         lib.fused_generic_resident_blocks.restype = i
-        lib.fused_generic_shared_bytes.argtypes = [i, i, i, i]
+        lib.fused_generic_shared_bytes.argtypes = [i, i, i, i, i]
         lib.fused_generic_shared_bytes.restype = ctypes.c_longlong
         _SIGNATURES_SET = True
     return lib
@@ -167,10 +178,13 @@ def launch_tables(layout: EdgeLayout) -> np.ndarray:
 
 class _Launch:
     """Launch plan of one code, algorithm family and device: the index
-    tables on the device, where the messages live, and the persistent
-    grid's size. ``trial``, ``frame`` and ``decode`` launch the kernel and
+    tables on the device and, for the mc mode and for the other modes
+    (compiled apart; the mc mode's selection state takes shared memory of
+    its own), where the messages live and the persistent grid's size.
+    ``trial``, ``mc``, ``frame`` and ``decode`` launch the kernel and
     return its CUDA error code (arguments: see ``fused_qc.kernel_trial``,
-    ``fused_qc.kernel_frame_trial`` and ``fused_qc.kernel_decoder``)."""
+    ``fused_qc.kernel_montecarlo``, ``fused_qc.kernel_frame_trial`` and
+    ``fused_qc.kernel_decoder``)."""
 
     def __init__(self, matrix: HMatrix, flags: int, device: torch.device):
         layout = layout_for(matrix)
@@ -182,33 +196,35 @@ class _Launch:
                 "streamed generic kernel (ops/generic_stream.py)"
             )
         lib = _lib()
-        self.msg_shared = int(lib.fused_generic_shared_bytes(
-            self.n, self.m, self.e, 1) <= MAX_SHARED_BYTES)
-        shared = lib.fused_generic_shared_bytes(self.n, self.m, self.e,
-                                                self.msg_shared)
-        if shared > MAX_SHARED_BYTES:
-            raise NotImplementedError(
-                f"fused generic kernel: {shared} bytes of shared memory per "
-                f"block exceed {MAX_SHARED_BYTES} (N={self.n}, M={self.m})"
-            )
-        with torch.cuda.device(device):
-            resident = lib.fused_generic_resident_blocks(
-                self.n, self.m, self.e, flags, self.msg_shared, THREADS)
-        if resident <= 0:
-            raise RuntimeError(
-                f"fused generic kernel: no block fits on {device} "
-                f"(CUDA error {-resident})")
-        self.resident = resident
+        self.msg_shared, self.resident = {}, {}
+        for mc in (False, True):
+            shared = {s: lib.fused_generic_shared_bytes(
+                self.n, self.m, self.e, s, int(mc)) for s in (1, 0)}
+            self.msg_shared[mc] = int(shared[1] <= MAX_SHARED_BYTES)
+            if shared[self.msg_shared[mc]] > MAX_SHARED_BYTES:
+                raise NotImplementedError(
+                    f"fused generic kernel: {shared[0]} bytes of shared "
+                    f"memory per block exceed {MAX_SHARED_BYTES} "
+                    f"(N={self.n}, M={self.m})")
+            with torch.cuda.device(device):
+                resident = lib.fused_generic_resident_blocks(
+                    self.n, self.m, self.e, flags, self.msg_shared[mc],
+                    THREADS, int(mc))
+            if resident <= 0:
+                raise RuntimeError(
+                    f"fused generic kernel: no block fits on {device} "
+                    f"(CUDA error {-resident})")
+            self.resident[mc] = resident
         self.table = torch.tensor(launch_tables(layout), dtype=torch.int32,
                                   device=device)
         self.shape = (self.table.data_ptr(), self.n, self.m, self.e)
 
-    def _scratch(self, batch: int, device):
+    def _scratch(self, batch: int, device, mc: bool = False):
         """(scratch or None, grid) of one launch. The scratch (messages not
         shared) is freed once the launch is queued; the caching allocator
         reuses it only in stream order."""
-        grid = min(batch, self.resident)
-        if self.msg_shared:
+        grid = min(batch, self.resident[mc])
+        if self.msg_shared[mc]:
             return None, grid
         return torch.empty((grid, self.e), dtype=torch.float32,
                            device=device), grid
@@ -217,22 +233,28 @@ class _Launch:
         scratch, grid = self._scratch(alice.shape[0], alice.device)
         return _lib().fused_generic_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            _ptr(scratch), self.msg_shared, grid, THREADS, *pointers(*outs),
-            stream_of(alice))
+            _ptr(scratch), self.msg_shared[False], grid, THREADS,
+            *pointers(*outs), stream_of(alice))
+
+    def mc(self, draw, scalars, outs) -> int:
+        scratch, grid = self._scratch(draw[-1], outs[0].device, mc=True)
+        return _lib().fused_generic_mc(
+            *draw, *self.shape, *scalars, _ptr(scratch), self.msg_shared[True],
+            grid, THREADS, *pointers(*outs), stream_of(outs[0]))
 
     def frame(self, alice, llr, scalars, outs) -> int:
         scratch, grid = self._scratch(alice.shape[0], alice.device)
         return _lib().fused_generic_frame(
             *pointers(alice, llr), alice.shape[0], *self.shape, *scalars,
-            _ptr(scratch), self.msg_shared, grid, THREADS, *pointers(*outs),
-            stream_of(alice))
+            _ptr(scratch), self.msg_shared[False], grid, THREADS,
+            *pointers(*outs), stream_of(alice))
 
     def decode(self, llr, syndrome, scalars, outs) -> int:
         scratch, grid = self._scratch(llr.shape[0], llr.device)
         return _lib().fused_generic_decode(
             *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            _ptr(scratch), self.msg_shared, grid, THREADS, *pointers(*outs),
-            stream_of(llr))
+            _ptr(scratch), self.msg_shared[False], grid, THREADS,
+            *pointers(*outs), stream_of(llr))
 
 
 _launch_plan = cached_plans(_Launch)
@@ -261,6 +283,19 @@ def generic_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
     return kernel_trial(kernel, counts, plan_for, matrix,
                         _flags(algorithm), matrix.num_bit_nodes,
                         max_iterations, use_threshold, plain)
+
+
+def generic_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
+                       matrix: HMatrix, algorithm: DecodingAlgorithm,
+                       max_iterations: int, use_threshold: bool) -> Callable:
+    """``fused_qc.kernel_montecarlo`` of a generic kernel, with the generic
+    plain trial."""
+    check_algorithm(algorithm, kernel)
+    plain = make_trial(layout_for(matrix), algorithm, max_iterations,
+                       use_threshold, torch.float32)
+    return kernel_montecarlo(kernel, counts, plan_for, matrix,
+                             _flags(algorithm), matrix.num_bit_nodes,
+                             max_iterations, use_threshold, plain)
 
 
 def generic_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
@@ -295,6 +330,23 @@ def make_fused_generic_trial(
     """
     return generic_trial("fused generic", COUNTS, _launch_plan, matrix,
                          algorithm, max_iterations, use_threshold)
+
+
+def make_fused_generic_montecarlo(
+    matrix: HMatrix,
+    algorithm: DecodingAlgorithm,
+    max_iterations: int,
+    use_threshold: bool,
+) -> Callable:
+    """Fused Monte-Carlo trials with keys drawn in the kernel (the
+    counterpart of ``make_pallas_generic_montecarlo``): ``mc(seed, frame0,
+    batch, num_errors, log_p, primary, secondary, threshold, device="cuda")
+    -> (syndromes_match, keys_match, iterations)``, as
+    ``fused_qc.make_fused_qc_montecarlo``. ``mc.plain`` is
+    ``channel.mc_channel`` followed by the plain trial.
+    """
+    return generic_montecarlo("fused generic", COUNTS, _launch_plan, matrix,
+                              algorithm, max_iterations, use_threshold)
 
 
 def make_fused_generic_frame_trial(

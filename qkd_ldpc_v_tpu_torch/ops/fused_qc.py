@@ -2,13 +2,17 @@
 torch versions, and the wrapper body both QC kernels share.
 
 Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_qc.py`` (``make_pallas_qc_trial``,
-``make_pallas_qc_frame_trial`` and ``make_pallas_qc_decoder``; the kernel is
-``csrc/fused_qc.cu``):
+``make_pallas_qc_montecarlo``, ``make_pallas_qc_frame_trial`` and
+``make_pallas_qc_decoder``; the kernel is ``csrc/fused_qc.cu``):
 
-  * ``make_fused_qc_trial`` — the Monte-Carlo sweep's hot path: Alice's and
-    Bob's keys in; Alice's syndrome, the channel LLRs, the decode and the
-    key comparison all happen in the kernel, which returns per-frame
+  * ``make_fused_qc_trial`` — the Monte-Carlo trial of given keys: Alice's
+    and Bob's keys in; Alice's syndrome, the channel LLRs, the decode and
+    the key comparison all happen in the kernel, which returns per-frame
     ``(syndromes_match, keys_match, iterations)``.
+  * ``make_fused_qc_montecarlo`` — the Monte-Carlo sweep's hot path: a seed
+    in; the kernel also draws the keys (``ops/philox.py``), so nothing of
+    size [B, N] touches device memory. Its plain version is
+    ``channel.mc_channel`` followed by the plain trial.
   * ``make_fused_qc_frame_trial`` — the rate-adaptive sweep's step: Alice's
     rate-adapted frame and its LLRs in (``channel.build_frames``); Alice's
     syndrome, the decode and the key comparison happen in the kernel, which
@@ -19,10 +23,11 @@ Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_qc.py`` (``make_pallas_qc_trial``,
 Routing is by the tensors' device and nothing else: CPU tensors go to the
 plain version (``ops/qc_decoder.py``), CUDA tensors launch the kernel, and
 any other device raises. There is no fallback from a failed launch.
-``kernel_trial``, ``kernel_frame_trial`` and ``kernel_decoder`` hold that
-wrapper body once for every kernel of the package; ``qc_trial`` and
-``qc_decoder`` give it the QC plain versions, and the streamed QC kernel
-(``ops/qc_stream.py``) uses them with its own launch plan.
+``kernel_trial``, ``kernel_montecarlo``, ``kernel_frame_trial`` and
+``kernel_decoder`` hold that wrapper body once for every kernel of the
+package; ``qc_trial``, ``qc_montecarlo`` and ``qc_decoder`` give it the QC
+plain versions, and the streamed QC kernel (``ops/qc_stream.py``) uses them
+with its own launch plan.
 
 ``fused_qc_fits(qc, layered)`` says, without building anything, whether the
 kernel holds a code: Z, the block-edge count and the base rows within its
@@ -30,15 +35,19 @@ limits, and one frame's totals (and, flooding, its channel LLRs) within a
 block's shared memory. Codes beyond it run on the streamed QC kernel;
 ``simulation.qc_kernel`` makes that choice.
 
-Counters: ``COUNTS.launches`` counts kernel launches;
-``COUNTS.plain_on_cuda`` counts plain-version calls on CUDA tensors, which
-only tests and the card smoke's comparisons make. ``reset_counts`` zeroes
-both and ``counts`` reads them.
+Counters: ``COUNTS.launches`` counts kernel launches in the trial, frame
+and decode modes and ``COUNTS.mc_launches`` those in the mc mode;
+``COUNTS.plain_calls`` counts plain-version calls by device type and mode,
+``COUNTS.plain_on_cuda`` those on CUDA tensors (which only tests and the
+card smoke's comparisons make) and ``COUNTS.plain(mode)`` those of one
+mode. ``reset_counts`` zeroes them and ``counts`` reads ``(launches,
+plain_on_cuda)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -46,8 +55,9 @@ import torch
 from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
-from qkd_ldpc_v_tpu_torch.ops.channel import qc_syndrome
+from qkd_ldpc_v_tpu_torch.ops.channel import mc_channel, qc_syndrome
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult, frame_trial
+from qkd_ldpc_v_tpu_torch.ops.philox import key_of
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import (
     base_tables,
     check_algorithm,
@@ -58,24 +68,42 @@ from qkd_ldpc_v_tpu_torch.utils import PlanCache
 
 
 class KernelCounts:
-    """One kernel's counters: launches of the kernel, and calls of its plain
-    version on CUDA tensors."""
+    """One kernel's counters: launches of the kernel in the trial, frame and
+    decode modes (``launches``) and in the mc mode (``mc_launches``), and
+    calls of its plain version keyed by ``(device type, mode)``
+    (``plain_calls``), from which ``plain_on_cuda`` and ``plain`` read."""
 
     def __init__(self) -> None:
-        self.launches = 0
-        self.plain_on_cuda = 0
+        self.reset()
 
     def reset(self) -> None:
         self.launches = 0
-        self.plain_on_cuda = 0
+        self.mc_launches = 0
+        self.plain_calls = Counter()
+
+    @property
+    def plain_on_cuda(self) -> int:
+        """Plain-version calls on CUDA tensors."""
+        return sum(n for (device, _), n in self.plain_calls.items()
+                   if device == "cuda")
+
+    def plain(self, mode: str) -> int:
+        """Plain-version calls of ``mode`` on any device."""
+        return sum(n for (_, m), n in self.plain_calls.items() if m == mode)
 
     def get(self) -> Tuple[int, int]:
-        """(kernel launches, plain-version calls on CUDA tensors)."""
+        """(kernel launches outside the mc mode, plain-version calls on CUDA
+        tensors)."""
         return self.launches, self.plain_on_cuda
 
-    def count_plain(self, t: torch.Tensor) -> None:
-        if t.device.type == "cuda":
-            self.plain_on_cuda += 1
+    def count_launch(self, mode: str) -> None:
+        if mode == "mc":
+            self.mc_launches += 1
+        else:
+            self.launches += 1
+
+    def count_plain(self, device: torch.device, mode: str) -> None:
+        self.plain_calls[device.type, mode] += 1
 
 
 COUNTS = KernelCounts()
@@ -89,6 +117,10 @@ MAX_SHARED_BYTES = 232448
 MAX_LIFTING = 1024
 MAX_BLOCK_EDGES = 256
 MAX_BASE_CHECKS = 64
+# Shared memory of the mc mode's selection state (csrc/philox.cuh::Selection:
+# 256 bins, 512 listed keys, five words; a card test holds it equal to the
+# library's).
+SELECTION_BYTES = 4 * (256 + 512 + 5)
 
 _TABLES = PlanCache()
 _SIGNATURES_SET = False
@@ -148,7 +180,8 @@ def _lib() -> ctypes.CDLL:
     global _SIGNATURES_SET
     lib = kernels.library()
     if not _SIGNATURES_SET:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint)
         lib.fused_qc_trial.argtypes = [
             p, p, i, p, i, i, i, i, i, i, i, f, f, f, f, p, p, p, p]
         lib.fused_qc_trial.restype = i
@@ -157,8 +190,11 @@ def _lib() -> ctypes.CDLL:
         lib.fused_qc_decode.restype = i
         lib.fused_qc_frame.argtypes = lib.fused_qc_decode.argtypes
         lib.fused_qc_frame.restype = i
+        lib.fused_qc_mc.argtypes = [
+            u, u, i, i, i, p, i, i, i, i, i, i, i, f, f, f, f, p, p, p, p]
+        lib.fused_qc_mc.restype = i
         for name in ("fused_qc_max_lifting", "fused_qc_max_block_edges",
-                     "fused_qc_max_base_checks"):
+                     "fused_qc_max_base_checks", "mc_selection_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         _SIGNATURES_SET = True
@@ -185,7 +221,7 @@ def _unfit_reason(qc: QCMatrix, layered: bool) -> Optional[str]:
     if reason is not None:
         return reason
     shared = 4 * (qc.base_checks + 1 + 2 * len(qc.block_edges)) + \
-        (1 if layered else 2) * 4 * qc.num_bit_nodes
+        (1 if layered else 2) * 4 * qc.num_bit_nodes + SELECTION_BYTES
     if shared > MAX_SHARED_BYTES:
         return (f"{shared} bytes of shared memory per frame exceed "
                 f"{MAX_SHARED_BYTES}")
@@ -193,8 +229,9 @@ def _unfit_reason(qc: QCMatrix, layered: bool) -> Optional[str]:
 
 
 def fused_qc_fits(qc: QCMatrix, layered: bool) -> bool:
-    """Whether the fused kernel holds this code (its limits above and one
-    frame's totals in shared memory). Pure Python: routing needs no build."""
+    """Whether the fused kernel holds this code in every mode (its limits
+    above, and one frame's totals and the mc mode's selection state in
+    shared memory). Pure Python: routing needs no build."""
     return _unfit_reason(qc, layered) is None
 
 
@@ -225,9 +262,9 @@ def cached_plans(make: Callable) -> Callable:
 class _Launch:
     """Launch plan of one code on one device: the block-edge table
     (row_ptr[mb+1], cols[num_be], shifts[num_be] int32, storage order).
-    ``trial``, ``frame`` and ``decode`` launch the kernel and return its
-    CUDA error code (arguments: see ``kernel_trial``,
-    ``kernel_frame_trial`` and ``kernel_decoder``)."""
+    ``trial``, ``mc``, ``frame`` and ``decode`` launch the kernel and return
+    its CUDA error code (arguments: see ``kernel_trial``,
+    ``kernel_montecarlo``, ``kernel_frame_trial`` and ``kernel_decoder``)."""
 
     def __init__(self, qc: QCMatrix, layered: bool, device: torch.device):
         reason = _unfit_reason(qc, layered)
@@ -245,6 +282,11 @@ class _Launch:
         return _lib().fused_qc_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
             *pointers(*outs), stream_of(alice))
+
+    def mc(self, draw, scalars, outs) -> int:
+        return _lib().fused_qc_mc(
+            *draw, *self.shape, *scalars, *pointers(*outs),
+            stream_of(outs[0]))
 
     def frame(self, alice, llr, scalars, outs) -> int:
         return _lib().fused_qc_frame(
@@ -283,20 +325,42 @@ def raise_on_error(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
+def _launch_stats(kernel: str, what: str, counts: KernelCounts,
+                  device: torch.device, batch: int, launch: Callable):
+    """Per-frame statistics ``(conv, keys, iters)`` of ``batch`` frames from
+    one launch of a kernel's mode ``what``: ``launch(outs)`` fills ``outs =
+    (conv int8, keys int8, iters int32)`` on ``device`` and returns the CUDA
+    error code, which raises; the launch is counted."""
+    conv = torch.empty(batch, dtype=torch.int8, device=device)
+    keys = torch.empty(batch, dtype=torch.int8, device=device)
+    iters = torch.empty(batch, dtype=torch.int32, device=device)
+    if batch == 0:
+        return conv.bool(), keys.bool(), iters
+    raise_on_error(launch((conv, keys, iters)), f"{kernel} {what}")
+    counts.count_launch(what)
+    return conv.bool(), keys.bool(), iters
+
+
+def _launch_scalars(flags: int, use_threshold: bool, max_iterations: int,
+                    *scalars) -> tuple:
+    return (flags, int(use_threshold), int(max_iterations),
+            *(float(x) for x in scalars))
+
+
 def _stats_wrapper(kernel: str, what: str, counts: KernelCounts,
                    plan_for: Callable, code, flags: int, n: int,
                    max_iterations: int, use_threshold: bool,
                    second: Tuple[str, torch.dtype], plain: Callable) -> Tuple[
                        Callable, Callable]:
-    """The body of the wrappers that return per-frame statistics: checks,
-    routing by device, outputs and counting. ``call(alice, other,
-    scalars)`` takes Alice's keys or frame [B, n] int8, the second input
-    ``second = (name, dtype)`` [B, n] and the call's float scalars, and
-    launches the plan's method ``what``; ``counted_plain(alice, other,
+    """The body of the wrappers that return per-frame statistics from
+    tensors: checks, routing by device, outputs and counting. ``call(alice,
+    other, scalars)`` takes Alice's keys or frame [B, n] int8, the second
+    input ``second = (name, dtype)`` [B, n] and the call's float scalars,
+    and launches the plan's method ``what``; ``counted_plain(alice, other,
     *scalars)`` runs ``plain`` and counts it."""
 
     def counted_plain(alice, other, *scalars):
-        counts.count_plain(alice)
+        counts.count_plain(alice.device, what)
         return plain(alice, other, *scalars)
 
     def call(alice, other, scalars):
@@ -309,18 +373,12 @@ def _stats_wrapper(kernel: str, what: str, counts: KernelCounts,
             raise NotImplementedError(
                 f"{kernel} {what}: no kernel for device {alice.device}")
         plan = plan_for(code, flags, alice.device)
-        conv = torch.empty(b, dtype=torch.int8, device=alice.device)
-        keys = torch.empty(b, dtype=torch.int8, device=alice.device)
-        iters = torch.empty(b, dtype=torch.int32, device=alice.device)
-        if b == 0:
-            return conv.bool(), keys.bool(), iters
-        launch_scalars = (flags, int(use_threshold), int(max_iterations),
-                          *(float(x) for x in scalars))
-        raise_on_error(getattr(plan, what)(alice, other, launch_scalars,
-                                           (conv, keys, iters)),
-                       f"{kernel} {what}")
-        counts.launches += 1
-        return conv.bool(), keys.bool(), iters
+        launch_scalars = _launch_scalars(flags, use_threshold,
+                                         max_iterations, *scalars)
+        return _launch_stats(
+            kernel, what, counts, alice.device, b,
+            lambda outs: getattr(plan, what)(alice, other, launch_scalars,
+                                             outs))
 
     return call, counted_plain
 
@@ -346,6 +404,60 @@ def kernel_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
 
     trial.plain = counted_plain
     return trial
+
+
+def kernel_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
+                      code, flags: int, n: int, max_iterations: int,
+                      use_threshold: bool, plain: Callable) -> Callable:
+    """The mc wrapper body, as ``kernel_trial``: ``mc(seed, frame0, batch,
+    num_errors, log_p, primary, secondary, threshold, device="cuda")``
+    decodes frames ``frame0 .. frame0 + batch - 1`` of the chunk whose seed
+    is ``seed`` (``channel.chunk_seed``) with keys drawn from its Philox
+    stream, ``num_errors`` errors each, and returns ``(syndromes_match,
+    keys_match, iterations)`` on ``device``. The plan's ``mc(draw, scalars,
+    outs)`` launches the kernel's mc mode with ``draw = (k0, k1, frame0,
+    num_errors, batch)`` and the trial's ``scalars``. ``mc.plain`` is
+    ``channel.mc_channel`` followed by ``plain``, the plain trial; a CPU
+    ``device`` runs it, CUDA launches the kernel, and any other device
+    raises."""
+
+    def check(seed, frame0, batch, num_errors):
+        key_of(seed)
+        if batch < 0 or frame0 < 0 or frame0 + batch > 1 << 31:
+            raise ValueError(f"frames {frame0} .. {frame0 + batch - 1} are "
+                             "outside 0 .. 2**31 - 1")
+        if not 0 <= num_errors <= n:
+            raise ValueError(f"num_errors = {num_errors} is outside 0 .. {n}")
+
+    def counted_plain(seed, frame0, batch, num_errors, log_p, primary=1.0,
+                      secondary=1.0, threshold=0.0, device="cpu"):
+        device = torch.device(device)
+        check(seed, frame0, batch, num_errors)
+        counts.count_plain(device, "mc")
+        alice, bob = mc_channel(seed, frame0, batch, n, num_errors, device)
+        return plain(alice, bob, log_p, primary, secondary, threshold)
+
+    def mc(seed, frame0, batch, num_errors, log_p, primary=1.0,
+           secondary=1.0, threshold=0.0, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cpu":
+            return counted_plain(seed, frame0, batch, num_errors, log_p,
+                                 primary, secondary, threshold, device)
+        if device.type != "cuda":
+            raise NotImplementedError(
+                f"{kernel} mc: no kernel for device {device}")
+        check(seed, frame0, batch, num_errors)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        plan = plan_for(code, flags, device)
+        draw = (*key_of(seed), int(frame0), int(num_errors), int(batch))
+        scalars = _launch_scalars(flags, use_threshold, max_iterations,
+                                  log_p, primary, secondary, threshold)
+        return _launch_stats(kernel, "mc", counts, device, batch,
+                             lambda outs: plan.mc(draw, scalars, outs))
+
+    mc.plain = counted_plain
+    return mc
 
 
 def kernel_frame_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
@@ -378,7 +490,7 @@ def kernel_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
 
     def counted_plain(llr, syndrome, primary=1.0, secondary=1.0,
                       threshold=0.0):
-        counts.count_plain(llr)
+        counts.count_plain(llr.device, "decode")
         return plain(llr, syndrome, primary, secondary, threshold)
 
     def decode(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
@@ -396,23 +508,22 @@ def kernel_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
         iters = torch.empty(b, dtype=torch.int32, device=llr.device)
         if b == 0:
             return DecodeResult(dec, conv.bool(), iters)
-        scalars = (flags, int(use_threshold), int(max_iterations),
-                   float(primary), float(secondary), float(threshold))
+        scalars = _launch_scalars(flags, use_threshold, max_iterations,
+                                  primary, secondary, threshold)
         raise_on_error(plan.decode(llr, syndrome, scalars, (dec, conv, iters)),
                        f"{kernel} decode")
-        counts.launches += 1
+        counts.count_launch("decode")
         return DecodeResult(dec, conv.bool(), iters)
 
     decode.plain = counted_plain
     return decode
 
 
-def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
-             qc: QCMatrix, algorithm: DecodingAlgorithm, max_iterations: int,
-             use_threshold: bool, schedule: str) -> Callable:
-    """``kernel_trial`` of a QC kernel, with the QC plain version
-    (``ops/qc_decoder.py``) in the schedule asked for."""
-    layered = check_schedule(schedule)
+def _plain_trial(qc, algorithm, max_iterations, use_threshold,
+                 layered) -> Callable:
+    """The QC kernels' plain trial: ``plain(alice, bob, log_p, primary,
+    secondary, threshold)``, the LLRs -/+log_p by Bob's bit, then
+    ``_plain_frame_trial``."""
     tail = _plain_frame_trial(qc, algorithm, max_iterations, use_threshold,
                               layered)
 
@@ -421,9 +532,34 @@ def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
         return tail(alice, torch.where(bob == 1, -lp, lp), primary, secondary,
                     threshold)
 
+    return plain
+
+
+def qc_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
+             qc: QCMatrix, algorithm: DecodingAlgorithm, max_iterations: int,
+             use_threshold: bool, schedule: str) -> Callable:
+    """``kernel_trial`` of a QC kernel, with the QC plain version
+    (``ops/qc_decoder.py``) in the schedule asked for."""
+    layered = check_schedule(schedule)
     return kernel_trial(kernel, counts, plan_for, qc,
                         kernel_flags(algorithm, layered), qc.num_bit_nodes,
-                        max_iterations, use_threshold, plain)
+                        max_iterations, use_threshold,
+                        _plain_trial(qc, algorithm, max_iterations,
+                                     use_threshold, layered))
+
+
+def qc_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
+                  qc: QCMatrix, algorithm: DecodingAlgorithm,
+                  max_iterations: int, use_threshold: bool,
+                  schedule: str) -> Callable:
+    """``kernel_montecarlo`` of a QC kernel, with the QC plain trial in the
+    schedule asked for."""
+    layered = check_schedule(schedule)
+    return kernel_montecarlo(kernel, counts, plan_for, qc,
+                             kernel_flags(algorithm, layered),
+                             qc.num_bit_nodes, max_iterations, use_threshold,
+                             _plain_trial(qc, algorithm, max_iterations,
+                                          use_threshold, layered))
 
 
 def qc_frame_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
@@ -477,6 +613,27 @@ def make_fused_qc_trial(
     """
     return qc_trial("fused QC", COUNTS, _launch_plan, qc, algorithm,
                     max_iterations, use_threshold, schedule)
+
+
+def make_fused_qc_montecarlo(
+    qc: QCMatrix,
+    algorithm: DecodingAlgorithm,
+    max_iterations: int,
+    use_threshold: bool,
+    schedule: str = "flooding",
+) -> Callable:
+    """Fused Monte-Carlo trials with keys drawn in the kernel (the
+    counterpart of ``make_pallas_qc_montecarlo``).
+
+    ``mc(seed, frame0, batch, num_errors, log_p, primary, secondary,
+    threshold, device="cuda") -> (syndromes_match [B] bool, keys_match [B]
+    bool, iterations [B] int32)``: frames ``frame0 .. frame0 + batch - 1``
+    of the chunk whose seed is ``seed``, each with Alice's key and exactly
+    ``num_errors`` errors from ``channel.mc_channel``'s stream. ``mc.plain``
+    is ``mc_channel`` followed by the plain trial.
+    """
+    return qc_montecarlo("fused QC", COUNTS, _launch_plan, qc, algorithm,
+                         max_iterations, use_threshold, schedule)
 
 
 def make_fused_qc_frame_trial(

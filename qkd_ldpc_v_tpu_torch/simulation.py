@@ -40,11 +40,20 @@ forms Alice's syndrome and compares keys in the kernel; the streamed
 kernels and the ``xla`` engine take Alice's syndrome in torch, run their
 decode mode and compare keys over the whole frame.
 
-Random numbers: one ``torch.Generator`` per decode chunk, seeded by
-``channel.chunk_seed(seed, sim_number, chunk_index)``, draws Alice's keys,
+Random numbers: each decode chunk has its seed,
+``channel.chunk_seed(seed, sim_number, chunk_index)``. Fixed-rate runs on
+the ``qc``, ``qc_stream`` and ``generic`` engines draw their keys in the
+kernel, as the JAX sweep's mc kernels do on the TPU: one call per chunk of
+the engine's mc mode (``make_fused_qc_montecarlo``,
+``make_qc_stream_montecarlo``, ``make_fused_generic_montecarlo``), whose
+Philox stream (``ops/philox.py``) gives the same keys on the CPU, where its
+plain version runs, as on the card. Everywhere else (the ``stream`` and
+``xla`` engines, rate-adaptive runs, and any run given a ``key_source``) one
+``torch.Generator`` per chunk, seeded by the chunk seed, draws Alice's keys,
 then the error-position bits and, in rate-adaptive runs, Alice's punctured
-bits. ``key_source`` replaces it, e.g. with the JAX package's threefry
-streams in the cross-package tests.
+bits, and the engine's trial decodes them. ``key_source`` replaces that
+generator, e.g. with the JAX package's threefry streams in the
+cross-package tests.
 """
 
 from __future__ import annotations
@@ -85,11 +94,13 @@ from qkd_ldpc_v_tpu_torch.ops.decoders import frame_trial, get_decoder, make_tri
 from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
     generic_feasible,
     make_fused_generic_frame_trial,
+    make_fused_generic_montecarlo,
     make_fused_generic_trial,
 )
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     fused_qc_fits,
     make_fused_qc_frame_trial,
+    make_fused_qc_montecarlo,
     make_fused_qc_trial,
 )
 from qkd_ldpc_v_tpu_torch.ops.generic_stream import (
@@ -100,6 +111,7 @@ from qkd_ldpc_v_tpu_torch.ops.generic_stream import (
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
 from qkd_ldpc_v_tpu_torch.ops.qc_stream import (
     make_qc_stream_decoder,
+    make_qc_stream_montecarlo,
     make_qc_stream_trial,
     qc_stream_feasible,
 )
@@ -515,6 +527,31 @@ def _make_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
                       _DTYPES[cfg.dtype])
 
 
+def montecarlo_trial(engine: str, matrix: HMatrix,
+                     cfg: Config) -> Optional[Callable]:
+    """The engine's mc mode for fixed-rate runs, or None where it has none.
+
+    As in the JAX sweep (``_build_step``: ``mk_mc``): the fused QC kernel
+    (engine ``qc`` where it holds the code), the streamed QC kernel (engine
+    ``qc`` beyond it, and ``qc_stream``) and the fused generic kernel
+    (``generic``) draw the keys in the kernel; ``stream`` and ``xla`` have no
+    mc mode. ``mc(seed, frame0, batch, num_errors, log_p, primary,
+    secondary, threshold, device) -> (syndromes_match, keys_match,
+    iterations)``."""
+    if engine not in ("qc", "qc_stream", "generic"):
+        return None
+    alg = cfg.decoding_algorithm
+    cap = cfg.decoding_alg_max_iterations
+    use_thr = cfg.enable_msg_llr_threshold
+    kernel, layered = _schedule(engine, matrix, cfg)
+    if kernel is None:
+        return make_fused_generic_montecarlo(matrix, alg, cap, use_thr)
+    make = (make_fused_qc_montecarlo if kernel == "fused_qc"
+            else make_qc_stream_montecarlo)
+    return make(matrix.qc, alg, cap, use_thr,
+                schedule="layered" if layered else "flooding")
+
+
 def frame_engine_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
     """The rate-adaptive step's decode of prebuilt frames for this engine:
     ``trial(alice_frame [B,N] int8, llr [B,N], primary, secondary,
@@ -616,10 +653,14 @@ def run_combination(
     """Execute all trials of one combination as device batches of
     ``tpu.batch_size`` frames (all trials when 0).
 
-    Each chunk draws a full batch of keys, injects exactly
-    ``floor(N * QBER)`` errors with 64-bit sort keys, and runs the engine's
-    trial (see ``check_engine``); a short last chunk keeps its first
-    ``take`` frames. A rate-adaptive run builds the chunk's frames from
+    A fixed-rate run on an engine with an mc mode (``montecarlo_trial``)
+    and no ``key_source`` makes one call of it per chunk, with the chunk's
+    seed: the keys and exactly ``floor(N * QBER)`` errors are drawn in the
+    kernel (32-bit sort keys, as the JAX mc kernels). Otherwise each chunk
+    draws a full batch of keys from ``key_source`` (or the default
+    generator), injects exactly ``floor(N * QBER)`` errors with 64-bit sort
+    keys, and runs the engine's trial (see ``check_engine``). A short last
+    chunk keeps its first ``take`` frames. A rate-adaptive run builds the chunk's frames from
     those keys and Alice's punctured draw (``channel.build_frames``, the
     combination's ``make_frame_plan``) and decodes them through
     ``frame_engine_trial``. With
@@ -650,6 +691,9 @@ def run_combination(
     )
     source = key_source or default_key_source(cfg.simulation_seed, device)
     rate_adaptive = cfg.enable_code_rate_adaptation
+    mc = None
+    if not rate_adaptive and key_source is None:
+        mc = montecarlo_trial(engine, matrix, cfg)
     if rate_adaptive:
         trial = frame_engine_trial(engine, matrix, cfg)
         pos_class, payload_gather = make_frame_plan(n_bits, comb.matrix_params)
@@ -658,10 +702,15 @@ def run_combination(
             torch.as_tensor(pos_class == _CLASS_PUNCTURED, device=device),
             torch.as_tensor(payload_gather.astype(np.int64), device=device),
         )
-    else:
+    elif mc is None:
         trial = _make_trial(engine, matrix, cfg)
 
     def run_chunk(chunk_index):
+        if mc is not None:
+            conv, keys, iters = mc(
+                chunk_seed(cfg.simulation_seed, sim_number, chunk_index), 0,
+                batch, num_errors, log_p, *scalars, device=device)
+            return conv.cpu().numpy(), keys.cpu().numpy(), iters.cpu().numpy()
         if rate_adaptive:
             alice, bits, punct = source(sim_number, chunk_index, batch,
                                         n_bits, punctured=True)

@@ -9,9 +9,10 @@ tests/test_pallas_generic.py::test_matches_xla_decoder. The launch counter
 stays 0 on the CPU, and the engine gate equals the JAX package's.
 
 Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
-card and skip without one: the trial and decode modes, and the frame mode on
+card and skip without one: the trial and decode modes, the frame mode on
 rate-adapted frames (ragged batches, and the all-shortened neighbourhood of
-one bit, where sums overflow to inf and NaN). They import no JAX, so on a
+one bit, where sums overflow to inf and NaN), and the mc mode against
+``channel.mc_channel`` and the plain trial. They import no JAX, so on a
 machine without JAX they run with the conftest left out:
 
     python -m pytest tests/test_torch_fused_generic.py -m cuda --noconftest -q
@@ -354,3 +355,37 @@ def test_frame_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", list(FACTORS))
+@pytest.mark.parametrize("use_thr", [False, True])
+def test_mc_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
+    """The mc mode (keys drawn in the kernel at each bit's external
+    position) against ``mc_channel`` and the plain trial, each code in its
+    waterfall, from frame 300 of the chunk; the code at the gate's edge
+    keeps its messages in global memory."""
+    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
+
+    codes = [
+        (from_dense(irregular_dense()), 0.06),
+        (read_sparse_matrix_alist(ALIST / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"),
+         0.012),
+        (read_sparse_matrix_alist(ALIST / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"),
+         0.032),
+        (generate_regular_ldpc(32768, 16384, 2, seed=1), 0.01),
+    ]
+    f1, f2 = FACTORS[alg]
+    thr = THRESHOLD if use_thr else 0.0
+    seed = chunk_seed(11, 0, 4)
+    for matrix, qber in codes:
+        n = matrix.num_bit_nodes
+        ne = int(n * qber)
+        mc = fused_generic.make_fused_generic_montecarlo(matrix, TAlg[alg],
+                                                         CAP, use_thr)
+        args = (seed, 300, 63, ne, log_ratio(ne / n), f1, f2, thr)
+        got = mc(*args, device=cuda_device)
+        want = mc.plain(*args, device=cuda_device)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())

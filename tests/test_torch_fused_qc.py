@@ -7,9 +7,10 @@ is checked with NMSA and OMSA across both schedules. The launch counter
 stays 0 on the CPU.
 
 Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
-card and skip without one: the trial and decode modes, and the frame mode on
+card and skip without one: the trial and decode modes, the frame mode on
 rate-adapted frames (ragged batches, and a frame whose checks around one bit
-have every other bit shortened, so that sums overflow to inf and NaN). They
+have every other bit shortened, so that sums overflow to inf and NaN), and
+the mc mode against ``channel.mc_channel`` and the plain trial. They
 import no JAX, so on a machine without JAX they run with the conftest left
 out:
 
@@ -273,3 +274,35 @@ def test_frame_kernel_matches_plain_on_card(cuda_device, alg, f1, f2,
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+def test_selection_bytes_equal_the_library(cuda_device):
+    assert fused_qc.SELECTION_BYTES == kernels.library().mc_selection_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,f1,f2,schedule,use_thr", CUDA_CASES)
+def test_mc_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, schedule,
+                                         use_thr):
+    """The mc mode (keys drawn in the kernel) against ``mc_channel`` and the
+    plain trial: each code in its waterfall, a ragged batch of 37 frames
+    from frame 1000 of the chunk, and a batch without errors."""
+    seed = tsim.chunk_seed(5, 2, 3)
+    for code, qber in ((generate_qc_ldpc(8, 4, 128, 3, seed=5), 0.075),
+                       (read_qc_matrix(HEADLINE), 0.036)):
+        n = code.num_bit_nodes
+        thr = THRESHOLD if use_thr else 0.0
+        mc = fused_qc.make_fused_qc_montecarlo(code, TAlg[alg], CAP, use_thr,
+                                               schedule)
+        for frame0, batch, ne in ((0, 64, int(n * qber)),
+                                  (1000, 37, int(n * qber)), (0, 5, 0)):
+            args = (seed, frame0, batch, ne, log_ratio(max(ne, 1) / n), f1,
+                    f2, thr)
+            got = mc(*args, device=cuda_device)
+            want = mc.plain(*args, device=cuda_device)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w.cpu())
+            if ne == 0:
+                assert bool(got[1].all())

@@ -52,10 +52,11 @@ def _imported_roots(path):
 def test_static_scan_finds_no_jax_import():
     mods = _port_modules()
     assert len(mods) >= 12
-    # The modules of the rate-adaptive slice, and the card smoke script.
+    # The modules of the rate-adaptive and mc slices, and the card smoke
+    # script.
     names = {str(p.relative_to(PORT)) for p in mods}
     assert {"rate_adapt.py", "privacy.py", "simulation.py",
-            "ops/channel.py"} <= names
+            "ops/channel.py", "ops/philox.py"} <= names
     for path in mods + [REPO / "chip_smoke.py"]:
         roots = _imported_roots(path)
         assert "jax" not in roots, path

@@ -23,8 +23,9 @@ kernels, which agree (ROADMAP.md §3):
     others leave unclamped.
 
 Tests marked ``cuda`` compare the CUDA kernel with its plain version and
-with the fused QC kernel on the card, and the Python limit constants with
-the built library; they skip without a CUDA device. They import no JAX, so
+with the fused QC kernel on the card (trial, decode and mc modes), and the
+Python limit constants with the built library; they skip without a CUDA
+device. They import no JAX, so
 on a machine without JAX they run with the conftest left out:
 
     python -m pytest tests/test_torch_qc_stream.py -m cuda --noconftest -q
@@ -442,3 +443,34 @@ def test_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, schedule):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_mc_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, schedule):
+    """The mc mode against ``mc_channel`` and the plain trial on the
+    flagship near its waterfall (a batch from frame 100 of the chunk) and
+    on the headline code, where the fused kernel's mc mode must give the
+    same results."""
+    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
+
+    seed = chunk_seed(7, 1, 2)
+    for path, qber, frames in ((FLAGSHIP, 0.037, 16), (HEADLINE, 0.036, 64)):
+        code = read_qc_matrix(path)
+        n = code.num_bit_nodes
+        ne = int(n * qber)
+        args = (seed, 100, frames, ne, log_ratio(ne / n), f1, f2, 0.0)
+        mc = qc_stream.make_qc_stream_montecarlo(code, TAlg[alg], CAP, False,
+                                                 schedule)
+        got = mc(*args, device=cuda_device)
+        want = mc.plain(*args, device=cuda_device)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        if n == 10240:
+            fused = fused_qc.make_fused_qc_montecarlo(
+                code, TAlg[alg], CAP, False, schedule)(*args,
+                                                       device=cuda_device)
+            for g, w in zip(got, fused):
+                assert torch.equal(g.cpu(), w.cpu())
