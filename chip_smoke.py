@@ -69,6 +69,26 @@ Phases (each raises on failure, and the script then exits non-zero):
    degree-63 1k alist codes, the four algorithms at an easy and a waterfall
    QBER, and one case with the clamp each. Conv, keys and iterations must
    be exactly equal.
+2g. The SPA pair vs plain: (a) each elementwise step of csrc/spa.cuh
+   (tanh(x * 0.5), the guarded 2 * atanh, and the two SPA-lin tables) on
+   every one of the 2**32 float32 bit patterns against torch on the card,
+   the differing values counted (NaN against NaN counts as equal); (b) SPA
+   and SPA-lin-approx in every mode of the four kernels against their plain
+   versions, cap 30, with the clamp off, at 2.5 (below the channel's |LLR|)
+   and at 100: the fused QC kernel on the headline code (trial, decode, mc,
+   frame), the streamed QC kernel on the flagship (trial, decode, mc) and
+   on the headline code (mc, equal to the fused kernel's), the fused
+   generic kernel on the 10k alist code (trial, decode, mc, frame), the
+   degree-2 N=32768 code (messages in global memory) and the degree-63 1k
+   alist code, the streamed generic kernel at 8 and 16 frames per group on
+   the 100k alist code, a ragged batch of 13 frames and the degree-63 code
+   (checks longer than its register run). Decode-mode LLRs carry a zero
+   (the 0/0 ratio) in frame 0 and eight times the channel's magnitude in
+   frame 1 (tanh rounds to +-1, the guard clamps); the frame mode and the
+   streamed kernels' decode tails take rate-adapted frames, the
+   all-shortened neighbourhood of bit 0 among them (inf and NaN). mc cases
+   are held to ``mc_channel`` + the plain trial. Conv, keys, iterations and
+   decisions must be exactly equal.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
@@ -133,6 +153,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    point the kernel's statistics on the first 1024 frames (256 at
    N=102400) must equal the plain version's. It also times the untainted
    greedy on the 10k alist code on the host CPU.
+3g. The SPA main paths through the CLI, on config copies:
+   configs/example_qc_layered.json with decoding_algorithm 0 (layered is
+   asked for, so the run warns and floods: the fused QC mc mode, SPA,
+   16384 frames), configs/campaign_fer_1k_alist.json with 1 over the 10k
+   alist code at QBER 0.025 (the fused generic mc mode, SPA-lin, 16384),
+   configs/campaign_fer_sweep_100k.json with 0 on the flagship at QBER 0.03
+   (the streamed QC mc mode, SPA, 4096), the same config in format 1 over
+   the 100k alist code (the streamed generic trial mode, SPA, 4096), and
+   configs/campaign_fec_measurement.json with 0 on the headline code at
+   efficiency 1.52 (the fused QC frame mode, SPA, 4096), one chunk each.
+   Each run must launch its kernel (the mc mode where it runs, and no
+   trial kernel there), no other kernel and no plain version on the card,
+   at FER <= 0.01; it prints the chunk-timer and whole-call frames/s and
+   the mean iterations, and chunk 0 again: its kernel time against its
+   bound, with its first frames held to the plain version.
 4. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
    (the least time the card could take for the same work) are those of one
@@ -143,7 +178,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    entries of their own (phase 3e's chunk and count; phases 3, 3b and 3c's
    mc chunk, timed in turns, and the CLI runs' mc launches); the trial
    entries of the fused QC, fused generic and streamed QC kernels take the
-   fed trial path's chunk and launches.
+   fed trial path's chunk and launches. The SPA instantiations have entries
+   of their own too: phase 3g's chunk and launches, phase 2g's case for
+   ``plain_ms``, and a bound with the SFU's (MUFU) operations beside the
+   bytes and the f32 operations.
 
 It imports no JAX. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -151,6 +189,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import shutil
@@ -212,6 +251,23 @@ OPS_PER_EDGE = {"flooding": 13, "layered": 14}
 # time is the larger of the two.
 INT32_OPS_PER_S = 16.7e12
 MC_INT_OPS_PER_BIT = 32
+# The SPA pair also runs on the SFU (MUFU: exponential, reciprocal), 16
+# operations per clock and SM: 16 x 132 x 1.98 GHz = 4.18 T/s. Operations
+# per edge and iteration that the pair needs, counted from the machine code
+# along the path a message takes (``python3 scripts/sass_torch_kernels.py
+# --opcodes . spa_steps`` for the steps of csrc/spa.cu, ``... qc_stream`` for
+# the division), the non-MUFU ones issued like f32 operations: the
+# bit->check message T - E 1, the half 1, the term (SPA: tanhf 12 and 2 MUFU,
+# EX2 and RCP; SPA-lin: the table's first segment, a compare, a multiply
+# and an add, and the sign, a compare and a select, 5), the row product 1,
+# the quotient (an IEEE division: 5 FFMA and FCHK, 6, and 1 MUFU, RCP), the
+# guard 3 (SPA: the NaN test, max, min), the atanh (SPA: atanhf 31, its
+# log1p a polynomial, and 1 MUFU, RCP; SPA-lin: the table's first segment
+# and the sign, 5), the doubling 1, the total 1 and the decision's parity
+# 2: SPA 59 and 4 MUFU, SPA-lin 23 and 1 MUFU.
+MUFU_OPS_PER_S = 4.18e12
+SPA_OPS_PER_EDGE = {"SPA": {"f32": 59, "mufu": 4},
+                    "SPA_APPROX": {"f32": 23, "mufu": 1}}
 
 
 class SmokeError(RuntimeError):
@@ -284,7 +340,7 @@ def ptxas_lines(log: str):
         name = line.split("'")[1]
         source = re.search(r"__N__[0-9a-f]+_\d+_(\w+?)_cu_", name)
         source = source.group(1) if source else name
-        flags = "".join(f[0] for f in name.split("ILb")[-1].split("ELb"))
+        flags = ",".join(re.findall(r"L[bi](\d+)E", name))
         regs = next((x for x in lines[i + 1:i + 4] if "registers" in x), "")
         spill = next((x for x in lines[i + 1:i + 4] if "spill stores" in x), "")
         out.append(f"ptxas {source}<{flags}>: "
@@ -1779,6 +1835,500 @@ def phase_rate_adaptive_main_path(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The SPA pair (phases 2g and 3g)
+# ---------------------------------------------------------------------------
+
+SPA_ALGS = ("SPA", "SPA_APPROX")
+# The clamp off, a threshold below the channel's |LLR| (2.5 < 3.48 at QBER
+# 0.03) and one above every finite message the cases make (100).
+SPA_THRESHOLDS = (None, 2.5, 100.0)
+# Phase 2g's iteration cap and frames per case.
+SPA_CAP = 30
+SPA_FRAMES = 256
+# Elementwise check: 2**32 float32 bit patterns in chunks of 2**28.
+SPA_CHUNK = 1 << 28
+
+
+def phase_spa_steps(torch, card):
+    """Phase 2g(a): each elementwise step of csrc/spa.cuh on every float32
+    bit pattern against its plain torch version on the card. Returns the
+    number of differing values (NaN against NaN counts as equal)."""
+    from qkd_ldpc_v_tpu_torch.ops.spa import STEPS, plain_step, spa_step
+
+    dev = torch.device("cuda")
+    base = torch.arange(SPA_CHUNK, dtype=torch.int32, device=dev)
+    total = 0
+    for step in STEPS:
+        differ, worst_ulp, nan_mismatch = 0, 0, 0
+        t0 = time.perf_counter()
+        for k in range((1 << 32) // SPA_CHUNK):
+            bits = base + (k * SPA_CHUNK - (1 << 31))
+            x = bits.view(torch.float32)
+            got = spa_step(x, step)
+            want = plain_step(x, step)
+            gb, wb = got.view(torch.int32), want.view(torch.int32)
+            both_nan = torch.isnan(got) & torch.isnan(want)
+            bad = (gb != wb) & ~both_nan
+            n_bad = int(bad.sum().item())
+            if n_bad:
+                differ += n_bad
+                nan_mismatch += int((bad & (torch.isnan(got)
+                                            | torch.isnan(want))).sum().item())
+                ulp = (gb[bad].to(torch.int64) - wb[bad].to(torch.int64)).abs()
+                worst_ulp = max(worst_ulp, int(ulp.max().item()))
+            del got, want, gb, wb, both_nan, bad
+        torch.cuda.synchronize()
+        print(f"case 2g-a {step}: 2**32 float32 inputs, {differ} values differ "
+              f"from torch (largest distance {worst_ulp} ulp, {nan_mismatch} "
+              f"NaN against a number) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        total += differ
+    check(total == 0, f"phase 2g(a): {total} values differ from torch")
+    print(f"phase 2g(a): csrc/spa.cuh's steps == torch on every float32 input "
+          f"({card})", flush=True)
+    return total
+
+
+def spa_keys(torch, matrix, frames, qber, index):
+    """(alice, bob, log_p, llr) of one 2g input: keys from the default key
+    source (seed 31), the exact error count, the channel LLRs, and two
+    forced frames in llr: frame 0 with a zero LLR on bit 0 (its checks'
+    terms give the ratio 0/0) and frame 1 with every LLR eight times the
+    channel's (|LLR| >= 20, so tanh(m/2) rounds to +-1 and the guard
+    clamps)."""
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
+    dev = torch.device("cuda")
+    n = matrix.num_bit_nodes
+    ne = exact_error_count(n, qber)
+    alice, bits = default_key_source(31, dev)(0, index, frames, n)
+    bob = inject_errors(bits, alice, ne, wide=True)
+    lp = log_ratio(ne / n)
+    lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    force_llrs(torch, llr)
+    return alice, bob, lp, llr
+
+
+def force_llrs(torch, llr):
+    """The forced frames of phase 2g, in place: frame 0 takes a zero LLR on
+    bit 0, frame 1 every LLR times eight."""
+    llr[0, 0] = 0.0
+    if llr.shape[0] > 1:
+        llr[1] = llr[1] * 8.0
+
+
+def spa_bound(mode, frames, matrix, iterations, alg):
+    """(bound_ms, bound_by) of an SPA-pair launch of ``mode`` over
+    ``frames`` frames whose iteration counts sum to ``iterations``: the
+    larger of its bytes over the HBM rate (each input read once, 6 bytes
+    of statistics or the decode mode's decisions written), its f32 (and,
+    mc, the generator's integer) operations over the issue rate, the
+    integer ones alone over the INT32 lanes, and its MUFU operations over
+    the SFU rate (SPA_OPS_PER_EDGE)."""
+    n, m = matrix.num_bit_nodes, matrix.num_check_nodes
+    per_frame = {"trial": 2 * n + 6, "mc": 6,
+                 "decode": 5 * n + m + 5}.get(mode, 5 * n + 6)
+    int_ops = MC_INT_OPS_PER_BIT * frames * n if mode == "mc" else 0
+    byte_ms = per_frame * frames / HBM_BYTES_PER_S * 1e3
+    f32_ops, mufu_ops = (SPA_OPS_PER_EDGE[alg][k] * matrix.num_edges
+                         * iterations for k in ("f32", "mufu"))
+    op_ms = max((f32_ops + int_ops) / F32_OPS_PER_S,
+                int_ops / INT32_OPS_PER_S,
+                mufu_ops / MUFU_OPS_PER_S) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def phase_spa_vs_plain(torch, card):
+    """Phase 2g(b): the SPA pair in every mode of the four kernels against
+    the plain versions on the card, exactly (conv, keys, iterations, and
+    the decode mode's decisions)."""
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm, MatrixFormat
+    from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import (
+        read_matrix, read_sparse_matrix_alist)
+    from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+    from qkd_ldpc_v_tpu_torch.ops import (
+        fused_generic, fused_qc, generic_stream, qc_stream)
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        calculate_syndrome, chunk_seed, exact_error_count, log_ratio,
+        qc_syndrome)
+
+    dev = torch.device("cuda")
+    headline_h, flagship_h = (read_matrix(p, MatrixFormat.QC)
+                              for p in (HEADLINE, FLAGSHIP))
+    alist10k, alist1k, alist100k = (read_sparse_matrix_alist(p) for p in
+                                    (ALIST10K, ALIST1K_DEG63, ALIST100K))
+    deg2 = generate_regular_ldpc(32768, 16384, 2, seed=1)
+    # (name, matrix, frames, QBER)
+    codes = {
+        "headline": (headline_h, SPA_FRAMES, 0.03),
+        "flagship": (flagship_h, 128, 0.03),
+        "alist10k": (alist10k, SPA_FRAMES, 0.025),
+        "alist1k_deg63": (alist1k, SPA_FRAMES, 0.004),
+        "gate_deg2": (deg2, SPA_FRAMES, 0.01),
+        "alist100k": (alist100k, 128, 0.03),
+        "ragged": (alist100k, 13, 0.03),
+    }
+    qcs = {"headline": headline_h.qc, "flagship": flagship_h.qc}
+
+    def syndrome_of(name, matrix):
+        if name in qcs:
+            return lambda a: qc_syndrome(qcs[name], a)
+        layout = layout_for(matrix)
+        return lambda a: calculate_syndrome(layout, a)
+
+    # kernel -> mode -> make(code, algorithm, cap, use_threshold); the QC
+    # makers flood by default.
+    makers = {
+        "fused_qc": {"trial": fused_qc.make_fused_qc_trial,
+                     "decode": fused_qc.make_fused_qc_decoder,
+                     "mc": fused_qc.make_fused_qc_montecarlo,
+                     "frame": fused_qc.make_fused_qc_frame_trial},
+        "qc_stream": {"trial": qc_stream.make_qc_stream_trial,
+                      "decode": qc_stream.make_qc_stream_decoder,
+                      "mc": qc_stream.make_qc_stream_montecarlo},
+        "fused_generic": {
+            "trial": fused_generic.make_fused_generic_trial,
+            "decode": fused_generic.make_fused_generic_decoder,
+            "mc": fused_generic.make_fused_generic_montecarlo,
+            "frame": fused_generic.make_fused_generic_frame_trial},
+        "generic_stream": {
+            "trial": generic_stream.make_generic_stream_trial,
+            "decode": generic_stream.make_generic_stream_decoder},
+    }
+    for group in generic_stream.GROUPS:
+        makers[f"generic_stream_f{group}"] = {
+            mode: functools.partial(make, group=group)
+            for mode, make in makers["generic_stream"].items()}
+
+    # (kernel, mode, code name, threshold)
+    cases = []
+    for kernel, mode in (("fused_qc", "trial"), ("fused_qc", "decode"),
+                         ("fused_qc", "mc"), ("fused_generic", "trial"),
+                         ("fused_generic", "decode"), ("fused_generic", "mc")):
+        name = "headline" if kernel == "fused_qc" else "alist10k"
+        for thr in SPA_THRESHOLDS:
+            cases.append((kernel, mode, name, thr))
+    for mode in ("trial", "decode", "mc"):
+        for thr in (None, 2.5 if mode == "trial" else 100.0):
+            cases.append(("qc_stream", mode, "flagship", thr))
+    cases.append(("qc_stream", "mc", "headline", None))
+    for kernel, name in (("fused_generic", "gate_deg2"),
+                         ("fused_generic", "alist1k_deg63")):
+        cases.append((kernel, "trial", name, None))
+    cases.append(("fused_generic", "mc", "gate_deg2", None))
+    for group in generic_stream.GROUPS:
+        kernel = f"generic_stream_f{group}"
+        cases.append((kernel, "trial", "alist100k", None))
+        cases.append((kernel, "decode", "alist100k", 100.0))
+        cases.append((kernel, "trial", "ragged", None))
+        cases.append((kernel, "trial", "alist1k_deg63", None))
+    cases.append(("generic_stream_f16", "trial", "alist100k", 2.5))
+    cases.append(("generic_stream", "trial", "alist100k", None))
+    # Rate-adapted frames: an easy adaptation point and the all-shortened
+    # neighbourhood of bit 0 (inf and NaN), through the fused kernels'
+    # frame mode and, on the same frames, the streamed kernels' decode
+    # tails.
+    for name in ("headline", "alist10k"):
+        for label in ("easy", "forced"):
+            for thr in (None, 100.0):
+                cases.append(("fused_qc" if name == "headline"
+                              else "fused_generic", "frame", name,
+                              (label, thr)))
+        cases.append(("qc_stream" if name == "headline" else "generic_stream",
+                      "tail", name, ("forced", None)))
+
+    inputs = {}
+    frame_inputs = {}
+    worst = {}
+    times = {}
+    i = 0
+    for kernel, mode, name, thr_spec in cases:
+        for alg_name in SPA_ALGS:
+            alg = DecodingAlgorithm[alg_name]
+            matrix, frames, qber = codes[name]
+            n = matrix.num_bit_nodes
+            label = None
+            thr = thr_spec
+            if isinstance(thr_spec, tuple):
+                label, thr = thr_spec
+            thr_f = thr if thr is not None else 0.0
+            extra = ""
+
+            def make(which, kernel=kernel, code=qcs.get(name, matrix),
+                     alg=alg, use_thr=thr is not None):
+                return makers[kernel][which](code, alg, SPA_CAP, use_thr)
+
+            if mode in ("frame", "tail"):
+                if (name, label) not in frame_inputs:
+                    path = HEADLINE if name == "headline" else ALIST10K
+                    point = FRAME_POINTS[name][0]
+                    params = untainted_point(path, matrix, point)
+                    if label == "forced":
+                        params = all_shortened_plan(matrix, params)
+                    frame, llr = build_chunk(torch, params, n, point[0],
+                                             SPA_FRAMES, 37, 0,
+                                             len(frame_inputs))
+                    if label == "easy":
+                        force_llrs(torch, llr)
+                    frame_inputs[(name, label)] = (frame, llr)
+                frame, llr = frame_inputs[(name, label)]
+                if mode == "frame":
+                    fn = make("frame")
+                else:
+                    fn = decode_tail(make("decode"),
+                                     syndrome_of(name, matrix))
+                args = (frame, llr, 1.0, 1.0, thr_f)
+                call = lambda: fn(*args)  # noqa: E731
+                plain = lambda: fn.plain(*args)  # noqa: E731
+            elif mode == "mc":
+                fn = make("mc")
+                ne = exact_error_count(n, qber)
+                args = (chunk_seed(41, 0, i), MC_FRAME0, frames, ne,
+                        log_ratio(ne / n), 1.0, 1.0, thr_f)
+                call = lambda: fn(*args, device=dev)  # noqa: E731
+                plain = lambda: fn.plain(*args, device=dev)  # noqa: E731
+            else:
+                if (name, qber) not in inputs:
+                    inputs[(name, qber)] = spa_keys(torch, matrix, frames,
+                                                    qber, len(inputs))
+                alice, bob, lp, llr = inputs[(name, qber)]
+                fn = make(mode)
+                if mode == "trial":
+                    args = (alice, bob, lp, 1.0, 1.0, thr_f)
+                else:
+                    args = (llr, syndrome_of(name, matrix)(alice), 1.0, 1.0,
+                            thr_f)
+                call = lambda: fn(*args)  # noqa: E731
+                plain = lambda: fn.plain(*args)  # noqa: E731
+            timed_as = {
+                ("fused_qc", "mc", "headline", None, "SPA"): "fused_qc_spa_mc",
+                ("fused_qc", "frame", "headline", ("easy", None), "SPA"):
+                    "fused_qc_spa_frame",
+                ("qc_stream", "mc", "flagship", None, "SPA"):
+                    "qc_stream_spa_mc",
+                ("fused_generic", "mc", "alist10k", None, "SPA_APPROX"):
+                    "fused_generic_spa_lin_mc",
+                ("generic_stream", "trial", "alist100k", None, "SPA"):
+                    "generic_stream_spa",
+            }.get((kernel, mode, name, thr_spec, alg_name))
+            call()  # first launch of this configuration, untimed
+            got, ms = timed(call, torch, reps=3)
+            if timed_as:
+                plain()  # first call: tables to the card, untimed
+            want, plain_ms = timed(plain, torch)
+            got, want = tuple(got), tuple(want)
+            diff = max_abs_diff(got, want, torch)
+            if kernel == "qc_stream" and name == "headline" and mode == "mc":
+                fused = make("mc", "fused_qc")(*args, device=dev)
+                d = max_abs_diff(got, tuple(fused), torch)
+                diff = max(diff, d)
+                extra = f" fused_qc_mc_err={d}"
+            conv = got[1] if mode == "decode" else got[0]
+            n_fail = int((~conv).sum().item())
+            iters = got[2].float().mean().item()
+            b = spa_bound(mode, conv.shape[0], matrix,
+                          int(got[2].sum().item()), alg_name)
+            base = kernel if not kernel.startswith("generic_stream") \
+                else "generic_stream"
+            worst[base] = max(worst.get(base, 0), diff)
+            what = f"{mode} {label}" if label else mode
+            print(f"case 2g-{i:02d} {kernel} {name} N={n} {what} {alg_name} "
+                  f"qber={qber} threshold={thr}: unconverged={n_fail}/"
+                  f"{conv.shape[0]} mean_iterations={iters:.2f} "
+                  f"kernel_ms={ms:.3f} (bound {b[0]:.3f} ms, {b[1]}) "
+                  f"plain_ms={plain_ms:.1f} max_abs_err={diff}{extra}",
+                  flush=True)
+            check(diff == 0, f"SPA kernel != plain in case 2g-{i}")
+            if timed_as:
+                times[timed_as] = (plain_ms, conv.shape[0])
+            i += 1
+    print(f"phase 2g(b): {i} SPA-pair cases of the four kernels == plain "
+          f"exactly ({card})", flush=True)
+    return worst, times
+
+
+def spa_chunk(torch, card, label, fn, plain, kind, matrix, alg, frames,
+              compared):
+    """Chunk 0 of an SPA main path again, as the run made it: ``fn`` on the
+    whole chunk (timed after the run's own launches), ``plain`` on its first
+    ``compared`` frames, held equal. ``kind`` is "mc", "trial" (keys in) or
+    "frame" (Alice's frame and f32 LLRs in). Returns (max_abs_err, (ms,
+    bound_ms, bound_by, frames))."""
+    full, ms = timed(fn, torch)
+    want = plain(compared)
+    diff = max_abs_diff(tuple(t[:compared] for t in full), tuple(want), torch)
+    check(diff == 0, f"{label}: chunk-0 kernel stats != plain")
+    iterations = int(full[2].sum().item())
+    b = spa_bound(kind, frames, matrix, iterations, alg)
+    print(f"{label}: one {frames}-frame chunk: {kind} kernel {ms:.2f} ms "
+          f"(bound {b[0]:.2f} ms, {b[1]}), mean iterations "
+          f"{iterations / frames:.2f}; chunk 0 frames 0-{compared - 1} kernel "
+          f"== plain (card={card})", flush=True)
+    return diff, (ms, *b, frames)
+
+
+def phase_spa_main_path(torch, card):
+    """Phase 3g: the SPA pair's main paths through the CLI at full width, on
+    config copies: each run's kernel launched (mc launches where mc runs,
+    no trial launch there), no other kernel and no plain version on the
+    card, FER <= 0.01; chunk 0 again, timed and held to the plain version."""
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm, parse_config_data
+    from qkd_ldpc_v_tpu_torch.ops import (
+        fused_generic, fused_qc, generic_stream, qc_stream)
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        chunk_seed, exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        default_key_source, prepare_sim_inputs, select_engine)
+
+    def fer_config(name, algorithm, trials, batch, code_rate, qber):
+        cfg = json.loads((REPO / "configs" / name).read_text())
+        cfg["decoding_algorithm"] = algorithm
+        cfg["trials_number"] = trials
+        cfg["tpu"]["batch_size"] = batch
+        for bracket in cfg["code_rate_QBER_ranges"]:
+            if bracket["code_rate"] == code_rate:
+                bracket["QBER"] = {"begin": qber, "end": qber, "step": 0.001}
+        return cfg
+
+    sweep100k = fer_config("campaign_fer_sweep_100k.json", 0, 4096, 4096,
+                           0.71, 0.03)
+    alist100k_cfg = json.loads(json.dumps(sweep100k))
+    alist100k_cfg["matrix_format"] = 1
+    fec = narrowed("campaign_fec_measurement.json", 0.70, 4, 4096, 1.52)
+    fec["decoding_algorithm"] = 0
+    example = json.loads(
+        (REPO / "configs" / "example_qc_layered.json").read_text())
+    example.update(decoding_algorithm=0, trials_number=16384)
+    example["tpu"]["batch_size"] = 16384
+    # (name, config, matrix, subdirectory, kernel, mode, frames compared)
+    runs = [
+        ("spa_headline", example, HEADLINE, "matrices_qc", "fused_qc", "mc",
+         1024),
+        ("spa_lin_alist10k", fer_config("campaign_fer_1k_alist.json", 1, 16384,
+                                        16384, 0.78, 0.025), ALIST10K,
+         "matrices_alist", "fused_generic", "mc", 1024),
+        ("spa_flagship", sweep100k, FLAGSHIP, "matrices_qc", "qc_stream", "mc",
+         256),
+        ("spa_alist100k", alist100k_cfg, ALIST100K, "matrices_alist",
+         "generic_stream", "trial", 256),
+        ("spa_fec_headline", fec, HEADLINE, "matrices_qc", "fused_qc",
+         "frame", 1024),
+    ]
+    counters = {"fused_qc": fused_qc, "fused_generic": fused_generic,
+                "qc_stream": qc_stream, "generic_stream": generic_stream}
+    dev = torch.device("cuda")
+    out = {}
+    for name, cfg_json, path, subdir, kernel, mode, compared in runs:
+        work = REPO / "build" / f"chip_smoke_{name}"
+        if work.exists():
+            shutil.rmtree(work)
+        matrices = work / "sparse_matrices" / subdir
+        matrices.mkdir(parents=True)
+        (matrices / path.name).symlink_to(path)
+        if cfg_json["enable_code_rate_adaptation"]:
+            shutil.copy(path.with_suffix(".untp"),
+                        matrices / path.with_suffix(".untp").name)
+        cdir = work / "configs"
+        cdir.mkdir()
+        (cdir / "run.json").write_text(json.dumps(cfg_json, indent=2))
+
+        for mod in counters.values():
+            mod.reset_counts()
+        wall = run_cli(cdir, work / "sparse_matrices", work / "results",
+                       "cuda")
+        c = counters[kernel].COUNTS
+        launches = c.mc_launches if mode == "mc" else c.launches
+        others = sum(m.COUNTS.launches + m.COUNTS.mc_launches
+                     for k, m in counters.items() if k != kernel)
+        plain_on_card = sum(m.COUNTS.plain_on_cuda for m in counters.values())
+        print(f"{name}: {kernel} {mode} launches={launches} (mc "
+              f"{c.mc_launches}, trial/frame/decode {c.launches}) other "
+              f"kernels' launches={others} plain calls on the card="
+              f"{plain_on_card}", flush=True)
+        check(launches > 0, f"{name}: the {kernel} {mode} kernel did not launch")
+        check(mode != "mc" or c.launches == 0,
+              f"{name}: a trial kernel launched where mc runs")
+        check(others == 0, f"{name}: another kernel launched")
+        check(plain_on_card == 0, f"{name}: a plain version ran on the card")
+
+        cfg = parse_config_data(cdir / "run.json")
+        check(cfg.decoding_algorithm in (DecodingAlgorithm.SPA,
+                                         DecodingAlgorithm.SPA_APPROX),
+              f"{name}: not an SPA config")
+        sim_in = prepare_sim_inputs([matrices / path.name], cfg)[0]
+        matrix = sim_in.matrix
+        n = matrix.num_bit_nodes
+        csv, _, rows = read_rows(work / "results")
+        check(len(rows) == 1, f"{name}: {len(rows)} result rows")
+        row = rows[0]
+        comb = sim_in.combinations[0]
+        out_len = n - len(comb.matrix_params.bits_to_remove)
+        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+        us = out_len * 1e6 / float(row["THROUGHPUT_MEAN"]) - rtt_us
+        fer = float(row["FER"].replace(",", "."))
+        print(f"{name}: engine {select_engine(matrix, cfg)}, "
+              f"{cfg.decoding_algorithm.display_name}, QBER="
+              f"{row['CONFIG_QBER']} FER={fer} iter_mean="
+              f"{row['ITER_SUCCESS_MEAN']} decode_frames_per_s={1e6 / us:.0f} "
+              f"(chunk timers, RTT removed) cli_wall_frames_per_s="
+              f"{cfg.trials_number / wall:.0f} (whole CLI call, {wall:.1f} s; "
+              f"{csv.name}; card={card})", flush=True)
+        check(fer <= 0.01, f"{name}: FER {fer} > 0.01")
+
+        alg = cfg.decoding_algorithm
+        cap = cfg.decoding_alg_max_iterations
+        thr_on = cfg.enable_msg_llr_threshold
+        batch = cfg.batch_size
+        args = (comb.scaling_factors.primary, comb.scaling_factors.secondary,
+                cfg.msg_llr_threshold)
+        ne = exact_error_count(n, comb.config_qber)
+        lp = log_ratio(ne / n)
+        if mode == "mc":
+            make = {"fused_qc": fused_qc.make_fused_qc_montecarlo,
+                    "qc_stream": qc_stream.make_qc_stream_montecarlo}.get(kernel)
+            mc = (make(matrix.qc, alg, cap, thr_on, "flooding") if make
+                  else fused_generic.make_fused_generic_montecarlo(
+                      matrix, alg, cap, thr_on))
+            seed = chunk_seed(cfg.simulation_seed, 0, 0)
+            diff, chunk = spa_chunk(
+                torch, card, name,
+                lambda: mc(seed, 0, batch, ne, lp, *args, device=dev),
+                lambda k: mc.plain(seed, 0, k, ne, lp, *args, device=dev),
+                "mc", matrix, alg.name, batch, compared)
+        elif mode == "trial":
+            trial = generic_stream.make_generic_stream_trial(matrix, alg, cap,
+                                                             thr_on)
+            alice, bits = default_key_source(cfg.simulation_seed, dev)(
+                0, 0, batch, n)
+            bob = inject_errors(bits, alice, ne, wide=True)
+            del bits
+            diff, chunk = spa_chunk(
+                torch, card, name, lambda: trial(alice, bob, lp, *args),
+                lambda k: trial.plain(alice[:k].contiguous(),
+                                      bob[:k].contiguous(), lp, *args),
+                "trial", matrix, alg.name, batch, compared)
+            del alice, bob
+        else:
+            trial = fused_qc.make_fused_qc_frame_trial(matrix.qc, alg, cap,
+                                                       thr_on, "flooding")
+            frame, llr = build_chunk(torch, comb.matrix_params, n,
+                                     comb.config_qber, batch,
+                                     cfg.simulation_seed, 0, 0)
+            diff, chunk = spa_chunk(
+                torch, card, name, lambda: trial(frame, llr, *args),
+                lambda k: trial.plain(frame[:k].contiguous(),
+                                      llr[:k].contiguous(), *args),
+                "frame", matrix, alg.name, batch, compared)
+            del frame, llr
+        out[name] = (launches, diff, chunk)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1822,6 +2372,9 @@ def main() -> int:
     elapsed("2e")
     worst2f, mc_times = phase_mc_vs_plain(torch, card)
     elapsed("2f")
+    phase_spa_steps(torch, card)
+    worst2g, spa_times = phase_spa_vs_plain(torch, card)
+    elapsed("2g")
     main3 = phase_main_path(torch, card)
     elapsed("3")
     main3b = phase_generic_main_path(torch, card)
@@ -1835,6 +2388,8 @@ def main() -> int:
     elapsed("3d")
     ra = phase_rate_adaptive_main_path(torch, card)
     elapsed("3e")
+    spa3g = phase_spa_main_path(torch, card)
+    elapsed("3g")
     check("jax" not in sys.modules, "jax was imported")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s "
           f"({card})", flush=True)
@@ -1857,6 +2412,12 @@ def main() -> int:
         launches, worst, chunk = main["trial"]
         return entry(name, source, replaces, launches, max(worst2x, worst),
                      chunk, case)
+
+    def spa_entry(name, source, replaces, kernel, run):
+        # The SPA pair: the main path of phase 3g and phase 2g's cases.
+        launches, worst, chunk = spa3g[run]
+        return entry(name, source, replaces, launches,
+                     max(worst2g[kernel], worst), chunk, spa_times[name])
 
     def mc_entry(name, source, replaces, main):
         launches, worst, chunk = main["mc"]
@@ -1885,6 +2446,17 @@ def main() -> int:
                  main3c),
         mc_entry("fused_generic_mc", "fused_generic.cu",
                  "pallas_generic.py:1179", main3b),
+        spa_entry("fused_qc_spa_mc", "fused_qc.cu", "pallas_qc.py:388",
+                  "fused_qc", "spa_headline"),
+        spa_entry("fused_qc_spa_frame", "fused_qc.cu", "pallas_qc.py:388",
+                  "fused_qc", "spa_fec_headline"),
+        spa_entry("qc_stream_spa_mc", "qc_stream.cu", "pallas_qc_stream.py:454",
+                  "qc_stream", "spa_flagship"),
+        spa_entry("fused_generic_spa_lin_mc", "fused_generic.cu",
+                  "pallas_generic.py:665", "fused_generic",
+                  "spa_lin_alist10k"),
+        spa_entry("generic_stream_spa", "generic_stream.cu",
+                  "pallas_stream.py:348", "generic_stream", "spa_alist100k"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -49,8 +49,10 @@ ported so far:
                                 4 quasi-cyclic base-graph shifts
                                 (matrices_qc).
   decoding_algorithm            0 SPA, 1 SPA-lin-approx, 2 NMSA, 3 OMSA,
-                                4 ANMSA, 5 AOMSA. The SPA pair runs with
-                                tpu.use_pallas = false only.
+                                4 ANMSA, 5 AOMSA. Every engine runs all
+                                six, in its kernels on the card; the SPA
+                                pair floods (tpu.schedule = layered warns
+                                and floods with it).
   enable_privacy_maintenance    bool. Greedily delete one key bit per check
                                 node after reconciliation (shortens the
                                 output key that throughput counts).
@@ -82,8 +84,8 @@ ported so far:
                                 decoder.
   tpu.batch_size                frames per device batch (0 = all trials).
   tpu.schedule                  flooding | layered (layered: QC codes with
-                                a min-sum algorithm; elsewhere it warns and
-                                floods).
+                                a min-sum algorithm; elsewhere, the SPA
+                                pair included, it warns and floods).
   tpu.dtype                     float32 (all engines) | float64 | bfloat16
                                 (the generic torch decoder).
   tpu.force_engine              "" | qc | qc_stream | generic | stream |

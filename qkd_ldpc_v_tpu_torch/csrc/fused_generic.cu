@@ -6,7 +6,8 @@
 //
 // Replaces the TPU kernel qkd_ldpc_v_tpu/ops/pallas_generic.py::_build.kernel
 // (trial, decode, frame and mc modes; the min-sum family
-// NMSA/OMSA/ANMSA/AOMSA; the flooding schedule). The plain torch version it
+// NMSA/OMSA/ANMSA/AOMSA and the SPA pair SPA / SPA-lin-approx; the flooding
+// schedule). The plain torch version it
 // is held to, bit for bit, is qkd_ldpc_v_tpu_torch/ops/decoders.py::
 // make_decoder in float32 (wrapped by ops/fused_generic.py), and for the mc
 // mode's keys ops/channel.py::mc_channel. The mc mode draws each bit's keys
@@ -43,7 +44,10 @@
 // (chip_smoke.py prints it). Messages in a global
 // scratch (four blocks of 512 threads per SM, 84 MB of message state
 // against the 50 MB L2) were 10x slower there, so they serve only codes
-// whose messages do not fit in shared memory.
+// whose messages do not fit in shared memory. The SPA pair parks each term
+// in its message slot between the row product and the division, and adds a
+// tanhf, an atanhf and an IEEE division per edge and iteration on the SFU
+// (MUFU), at a quarter of the f32 rate.
 
 #include "generic_decode.cuh"
 
@@ -52,25 +56,33 @@ namespace {
 // The decode body is generic_decode.cuh's decode_frames; the messages are
 // shared where they fit. MC: the mc mode (d: what it draws from; unused by
 // the other modes), compiled apart so that its staging's registers do not
-// weigh on the other modes.
-template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED, bool MC>
+// weigh on the other modes. CHECK: the check update (spa.cuh), a template
+// flag so that the min-sum instantiations keep their code.
+template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED, bool MC, int CHECK>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_generic_kernel(Params p, McDraw d) {
   extern __shared__ float4 smem[];
-  decode_frames<ADAPTIVE, OFFSET, MSG_SHARED, MC>(
+  decode_frames<ADAPTIVE, OFFSET, MSG_SHARED, MC, CHECK>(
       p, d, reinterpret_cast<char*>(smem));
 }
 
 typedef void (*KernelFn)(Params, McDraw);
 
-template <bool ADAPTIVE, bool OFFSET, bool MC>
+template <bool ADAPTIVE, bool OFFSET, bool MC, int CHECK = kMinSum>
 KernelFn pick(bool msg_shared) {
-  return msg_shared ? fused_generic_kernel<ADAPTIVE, OFFSET, true, MC>
-                    : fused_generic_kernel<ADAPTIVE, OFFSET, false, MC>;
+  return msg_shared ? fused_generic_kernel<ADAPTIVE, OFFSET, true, MC, CHECK>
+                    : fused_generic_kernel<ADAPTIVE, OFFSET, false, MC, CHECK>;
 }
 
 template <bool MC>
 KernelFn kernel_of(int flags, bool msg_shared) {
+  const int check = (flags >> 2) & 3;
+  if (check != kMinSum) {
+    if ((flags & 3) != 0) return nullptr;
+    if (check == kSpa) return pick<false, false, MC, kSpa>(msg_shared);
+    if (check == kSpaLin) return pick<false, false, MC, kSpaLin>(msg_shared);
+    return nullptr;
+  }
   switch (flags & 3) {
     case 0: return pick<false, false, MC>(msg_shared);
     case 1: return pick<true, false, MC>(msg_shared);
@@ -79,13 +91,16 @@ KernelFn kernel_of(int flags, bool msg_shared) {
   }
 }
 
-// flags: bit 0 adaptive, bit 1 offset (OMSA/AOMSA).
+// flags: bit 0 adaptive, bit 1 offset (OMSA/AOMSA), bits 2-3 the check
+// update (4 SPA, 8 SPA-lin; neither adaptive nor offset). nullptr for flags
+// without a kernel.
 KernelFn kernel_for(int flags, bool msg_shared, bool mc) {
   return mc ? kernel_of<true>(flags, msg_shared)
             : kernel_of<false>(flags, msg_shared);
 }
 
 int prepare(KernelFn kernel, size_t smem) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }

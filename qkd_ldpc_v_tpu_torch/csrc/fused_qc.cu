@@ -5,9 +5,10 @@
 //
 // Replaces the TPU kernel qkd_ldpc_v_tpu/ops/pallas_qc.py::_build.kernel
 // (trial, decode, frame and mc modes; the min-sum family
-// NMSA/OMSA/ANMSA/AOMSA; the flooding and layered schedules). The plain
-// torch versions it is held to, bit for bit, are in
-// qkd_ldpc_v_tpu_torch/ops/qc_decoder.py, and for the mc mode's keys
+// NMSA/OMSA/ANMSA/AOMSA on the flooding and layered schedules, and the SPA
+// pair SPA / SPA-lin-approx on the flooding schedule, whose check update is
+// csrc/spa.cuh). The plain torch versions it is held to, bit for bit, are
+// in qkd_ldpc_v_tpu_torch/ops/qc_decoder.py, and for the mc mode's keys
 // ops/channel.py::mc_channel.
 //
 // Modes: trial forms the channel LLRs +-log_p from Bob's keys and Alice's
@@ -63,13 +64,18 @@
 // O(num_be) dependent shared and local accesses per thread and mb+3
 // barriers. The design keeps all per-iteration state on chip and lets each
 // frame leave on its own; making the message array register-resident
-// (code-specialised kernels) is later work.
+// (code-specialised kernels) is later work. The SPA pair's check update
+// adds a tanhf, an atanhf and an IEEE division per edge and iteration,
+// built from the SFU's (MUFU) exponential, logarithm and reciprocal, which
+// issue at a quarter of the f32 rate; each message array slot parks its
+// term between the row product and the division.
 
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "spa.cuh"
 
 namespace {
 
@@ -195,8 +201,10 @@ __device__ unsigned long long mc_prologue(const Params& p, const McDraw& d,
 
 // MC: the mc mode (d: what it draws from; unused by the other modes),
 // compiled apart so that its prologue's registers do not weigh on the other
-// modes.
-template <bool LAYERED, bool ADAPTIVE, bool OFFSET, bool MC>
+// modes. CHECK: the check update (spa.cuh: kMinSum, or the SPA pair, which
+// floods), a template flag so that the min-sum instantiations keep their
+// code.
+template <bool LAYERED, bool ADAPTIVE, bool OFFSET, bool MC, int CHECK>
 __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p, McDraw d) {
   extern __shared__ int smem[];
   const int Z = p.z, mb = p.mb, nb = p.nb, num_be = p.num_be;
@@ -306,6 +314,15 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p, McDraw d) {
       for (int r = 0; r < mb; ++r) {
         const int b = row_ptr[r], end = row_ptr[r + 1];
         const int sbit = (int)((syn_mask >> r) & 1ull);
+        if constexpr (CHECK != kMinSum) {
+          // The SPA pair: each message is parked as its term.
+          spa_row<CHECK>(
+              end - b, sbit != 0,
+              [&](int j) { return msg[b + j] = spa_term<CHECK>(msg[b + j]); },
+              [&](int j) { return msg[b + j]; },
+              [&](int j, float v) { msg[b + j] = clamp_msg(v, p); });
+          continue;
+        }
         float min1 = 0.f, min2 = FLT_MAX;
         int neg = 0;
         for (int e = b; e < end; ++e) {
@@ -374,15 +391,15 @@ __global__ void __launch_bounds__(kMaxZ) fused_qc_kernel(Params p, McDraw d) {
   }
 }
 
-template <bool LAYERED, bool ADAPTIVE, bool OFFSET>
+template <bool LAYERED, bool ADAPTIVE, bool OFFSET, int CHECK = kMinSum>
 int launch(const Params& p, const McDraw& d, int batch, cudaStream_t stream) {
   const bool mc = p.mode == kMc;
   const size_t table_bytes = sizeof(int) * (p.mb + 1 + 2 * p.num_be);
   const size_t plane_bytes = sizeof(float) * (size_t)p.nb * p.z;
   const size_t smem = table_bytes + (LAYERED ? 1 : 2) * plane_bytes +
                       (mc ? sizeof(Selection) : 0);
-  auto kernel = mc ? fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET, true>
-                   : fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET, false>;
+  auto kernel = mc ? fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET, true, CHECK>
+                   : fused_qc_kernel<LAYERED, ADAPTIVE, OFFSET, false, CHECK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -390,12 +407,19 @@ int launch(const Params& p, const McDraw& d, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// flags: bit 0 layered, bit 1 adaptive, bit 2 offset (OMSA/AOMSA).
+// flags: bit 0 layered, bit 1 adaptive, bit 2 offset (OMSA/AOMSA), bits 3-4
+// the check update (8 SPA, 16 SPA-lin; flooding, neither adaptive nor
+// offset).
 int dispatch(const Params& p, int batch, int flags, cudaStream_t stream,
              const McDraw& d = McDraw{}) {
+  const int check = (flags >> 3) & 3;
   if (p.z < 1 || p.z > kMaxZ || p.num_be > kMaxBlockEdges ||
-      p.mb > kMaxBaseChecks || batch < 1)
+      p.mb > kMaxBaseChecks || batch < 1 || check > kSpaLin ||
+      (check != kMinSum && (flags & 7) != 0))
     return (int)cudaErrorInvalidValue;
+  if (check == kSpa) return launch<false, false, false, kSpa>(p, d, batch, stream);
+  if (check == kSpaLin)
+    return launch<false, false, false, kSpaLin>(p, d, batch, stream);
   switch (flags & 7) {
     case 0: return launch<false, false, false>(p, d, batch, stream);
     case 1: return launch<true, false, false>(p, d, batch, stream);

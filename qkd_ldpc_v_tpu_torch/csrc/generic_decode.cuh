@@ -2,7 +2,8 @@
 // and the streamed generic kernel (csrc/generic_stream.cu), and the fused
 // kernel's decode body. Both decode an arbitrary sparse parity-check matrix
 // from raw keys (trial mode) or from LLRs and a syndrome (decode mode), for
-// the min-sum family NMSA/OMSA/ANMSA/AOMSA on the flooding schedule. The
+// the min-sum family NMSA/OMSA/ANMSA/AOMSA and the SPA pair (SPA,
+// SPA-lin-approx: the check update of spa.cuh) on the flooding schedule. The
 // fused kernel also decodes rate-adapted frames (frame mode): the caller's
 // LLRs as in decode mode, Alice's syndrome and the key compare from Alice's
 // frame as in trial mode; and it draws its own keys (mc mode): internal bit
@@ -62,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "spa.cuh"
 
 namespace {
 
@@ -263,6 +265,20 @@ __device__ __forceinline__ void check_pass(int c, const Params& p,
         minsum_value<OFFSET, true>(msg[k], min1, min2, row_sign, f), p);
 }
 
+// Check pass over check c for the SPA pair: each bit->check message is
+// parked as its term, then replaced by its clamped check->bit value.
+template <int CHECK>
+__device__ __forceinline__ void check_pass_spa(int c, const Params& p,
+                                               const Tables& t,
+                                               const int8_t* syn, float* msg) {
+  float* run = msg + t.cptr[c];
+  spa_row<CHECK>(
+      t.cptr[c + 1] - t.cptr[c], syn[c] != 0,
+      [&](int j) { return run[j] = spa_term<CHECK>(run[j]); },
+      [&](int j) { return run[j]; },
+      [&](int j, float v) { run[j] = clamp_msg<true>(v, p); });
+}
+
 // Bit pass over bit i: the llr-first sequential total, the decision, and
 // the new bit->check messages.
 __device__ __forceinline__ void bit_pass(int i, const Params& p,
@@ -339,8 +355,8 @@ __device__ __forceinline__ void mc_stage(const Params& p, const McDraw& d,
 // over internal bits in the bit steps; each edge has one owner in each
 // pass, so neither pass races, and a barrier separates them.
 // MC: the mc mode, which draws from d (launches of any other mode take
-// MC = false and leave d unused).
-template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED, bool MC>
+// MC = false and leave d unused). CHECK: the check update (spa.cuh).
+template <bool ADAPTIVE, bool OFFSET, bool MSG_SHARED, bool MC, int CHECK>
 __device__ __forceinline__ void decode_frames(const Params& p,
                                               const McDraw& d, char* smem) {
   const int N = p.n, M = p.m, E = p.e;
@@ -385,8 +401,13 @@ __device__ __forceinline__ void decode_frames(const Params& p,
         iters = it + 1;
         break;
       }
-      for (int c = tid; c < M; c += nt)
-        check_pass<ADAPTIVE, OFFSET>(c, p, t, dec, syn, msg);
+      for (int c = tid; c < M; c += nt) {
+        if constexpr (CHECK != kMinSum) {
+          check_pass_spa<CHECK>(c, p, t, syn, msg);
+        } else {
+          check_pass<ADAPTIVE, OFFSET>(c, p, t, dec, syn, msg);
+        }
+      }
       __syncthreads();
       for (int i = tid; i < N; i += nt)
         bit_pass(i, p, t, llr, dec, msg);

@@ -12,7 +12,8 @@
 //   kernel_b :434  bit pass: totals, decisions, the key compare or the
 //                  decision planes    -> bit_nodes and the group's end
 // in trial and decode modes, for the min-sum family NMSA/OMSA/ANMSA/AOMSA
-// on the flooding schedule. The while-loop becomes the block's iteration
+// and the SPA pair SPA / SPA-lin-approx (the check update of spa.cuh) on the
+// flooding schedule. The while-loop becomes the block's iteration
 // loop, which exits per frame. The plain torch version it is held to, bit
 // for bit, is ops/decoders.py::make_decoder in float32 (wrapped by
 // ops/generic_stream.py), as for the fused generic kernel, whose per-edge
@@ -70,7 +71,9 @@
 // group pays where the batch fills the grid. A group also iterates to its
 // slowest frame. The staging is a small share (PERF.md, "Where the time
 // goes", has the measured split); a group spread over several SMs, so that
-// its messages stay in L2, is the next design step.
+// its messages stay in L2, is the next design step. The SPA pair moves the
+// same messages and adds a tanhf, an atanhf and an IEEE division per edge
+// and iteration on the SFU (MUFU), at a quarter of the f32 rate.
 
 #include "generic_decode.cuh"
 
@@ -206,6 +209,47 @@ __device__ __forceinline__ void check_group(int c, int lane, const Params& p,
         minsum_value<OFFSET, true>(run[(size_t)j * F], min1, min2, rs, f), p);
 }
 
+// Check pass over check c for the lane's frame with the SPA pair: each
+// bit->check message becomes its term, then its clamped check->bit value.
+// Up to kCheckRun edges the terms stay in registers; longer checks park
+// them in the message slots.
+template <int CHECK, int F, typename Mask>
+__device__ __forceinline__ void check_group_spa(int c, int lane,
+                                                const Params& p,
+                                                const Tables& t,
+                                                const Mask* syn, float* msg) {
+  const int b = t.cptr[c], deg = t.cptr[c + 1] - b;
+  float* run = msg + (size_t)b * F + lane;
+  const bool s = (syn[c] >> lane) & 1;
+  if (deg <= kCheckRun) {
+    float v[kCheckRun];
+#pragma unroll
+    for (int j = 0; j < kCheckRun; ++j)
+      if (j < deg) v[j] = run[(size_t)j * F];
+    float prod = s ? -1.f : 1.f;
+#pragma unroll
+    for (int j = 0; j < kCheckRun; ++j) {
+      if (j < deg) {
+        v[j] = spa_term<CHECK>(v[j]);
+        prod = prod * v[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCheckRun; ++j)
+      if (j < deg)
+        run[(size_t)j * F] =
+            clamp_msg<true>(spa_extrinsic<CHECK>(prod / v[j]), p);
+    return;
+  }
+  spa_row<CHECK>(
+      deg, s,
+      [&](int j) {
+        return run[(size_t)j * F] = spa_term<CHECK>(run[(size_t)j * F]);
+      },
+      [&](int j) { return run[(size_t)j * F]; },
+      [&](int j, float v) { run[(size_t)j * F] = clamp_msg<true>(v, p); });
+}
+
 // Bit pass over R bits is[r] (those with on[r]) for the lane's frame, from
 // their channel LLRs tot[r]: the llr-first sequential totals (left in tot)
 // and the new bit->check messages. Where every bit's degree is at most
@@ -282,7 +326,9 @@ __device__ __forceinline__ unsigned settle(const Params& p, const Tables& t,
   return active & unsat;
 }
 
-template <bool ADAPTIVE, bool OFFSET, int F>
+// CHECK: the check update (spa.cuh), a template flag so that the min-sum
+// instantiations keep their code.
+template <bool ADAPTIVE, bool OFFSET, int F, int CHECK>
 __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
   typedef typename Group<F>::Mask Mask;
   extern __shared__ float4 smem[];
@@ -376,8 +422,13 @@ __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
       }
       for (int c0 = 0; c0 < M; c0 += per) {
         const int c = c0 + slot;
-        if (c < M && ((active >> lane) & 1))
-          check_group<ADAPTIVE, OFFSET, F>(c, lane, p, t, dec, syn, msg);
+        if (c < M && ((active >> lane) & 1)) {
+          if constexpr (CHECK != kMinSum) {
+            check_group_spa<CHECK, F>(c, lane, p, t, syn, msg);
+          } else {
+            check_group<ADAPTIVE, OFFSET, F>(c, lane, p, t, dec, syn, msg);
+          }
+        }
       }
       __syncthreads();
       const bool act = (active >> lane) & 1;
@@ -433,18 +484,27 @@ __global__ void __launch_bounds__(kMaxThreads) generic_stream_kernel(Params p) {
 
 typedef void (*KernelFn)(Params);
 
-// flags: bit 0 adaptive, bit 1 offset (OMSA/AOMSA).
+// flags: bit 0 adaptive, bit 1 offset (OMSA/AOMSA), bits 2-3 the check
+// update (4 SPA, 8 SPA-lin; neither adaptive nor offset). nullptr for flags
+// without a kernel.
 template <int F>
 KernelFn pick(int flags) {
+  const int check = (flags >> 2) & 3;
+  if (check != kMinSum) {
+    if ((flags & 3) != 0) return nullptr;
+    if (check == kSpa) return generic_stream_kernel<false, false, F, kSpa>;
+    if (check == kSpaLin) return generic_stream_kernel<false, false, F, kSpaLin>;
+    return nullptr;
+  }
   switch (flags & 3) {
-    case 0: return generic_stream_kernel<false, false, F>;
-    case 1: return generic_stream_kernel<true, false, F>;
-    case 2: return generic_stream_kernel<false, true, F>;
-    default: return generic_stream_kernel<true, true, F>;
+    case 0: return generic_stream_kernel<false, false, F, kMinSum>;
+    case 1: return generic_stream_kernel<true, false, F, kMinSum>;
+    case 2: return generic_stream_kernel<false, true, F, kMinSum>;
+    default: return generic_stream_kernel<true, true, F, kMinSum>;
   }
 }
 
-// The kernel of a group size (8 or 16 frames), or nullptr.
+// The kernel of a group size (8 or 16 frames) and flags, or nullptr.
 KernelFn kernel_for(int flags, int group) {
   if (group == 8) return pick<8>(flags);
   if (group == 16) return pick<16>(flags);

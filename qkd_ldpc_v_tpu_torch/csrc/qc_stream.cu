@@ -6,12 +6,14 @@
 //
 // Replaces the TPU kernel
 // qkd_ldpc_v_tpu/ops/pallas_qc_stream.py::_build.kernel (trial, decode and
-// mc modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA; the flooding and
-// layered schedules). The mc mode draws Alice's keys and the error sort keys
-// from the chunk's Philox stream (philox.cuh), keeps the sort keys in the
-// slice's extrinsic region for the exact selection and Alice's and Bob's
-// keys as byte planes in the slice (where the TPU kernel spills Alice's keys
-// to HBM), and then decodes as trial mode does; the plain version of its
+// mc modes; the min-sum family NMSA/OMSA/ANMSA/AOMSA on the flooding and
+// layered schedules; the SPA pair SPA / SPA-lin-approx on the flooding
+// schedule, with the check update of csrc/spa.cuh). The mc mode draws
+// Alice's keys and the error sort keys from the chunk's Philox stream
+// (philox.cuh), keeps the sort keys in the slice's extrinsic region for the
+// exact selection and Alice's and Bob's keys as byte planes in the slice
+// (where the TPU kernel spills Alice's keys to HBM), and then decodes as
+// trial mode does; the plain version of its
 // keys is ops/channel.py::mc_channel. It serves the QC codes whose per-frame
 // state does not fit in one block's shared memory (csrc/fused_qc.cu's
 // limit), e.g. every N=102400 asset. The plain torch versions it is held to,
@@ -76,7 +78,10 @@
 // flagship chunk, two blocks per SM made flooding faster and layered slower
 // than one. Keeping the totals on chip (a thread-block cluster's distributed
 // shared memory) and staging the extrinsic stream through TMA are later
-// work.
+// work. The SPA pair moves the same bytes: its first row loop parks each
+// edge's term in the extrinsic slot that its second loop overwrites, and
+// adds a tanhf, an atanhf and an IEEE division per edge and iteration on
+// the SFU (MUFU), at a quarter of the f32 rate.
 
 #include <cfloat>
 #include <climits>
@@ -84,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "spa.cuh"
 
 namespace {
 
@@ -225,8 +231,10 @@ __device__ void mc_prologue(const Params& p, const McDraw& d, int f,
 // one layered (see the note at the top of this file). MC: the mc mode (d:
 // what it draws from; unused by the other modes), compiled apart so that its
 // prologue's registers do not weigh on the other modes; the same bounds give
-// it the same blocks per SM.
-template <bool LAYERED, bool ADAPTIVE, bool OFFSET, bool MC>
+// it the same blocks per SM. CHECK: the check update (spa.cuh: kMinSum, or
+// the SPA pair, which floods), a template flag so that the min-sum
+// instantiations keep their code.
+template <bool LAYERED, bool ADAPTIVE, bool OFFSET, bool MC, int CHECK>
 __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
     qc_stream_kernel(Params p, McDraw d) {
   extern __shared__ int table[];
@@ -291,6 +299,28 @@ __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
         const int b = row_ptr[r], end = row_ptr[r + 1];
         for (int z = tid; z < Z; z += T) {
           const int sbit = syn[(size_t)r * Z + z] == 1;
+          if constexpr (CHECK != kMinSum) {
+            // The SPA pair (flooding): each term is parked in its edge's
+            // extrinsic slot until the new extrinsic replaces it.
+            spa_row<CHECK>(
+                end - b, sbit != 0,
+                [&](int j) {
+                  const int e = b + j;
+                  const float t = tot[bit_index(cols[e], shifts[e], z, Z)];
+                  const float eo = it ? ext[(size_t)e * Z + z] : 0.f;
+                  const float th = spa_term<CHECK>(message<false>(t, eo, it, p));
+                  ext[(size_t)e * Z + z] = th;
+                  return th;
+                },
+                [&](int j) { return ext[(size_t)(b + j) * Z + z]; },
+                [&](int j, float v) {
+                  const int e = b + j;
+                  const float val = clamp_msg(v, p);
+                  acc[bit_index(cols[e], shifts[e], z, Z)] += val;
+                  ext[(size_t)e * Z + z] = val;
+                });
+            continue;
+          }
           float min1 = 0.f, min2 = FLT_MAX;
           int neg = 0, par = sbit;
           for (int e = b; e < end; ++e) {
@@ -384,18 +414,28 @@ __global__ void __launch_bounds__(kMaxThreads, LAYERED ? 1 : 2)
 
 typedef void (*KernelFn)(Params, McDraw);
 
-// flags: bit 0 layered, bit 1 adaptive, bit 2 offset (OMSA/AOMSA).
+// flags: bit 0 layered, bit 1 adaptive, bit 2 offset (OMSA/AOMSA), bits 3-4
+// the check update (8 SPA, 16 SPA-lin; flooding, neither adaptive nor
+// offset). nullptr for flags without a kernel.
 template <bool MC>
 KernelFn kernel_of(int flags) {
+  const int check = (flags >> 3) & 3;
+  if (check != kMinSum) {
+    if ((flags & 7) != 0) return nullptr;
+    if (check == kSpa) return qc_stream_kernel<false, false, false, MC, kSpa>;
+    if (check == kSpaLin)
+      return qc_stream_kernel<false, false, false, MC, kSpaLin>;
+    return nullptr;
+  }
   switch (flags & 7) {
-    case 0: return qc_stream_kernel<false, false, false, MC>;
-    case 1: return qc_stream_kernel<true, false, false, MC>;
-    case 2: return qc_stream_kernel<false, true, false, MC>;
-    case 3: return qc_stream_kernel<true, true, false, MC>;
-    case 4: return qc_stream_kernel<false, false, true, MC>;
-    case 5: return qc_stream_kernel<true, false, true, MC>;
-    case 6: return qc_stream_kernel<false, true, true, MC>;
-    default: return qc_stream_kernel<true, true, true, MC>;
+    case 0: return qc_stream_kernel<false, false, false, MC, kMinSum>;
+    case 1: return qc_stream_kernel<true, false, false, MC, kMinSum>;
+    case 2: return qc_stream_kernel<false, true, false, MC, kMinSum>;
+    case 3: return qc_stream_kernel<true, true, false, MC, kMinSum>;
+    case 4: return qc_stream_kernel<false, false, true, MC, kMinSum>;
+    case 5: return qc_stream_kernel<true, false, true, MC, kMinSum>;
+    case 6: return qc_stream_kernel<false, true, true, MC, kMinSum>;
+    default: return qc_stream_kernel<true, true, true, MC, kMinSum>;
   }
 }
 
@@ -421,6 +461,7 @@ int launch(const Params& p, int flags, int grid, cudaStream_t stream,
   const bool mc = p.mode == kMc;
   const size_t smem = shared_bytes(p.mb, p.num_be, mc);
   KernelFn kernel = kernel_for(flags, mc);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   kernel<<<grid, threads_for(p.z), smem, stream>>>(p, d);
   return (int)cudaGetLastError();
 }
@@ -446,9 +487,11 @@ long long qc_stream_scratch_floats(int mb, int nb, int z, int num_be,
 // negative CUDA error.
 int qc_stream_resident_blocks(int mb, int z, int num_be, int flags, int mc) {
   const size_t smem = shared_bytes(mb, num_be, mc != 0);
+  KernelFn kernel = kernel_for(flags, mc != 0);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
   int per_sm = 0;
   int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_for(flags, mc != 0), threads_for(z), smem);
+      &per_sm, kernel, threads_for(z), smem);
   if (err != 0) return -err;
   int device = 0, sms = 0;
   err = (int)cudaGetDevice(&device);

@@ -23,13 +23,16 @@ offset; the adaptive pair takes its per-check factor from the *previous*
 decisions and detects convergence there; the message clamp applies to the
 check-to-bit messages and to the new bit-to-check messages.
 
-Association: bit totals are llr-first sequential sums in slot order in
-every dtype; the SPA row product is sequential in float64 (the
-reference-parity mode) and ``torch.prod`` otherwise, as the JAX decoder
-uses ``jnp.prod`` outside float64. The float64 decoder therefore equals
-``qkd_ldpc_v_tpu/oracle.py`` and the JAX float64 decoder bit for bit, the
-float32 min-sum family equals the JAX float32 decoder exactly, and float32
-SPA agrees to a tolerance class. bfloat16 runs with the same code.
+Association: bit totals are llr-first sequential sums in slot order, and
+the SPA row product is sequential from the syndrome sign in slot order, in
+every dtype: the order of every Pallas kernel and of the CUDA kernels held
+to this decoder. The float64 decoder therefore equals
+``qkd_ldpc_v_tpu/oracle.py`` and the JAX float64 decoder bit for bit, and
+the float32 min-sum family equals the JAX float32 decoder exactly. The
+JAX XLA decoder forms the float32 SPA row product with ``jnp.prod``, whose
+association differs, and XLA's float32 tanh is its own approximation, so
+float32 SPA agrees with it to a tolerance class. bfloat16 runs with the
+same code.
 
 This decoder is the ``xla`` engine of ``simulation.py`` and the plain
 version that the fused generic kernel (``ops/fused_generic.py``) is held
@@ -81,12 +84,10 @@ def _sum_terms(init: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _prod_terms(init: torch.Tensor, terms: torch.Tensor, exact: bool) -> torch.Tensor:
-    """init [c,B] * product of terms [c,d,B] over the degree axis:
-    sequential in the exact mode (reference :57-62), ``torch.prod``
-    otherwise."""
-    if not exact:
-        return init * torch.prod(terms, dim=1)
+def _prod_terms(init: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """init [c,B] times terms [c,d,B] over the degree axis in slot order,
+    starting from init (reference :57-62) — the order of every Pallas
+    kernel's SPA row product, which the CUDA kernels keep."""
     acc = init
     for s in range(terms.shape[1]):
         acc = acc * terms[:, s, :]
@@ -185,7 +186,7 @@ def make_decoder(
                 ss = syn_sign[g.node_start:g.node_start + g.count]
                 if spa:
                     t = tanh_fn(msgs * half)
-                    row_prod = _prod_terms(ss, t, exact)
+                    row_prod = _prod_terms(ss, t)
                     ratio = row_prod[:, None, :] / t
                     if algorithm == DecodingAlgorithm.SPA and not exact:
                         ratio = guard_atanh_ratio(ratio)

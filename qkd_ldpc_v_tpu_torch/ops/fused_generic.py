@@ -4,8 +4,9 @@ arbitrary sparse parity-check matrices, and their plain torch versions.
 Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_generic.py``
 (``make_pallas_generic_trial``, ``make_pallas_generic_montecarlo``,
 ``make_pallas_generic_frame_trial`` and ``make_pallas_generic_decoder``; the
-kernel is ``csrc/fused_generic.cu``), for the min-sum family NMSA, OMSA,
-ANMSA and AOMSA on the flooding schedule:
+kernel is ``csrc/fused_generic.cu``), for the six algorithms (the min-sum
+family NMSA, OMSA, ANMSA and AOMSA, and the SPA pair SPA and
+SPA-lin-approx) on the flooding schedule:
 
   * ``make_fused_generic_trial`` — the Monte-Carlo trial of given keys for
     alist / format-1 / format-2 / dense codes: Alice's and Bob's keys in;
@@ -72,6 +73,7 @@ from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     MAX_SHARED_BYTES,
     KernelCounts,
     cached_plans,
+    check_flags,
     kernel_decoder,
     kernel_frame_trial,
     kernel_montecarlo,
@@ -79,7 +81,6 @@ from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     pointers,
     stream_of,
 )
-from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
 
 COUNTS = KernelCounts()
 reset_counts = COUNTS.reset
@@ -116,15 +117,6 @@ def generic_feasible(matrix: HMatrix) -> bool:
         return False
     used = max(_edge_rows(matrix.bit_nodes), _edge_rows(matrix.check_nodes))
     return -(-used // LANES) <= MAX_TILES
-
-
-def check_algorithm(algorithm: DecodingAlgorithm, kernel: str) -> None:
-    if algorithm not in MIN_SUM:
-        raise NotImplementedError(
-            f"{algorithm.display_name} in the {kernel} kernel is not "
-            "ported yet: the SPA pair comes after the min-sum family "
-            "(ROADMAP, port queue)."
-        )
 
 
 def _lib() -> ctypes.CDLL:
@@ -262,9 +254,11 @@ _launch_plan = cached_plans(_Launch)
 
 def _flags(algorithm: DecodingAlgorithm) -> int:
     """The generic kernels' template flags: bit 0 adaptive, bit 1 offset
-    (OMSA/AOMSA)."""
+    (OMSA/AOMSA), bits 2-3 the check update (``fused_qc.check_flags``: 4
+    SPA, 8 SPA-lin)."""
     offset = algorithm in (DecodingAlgorithm.OMSA, DecodingAlgorithm.AOMSA)
-    return int(algorithm.is_adaptive) | (int(offset) << 1)
+    return (int(algorithm.is_adaptive) | (int(offset) << 1)
+            | (check_flags(algorithm) << 2))
 
 
 def _ptr(t) -> int:
@@ -277,7 +271,6 @@ def generic_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
     """``fused_qc.kernel_trial`` of a generic kernel, with the generic plain
     version: the f32 generic torch decoder, ``calculate_syndrome`` and the
     key compare."""
-    check_algorithm(algorithm, kernel)
     plain = make_trial(layout_for(matrix), algorithm, max_iterations,
                        use_threshold, torch.float32)
     return kernel_trial(kernel, counts, plan_for, matrix,
@@ -290,7 +283,6 @@ def generic_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
                        max_iterations: int, use_threshold: bool) -> Callable:
     """``fused_qc.kernel_montecarlo`` of a generic kernel, with the generic
     plain trial."""
-    check_algorithm(algorithm, kernel)
     plain = make_trial(layout_for(matrix), algorithm, max_iterations,
                        use_threshold, torch.float32)
     return kernel_montecarlo(kernel, counts, plan_for, matrix,
@@ -304,7 +296,6 @@ def generic_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
                     use_threshold: bool) -> Callable[..., DecodeResult]:
     """``fused_qc.kernel_decoder`` of a generic kernel, with the f32 generic
     torch decoder as its plain version."""
-    check_algorithm(algorithm, kernel)
     plain = get_decoder(layout_for(matrix), algorithm, max_iterations,
                         use_threshold, torch.float32)
     return kernel_decoder(kernel, counts, plan_for, matrix,
@@ -363,7 +354,6 @@ def make_fused_generic_frame_trial(
     (``calculate_syndrome``), the f32 generic torch decoder and the key
     compare over the whole frame; ``trial.plain`` runs it.
     """
-    check_algorithm(algorithm, "fused generic")
     layout = layout_for(matrix)
     decode = get_decoder(layout, algorithm, max_iterations, use_threshold,
                          torch.float32)

@@ -59,8 +59,9 @@ from qkd_ldpc_v_tpu_torch.ops.channel import mc_channel, qc_syndrome
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult, frame_trial
 from qkd_ldpc_v_tpu_torch.ops.philox import key_of
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import (
+    SPA_PAIR,
     base_tables,
-    check_algorithm,
+    check_layered,
     decode_flooding,
     decode_layered,
 )
@@ -145,7 +146,6 @@ def _plain_frame_trial(qc, algorithm, max_iterations, use_threshold,
                        layered) -> Callable:
     """The QC kernels' plain frame trial: Alice's syndrome from her keys or
     frame (``qc_syndrome``), the plain decoder, the key compare."""
-    check_algorithm(algorithm)
 
     def decode(llr, syndrome, primary, secondary, threshold):
         return plain_decode(qc, llr, syndrome, algorithm, max_iterations,
@@ -155,11 +155,22 @@ def _plain_frame_trial(qc, algorithm, max_iterations, use_threshold,
     return frame_trial(decode, lambda alice: qc_syndrome(qc, alice))
 
 
+def check_flags(algorithm: DecodingAlgorithm) -> int:
+    """The check update's template flag of every kernel of this package: 0
+    min-sum, 1 SPA, 2 SPA-lin-approx (csrc/spa.cuh: kMinSum, kSpa,
+    kSpaLin)."""
+    return SPA_PAIR.index(algorithm) + 1 if algorithm in SPA_PAIR else 0
+
+
 def kernel_flags(algorithm: DecodingAlgorithm, layered: bool) -> int:
     """The QC kernels' template flags: bit 0 layered, bit 1 adaptive, bit 2
-    offset (OMSA/AOMSA)."""
+    offset (OMSA/AOMSA), bits 3-4 the check update (``check_flags``: 8 SPA,
+    16 SPA-lin). Raises ``ValueError`` for the layered schedule with the SPA
+    pair, which floods, before any launch."""
+    check_layered(algorithm, layered)
     offset = algorithm in (DecodingAlgorithm.OMSA, DecodingAlgorithm.AOMSA)
-    return int(layered) | (int(algorithm.is_adaptive) << 1) | (int(offset) << 2)
+    return (int(layered) | (int(algorithm.is_adaptive) << 1)
+            | (int(offset) << 2) | (check_flags(algorithm) << 3))
 
 
 def block_edge_table(qc: QCMatrix) -> List[int]:
@@ -582,7 +593,6 @@ def qc_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
                max_iterations: int, use_threshold: bool,
                schedule: str) -> Callable[..., DecodeResult]:
     """``kernel_decoder`` of a QC kernel, as ``qc_trial``."""
-    check_algorithm(algorithm)
     layered = check_schedule(schedule)
 
     def plain(llr, syndrome, primary, secondary, threshold):

@@ -5,8 +5,8 @@ shared memory, and their plain torch versions.
 Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_stream.py``
 (``make_pallas_stream_trial`` and ``make_pallas_stream_decoder``; the
 kernel is ``csrc/generic_stream.cu``, which replaces that module's four
-kernels and its while-loop), for the min-sum family NMSA, OMSA, ANMSA and
-AOMSA on the flooding schedule:
+kernels and its while-loop), for the six algorithms (the min-sum family
+NMSA, OMSA, ANMSA and AOMSA, and the SPA pair) on the flooding schedule:
 
   * ``make_generic_stream_trial`` — the Monte-Carlo sweep's hot path for
     the N=102400 alist code: Alice's and Bob's keys in, per-frame

@@ -1,17 +1,21 @@
-"""Plain torch QC-LDPC decoders for the min-sum family.
+"""Plain torch QC-LDPC decoders.
 
-These are the plain versions of the fused QC kernel (``ops/fused_qc.py``,
-``csrc/fused_qc.cu``): the same arithmetic, in the same f32 operation
-order, written as batched tensor code. The CPU path runs them, and the
-kernel is held to them bit for bit on the card.
+These are the plain versions of the QC kernels (``ops/fused_qc.py``,
+``csrc/fused_qc.cu``; ``ops/qc_stream.py``, ``csrc/qc_stream.cu``): the
+same arithmetic, in the same f32 operation order, written as batched
+tensor code. The CPU path runs them, and the kernels are held to them bit
+for bit on the card.
 
   * ``decode_flooding`` — counterpart of ``qkd_ldpc_v_tpu/ops/
-    qc_decoder.py::make_qc_decoder`` and of the TPU kernel's flooding
-    schedule, for NMSA/OMSA/ANMSA/AOMSA.
+    qc_decoder.py::make_qc_decoder`` and of the TPU kernels' flooding
+    schedule, for all six algorithms: the min-sum family NMSA/OMSA/ANMSA/
+    AOMSA and the SPA pair (SPA, SPA-lin-approx).
   * ``decode_layered`` — a batched torch port of the layered specification
     ``_layered_oracle`` (tests/test_pallas_qc.py): block-rows in storage
     order, totals updated within the sweep, the adaptive factor taken from
-    the current decisions.
+    the current decisions. The min-sum family only: the SPA pair keeps the
+    reference's flooding schedule, and asking for it raises ``ValueError``
+    as the TPU kernels' ``_build`` does.
 
 Circulant convention: check-aligned index z of block edge (r, c, s) is bit
 (c, (z + s) mod Z), so ``roll(x, -s)`` moves a bit-aligned plane to checks
@@ -22,9 +26,14 @@ decisions ``total <= 0 -> 1``; the pairwise two-minimum chain with
 ``min2`` starting at the float32 maximum; ``excl = m > 0 ? 1 : -1``;
 ``row_sign`` from the syndrome sign and the parity of ``m < 0``; NMSA
 ``f * row_sign * excl * eabs`` and OMSA ``row_sign * excl * max(eabs - f,
-0)``; the optional message clamp at the TPU kernel's program points;
-llr-first sequential bit totals in base-row order; per-frame early exit
-with the decisions of the converging iteration.
+0)``; the SPA pair as the TPU kernels' check pass computes it, per
+block-row on the check-aligned planes in storage order: ``t_i = tanh(m_i *
+0.5)`` (SPA-lin: ``ops/linapprox.py``), the sequential product ``prod = ss
+* t_0 * t_1 * ...`` from the syndrome sign ``ss``, ``ratio_i = prod /
+t_i``, for SPA the atanh guard (``linapprox.guard_atanh_ratio``) and then
+``2 * atanh(ratio_i)``; the optional message clamp at the TPU kernel's
+program points; llr-first sequential bit totals in base-row order;
+per-frame early exit with the decisions of the converging iteration.
 """
 
 from __future__ import annotations
@@ -36,6 +45,11 @@ import torch
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
+from qkd_ldpc_v_tpu_torch.ops.linapprox import (
+    atanh_lin_approx,
+    guard_atanh_ratio,
+    tanh_lin_approx,
+)
 
 MIN_SUM = (
     DecodingAlgorithm.NMSA,
@@ -63,12 +77,16 @@ def base_tables(qc: QCMatrix):
     return rows, cols, be
 
 
-def check_algorithm(algorithm: DecodingAlgorithm) -> None:
-    if algorithm not in MIN_SUM:
-        raise NotImplementedError(
-            f"{algorithm.display_name} on a QC code is not ported yet: the "
-            "SPA pair comes after the min-sum family (ROADMAP, port queue)."
-        )
+SPA_PAIR = (DecodingAlgorithm.SPA, DecodingAlgorithm.SPA_APPROX)
+
+
+def check_layered(algorithm: DecodingAlgorithm, layered: bool) -> None:
+    """Raise ``ValueError`` for the layered schedule with the SPA pair, as
+    the TPU kernels' ``_build`` does: the pair floods."""
+    if layered and algorithm not in MIN_SUM:
+        raise ValueError(
+            f"the layered schedule supports the min-sum family "
+            f"(NMSA/OMSA/ANMSA/AOMSA) only, not {algorithm.display_name}")
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -76,11 +94,19 @@ def _f32(x, device) -> torch.Tensor:
 
 
 class _RowUpdate:
-    """The min-sum check update of one block-row, shared by both
-    schedules (op order is the kernel's)."""
+    """The check update of one block-row, shared by both schedules (op
+    order is the kernel's)."""
 
     def __init__(self, algorithm, use_threshold, primary, secondary,
                  threshold, device):
+        self.spa = algorithm in SPA_PAIR
+        self.guard = algorithm == DecodingAlgorithm.SPA
+        if algorithm == DecodingAlgorithm.SPA:
+            self.tanh, self.atanh = torch.tanh, torch.atanh
+        else:
+            self.tanh, self.atanh = tanh_lin_approx, atanh_lin_approx
+        self.half = _f32(0.5, device)
+        self.two = _f32(2.0, device)
         self.offset = algorithm in (DecodingAlgorithm.OMSA,
                                     DecodingAlgorithm.AOMSA)
         self.adaptive = algorithm.is_adaptive
@@ -100,7 +126,24 @@ class _RowUpdate:
         """Per-check factor: secondary where the check is unsatisfied."""
         return torch.where(mismatch != 0, self.secondary, self.primary)
 
+    def spa_row(self, msgs, ss):
+        """The SPA pair's clamped check->bit values of one block-row. The
+        elementwise steps run on the row's messages stacked, which gives
+        each element the bits it would get alone; the product runs over the
+        block edges in storage order."""
+        ts = self.tanh(torch.stack(msgs) * self.half)
+        prod = ss
+        for t in ts:
+            prod = prod * t
+        ratio = prod / ts
+        if self.guard:
+            ratio = guard_atanh_ratio(ratio)
+        return list(self.clamp(self.two * self.atanh(ratio)).unbind(0))
+
     def __call__(self, msgs, syn_bits, f):
+        if self.spa:
+            one = torch.ones_like(msgs[0])
+            return self.spa_row(msgs, torch.where(syn_bits == 1, -one, one))
         a = [m.abs() for m in msgs]
         min1 = a[0]
         min2 = torch.full_like(min1, float(self.big))
@@ -167,11 +210,11 @@ def decode_flooding(
     secondary: float = 1.0,
     threshold: float = 0.0,
 ) -> DecodeResult:
-    """Flooding min-sum decode of llr [B, N] f32 against syndrome [B, M]
-    (0/1). Non-adaptive algorithms check convergence after each bit pass;
-    the adaptive pair checks the previous decisions at the top of each
-    iteration and picks the per-check factor from the same mismatch."""
-    check_algorithm(algorithm)
+    """Flooding decode of llr [B, N] f32 against syndrome [B, M] (0/1), any
+    of the six algorithms. Non-adaptive algorithms check convergence after
+    each bit pass; the adaptive pair checks the previous decisions at the
+    top of each iteration and picks the per-check factor from the same
+    mismatch."""
     _check_inputs(qc, llr, syndrome)
     dev = llr.device
     z, nb, mb = qc.lifting, qc.base_bits, qc.base_checks
@@ -241,8 +284,9 @@ def decode_layered(
 ) -> DecodeResult:
     """Layered (serial-C) min-sum decode: block-rows in storage order, each
     reading the current totals and writing ``t + (val - E)`` at once;
-    convergence is checked after each sweep."""
-    check_algorithm(algorithm)
+    convergence is checked after each sweep. The SPA pair raises
+    ``ValueError``: it floods."""
+    check_layered(algorithm, True)
     _check_inputs(qc, llr, syndrome)
     dev = llr.device
     z, nb, mb = qc.lifting, qc.base_bits, qc.base_checks

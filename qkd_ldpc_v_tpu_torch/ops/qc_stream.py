@@ -6,7 +6,7 @@ Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_qc_stream.py``
 (``make_pallas_qc_stream_trial``, ``make_pallas_qc_stream_montecarlo`` and
 ``make_pallas_qc_stream_decoder``; the kernel is ``csrc/qc_stream.cu``), for
 the min-sum family NMSA, OMSA, ANMSA and AOMSA on the flooding and layered
-schedules:
+schedules, and the SPA pair (SPA, SPA-lin-approx) on the flooding schedule:
 
   * ``make_qc_stream_trial`` — the Monte-Carlo trial of given keys for the
     N=102400 QC codes: Alice's and Bob's keys in, per-frame

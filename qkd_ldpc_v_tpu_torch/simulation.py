@@ -28,10 +28,11 @@ one):
     torch decoder (``ops/decoders.py``), all six algorithms.
 The kernels' trials launch their CUDA kernels for tensors on a CUDA device
 and run their plain torch versions for tensors on the CPU; the ``xla``
-engine runs on the requested device. The SPA pair needs the ``xla``
-engine; the traced decode path is not ported yet. ``tpu.schedule =
+engine runs on the requested device. Every engine runs all six
+algorithms; the traced decode path is not ported yet. ``tpu.schedule =
 layered`` is honoured by the QC engines with a min-sum algorithm;
-elsewhere it warns and floods, as in the JAX package.
+elsewhere, the SPA pair on a QC engine included, it warns and floods, as
+in the JAX package.
 
 Rate-adaptive runs build each chunk's frames and LLRs in torch
 (``channel.build_frames``) and decode them as the JAX sweep does
@@ -463,11 +464,6 @@ def check_engine(matrix: HMatrix, cfg: Config) -> str:
         reasons.append("the traced f64 decode path (ROADMAP.md, queue 1: "
                        "tracing.py)")
     engine = select_engine(matrix, cfg)
-    if engine != "xla" and cfg.decoding_algorithm not in MIN_SUM:
-        reasons.append(f"{cfg.decoding_algorithm.display_name} in the "
-                       f"{engine} engine's kernel (ROADMAP.md, queue 2: its "
-                       "SPA pair; tpu.use_pallas = false runs it in the "
-                       "generic torch decoder)")
     if reasons:
         raise NotImplementedError(
             "not ported to qkd_ldpc_v_tpu_torch yet: " + "; ".join(reasons)
@@ -493,9 +489,12 @@ def qc_kernel(qc: QCMatrix, engine: str, layered: bool) -> str:
 
 def _schedule(engine: str, matrix: HMatrix, cfg: Config):
     """(QC kernel or None, layered) of this engine and config; warns where
-    the layered schedule asked for cannot run and the engine floods."""
+    the layered schedule asked for cannot run (not a QC engine, or the SPA
+    pair, as the JAX package's ``_effective_schedule``) and the engine
+    floods. The QC kernel is chosen for the schedule that runs."""
     is_qc = engine in ("qc", "qc_stream")
-    layered = is_qc and cfg.schedule == "layered"
+    layered = (is_qc and cfg.schedule == "layered"
+               and cfg.decoding_algorithm in MIN_SUM)
     if cfg.schedule == "layered" and not layered:
         logger.warning(
             "tpu.schedule = layered needs a QC engine and a min-sum "

@@ -2,7 +2,7 @@
 """Time the PyTorch/CUDA port's main-path kernel chunks of two checkouts on
 one card, in turns (A, B, B, A).
 
-    python3 scripts/ab_torch_kernel_chunks.py DIR_A DIR_B
+    python3 scripts/ab_torch_kernel_chunks.py DIR_A DIR_B [CELL ...]
 
 Each DIR is the root of a checkout that holds ``qkd_ldpc_v_tpu_torch/``
 (for example the parent commit unpacked with ``git archive`` into a
@@ -18,10 +18,13 @@ chunk 0):
   * qc100k: the streamed QC kernel, the N=102400 flagship, QBER 0.03, NMSA
     alpha 0.8, layered, 4096 frames;
   * alist100k: the streamed generic kernel, the N=102400 alist code, QBER
-    0.03, NMSA alpha 0.8, flooding, 4096 frames.
+    0.03, NMSA alpha 0.8, flooding, 4096 frames;
+  * alist100k_spa: the same with SPA (as ``chip_smoke.py`` phase 3g runs
+    it), timed only when named.
 
-It prints the card's name and power limit, one line per turn and cell, and
-each cell's mean per checkout. The cells' outputs must agree across the
+Without CELL arguments it times the three NMSA cells. It prints the
+card's name and power limit, one line per turn and cell, and each cell's
+mean per checkout. The cells' outputs must agree across the
 checkouts. It needs one CUDA device.
 """
 
@@ -35,9 +38,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 CELLS = ("headline", "qc100k", "alist100k")
+ALL_CELLS = CELLS + ("alist100k_spa",)
 
 
-def worker(checkout: Path) -> None:
+def worker(checkout: Path, names: list[str]) -> None:
     sys.path.insert(0, str(checkout))
     import torch
 
@@ -55,6 +59,9 @@ def worker(checkout: Path) -> None:
     dev = torch.device("cuda")
     assets = ROOT / "sparse_matrices"
     nmsa = DecodingAlgorithm.NMSA
+    alist100k = read_sparse_matrix_alist(
+        assets / "matrices_alist"
+        / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx")
     cells = {
         "headline": (read_qc_matrix(
             assets / "matrices_qc"
@@ -66,14 +73,15 @@ def worker(checkout: Path) -> None:
             / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx"), 4096,
             0.8, lambda code: qc_stream.make_qc_stream_trial(
                 code, nmsa, 100, False, "layered")),
-        "alist100k": (read_sparse_matrix_alist(
-            assets / "matrices_alist"
-            / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx"), 4096, 0.8,
-            lambda code: generic_stream.make_generic_stream_trial(
-                code, nmsa, 100, False)),
+        "alist100k": (alist100k, 4096, 0.8,
+                      lambda code: generic_stream.make_generic_stream_trial(
+                          code, nmsa, 100, False)),
+        "alist100k_spa": (alist100k, 4096, 1.0,
+                          lambda code: generic_stream.make_generic_stream_trial(
+                              code, DecodingAlgorithm.SPA, 100, False)),
     }
     out = {}
-    for name in CELLS:
+    for name in names:
         code, frames, alpha, make = cells[name]
         n = code.num_bit_nodes
         ne = exact_error_count(n, 0.03)
@@ -96,10 +104,11 @@ def worker(checkout: Path) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        worker(Path(sys.argv[2]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
+        worker(Path(sys.argv[2]), sys.argv[3:])
         return 0
-    if len(sys.argv) != 3:
+    cells = tuple(sys.argv[3:]) or CELLS
+    if len(sys.argv) < 3 or not set(cells) <= set(ALL_CELLS):
         print(__doc__, file=sys.stderr)
         return 2
     card = subprocess.run(
@@ -108,17 +117,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dirs = {"A": Path(sys.argv[1]), "B": Path(sys.argv[2])}
-    times = {"A": {c: [] for c in CELLS}, "B": {c: [] for c in CELLS}}
+    times = {"A": {c: [] for c in cells}, "B": {c: [] for c in cells}}
     seen = {}
     for turn, which in enumerate("ABBA"):
         proc = subprocess.run(
-            [sys.executable, __file__, "--worker", str(dirs[which])],
+            [sys.executable, __file__, "--worker", str(dirs[which]), *cells],
             capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        for cell in CELLS:
+        for cell in cells:
             times[which][cell].append(res[cell]["ms"])
             stats = (res[cell]["iterations"], res[cell]["converged"])
             if seen.setdefault(cell, stats) != stats:
@@ -127,7 +136,7 @@ def main() -> int:
                 return 1
             print(f"turn {turn} {which} ({dirs[which]}): {cell} "
                   f"{res[cell]['ms']:.2f} ms", flush=True)
-    for cell in CELLS:
+    for cell in cells:
         means = {w: sum(t[cell]) / len(t[cell]) for w, t in times.items()}
         print(f"{cell}: A {means['A']:.2f} ms, B {means['B']:.2f} ms, "
               f"B/A {means['B'] / means['A']:.4f} ({card})", flush=True)

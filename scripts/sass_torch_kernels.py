@@ -3,6 +3,7 @@
 compare their machine code kernel by kernel.
 
     python3 scripts/sass_torch_kernels.py DIR_A [DIR_B]
+    python3 scripts/sass_torch_kernels.py --opcodes DIR NAME
 
 Each DIR is the root of a checkout (or any directory that holds a
 ``qkd_ldpc_v_tpu_torch/csrc``). Every ``csrc/*.cu`` there is compiled by
@@ -15,7 +16,10 @@ With two DIRs, each kernel of B is matched to A's kernel of the same name
 and flags, or, where B has one more template flag and it is false, to A's
 kernel without it (a mode compiled apart); the line shows both, whether the
 instruction streams are identical (branch targets and labels aside), and
-the opcodes whose counts differ most.
+the opcodes whose counts differ most. With ``--opcodes``, each kernel of
+DIR whose name contains NAME is listed with its opcode counts and its
+instructions, from which operations per call are counted by hand (e.g.
+``spa_steps`` for the SPA pair's tanhf, atanhf and division).
 
 It needs the CUDA toolkit (nvcc, cuobjdump) and no card.
 """
@@ -119,7 +123,27 @@ def _name(label: tuple) -> str:
     return f"{label[0]}:{label[1]}<{','.join(label[2])}>"
 
 
+def opcodes(tree: Path, name: str) -> int:
+    """List each kernel of ``tree`` whose name contains ``name``: its
+    summary, its opcode counts and its instructions."""
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels = compile_tree(tree, Path(tmp))
+    found = 0
+    for label, k in sorted(kernels.items()):
+        if name not in label[1]:
+            continue
+        found += 1
+        ops = collections.Counter(_opcode(i) for i in k["sass"])
+        print(f"{_name(label)}: {_summary(k)}")
+        print("  " + " ".join(f"{op} {n}" for op, n in ops.most_common()))
+        for ins in k["sass"]:
+            print(f"    {ins}")
+    return 0 if found else 1
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--opcodes":
+        return opcodes(Path(sys.argv[2]), sys.argv[3])
     dirs = [Path(d) for d in sys.argv[1:]]
     if not 1 <= len(dirs) <= 2:
         print(__doc__, file=sys.stderr)

@@ -5,10 +5,13 @@ SPA-lin tables (ops/linapprox.py) against the JAX package and the oracle.
     and iterations equal ``oracle.decode_oracle`` and the JAX float64
     decoder bit for bit (mirrors tests/test_decoders.py).
   * float32 min-sum family: equal to the JAX float32 decoder exactly.
-  * float32 SPA pair: JAX forms the row product with ``jnp.prod`` and torch
-    with ``torch.prod``, whose association differs, so the class is
-    ``syndromes_match`` equal on at least 15 of 16 frames and decisions
-    equal wherever the iteration counts are.
+  * float32 SPA pair: JAX's XLA decoder forms the row product with
+    ``jnp.prod``, while torch multiplies sequentially from the syndrome
+    sign in slot order (the Pallas and CUDA kernels' order), and XLA's f32
+    tanh is its own approximation, so the messages' bits differ; the class
+    is PARITY.md level 2: decisions and ``syndromes_match`` equal on every
+    frame, the frames that fail within the cap included, and iterations
+    within one.
   * bfloat16 decodes (mirrors tests/test_decoders.py::test_bfloat16_decodes).
   * The transcendentals and the linear approximations agree with JAX and
     with Python's ``math`` on dense grids.
@@ -185,12 +188,13 @@ def test_f32_spa_pair_tolerance_class(codes, alg):
     jres = jget_decoder(jcompile(jm), JAlg[alg], 40, True,
                         dtype=jnp.float32)(jnp.asarray(llr), jnp.asarray(syn),
                                            1.0, 1.0, 100.0)
-    jconv = np.asarray(jres.syndromes_match)
     conv = res.syndromes_match.numpy()
-    assert (conv == jconv).sum() >= 15
-    same = res.iterations.numpy() == np.asarray(jres.iterations)
-    np.testing.assert_array_equal(res.decision.numpy()[same],
-                                  np.asarray(jres.decision)[same])
+    assert 0 < conv.sum() < len(conv)
+    np.testing.assert_array_equal(conv, np.asarray(jres.syndromes_match))
+    np.testing.assert_array_equal(res.decision.numpy(),
+                                  np.asarray(jres.decision))
+    iters = res.iterations.numpy().astype(np.int64)
+    assert np.abs(iters - np.asarray(jres.iterations)).max() <= 1
 
 
 @pytest.mark.parametrize("alg", ["NMSA", "SPA"])

@@ -12,7 +12,8 @@ Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
 card and skip without one: the trial and decode modes, the frame mode on
 rate-adapted frames (ragged batches, and the all-shortened neighbourhood of
 one bit, where sums overflow to inf and NaN), and the mc mode against
-``channel.mc_channel`` and the plain trial. They import no JAX, so on a
+``channel.mc_channel`` and the plain trial; each for the min-sum family
+and the SPA pair (forced LLRs in decode mode). They import no JAX, so on a
 machine without JAX they run with the conftest left out:
 
     python -m pytest tests/test_torch_fused_generic.py -m cuda --noconftest -q
@@ -46,6 +47,8 @@ CAP = 30
 THRESHOLD = 4.0
 FACTORS = {"NMSA": (0.8, 1.0), "OMSA": (0.3, 1.0), "ANMSA": (0.88, 0.5),
            "AOMSA": (0.3, 0.6)}
+# The card tests also run the SPA pair, which takes no factors.
+CARD_FACTORS = dict(FACTORS, SPA=(1.0, 1.0), SPA_APPROX=(1.0, 1.0))
 
 
 def irregular_dense():
@@ -235,8 +238,19 @@ def test_wrappers_check_inputs(medium):
         trial(alice.to(torch.int32), bob, lp)
     with pytest.raises(ValueError):
         trial(alice[:, :100], bob[:, :100], lp)
-    with pytest.raises(NotImplementedError, match="SPA"):
-        fused_generic.make_fused_generic_trial(matrix, TAlg.SPA, CAP, False)
+    # The SPA pair builds for every mode and runs its plain version on the
+    # CPU.
+    spa = fused_generic.make_fused_generic_trial(matrix, TAlg.SPA, CAP, False)
+    fused_generic.reset_counts()
+    got = spa(alice, bob, lp, 1.0, 1.0, 0.0)
+    want = spa.plain(alice, bob, lp, 1.0, 1.0, 0.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert fused_generic.counts() == (0, 0)
+    for make in (fused_generic.make_fused_generic_montecarlo,
+                 fused_generic.make_fused_generic_frame_trial,
+                 fused_generic.make_fused_generic_decoder):
+        make(matrix, TAlg.SPA_APPROX, CAP, True)
     alice_meta = torch.empty(alice.shape, dtype=torch.int8, device="meta")
     fused_generic.reset_counts()
     with pytest.raises(NotImplementedError, match="meta"):
@@ -282,7 +296,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("alg", list(FACTORS))
+@pytest.mark.parametrize("alg", list(CARD_FACTORS))
 @pytest.mark.parametrize("use_thr", [False, True])
 def test_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
     codes = [
@@ -294,7 +308,7 @@ def test_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
         # At the gate's edge (E = 65536): the messages live in global memory.
         (generate_regular_ldpc(32768, 16384, 2, seed=1), 0.01),
     ]
-    f1, f2 = FACTORS[alg]
+    f1, f2 = CARD_FACTORS[alg]
     thr = THRESHOLD if use_thr else 0.0
     for matrix, qber in codes:
         n = matrix.num_bit_nodes
@@ -309,6 +323,11 @@ def test_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
             assert torch.equal(g.cpu(), w.cpu())
         lpt = torch.tensor(lp, device=cuda_device)
         llr = torch.where(bob == 1, -lpt, lpt)
+        if alg.startswith("SPA"):
+            # A zero LLR (the 0/0 ratio) and |LLR| >= 20 (tanh = +-1, the
+            # guard clamps).
+            llr[0, 0] = 0.0
+            llr[1] *= 8.0
         syn = calculate_syndrome(layout_for(matrix), alice)
         dec = fused_generic.make_fused_generic_decoder(matrix, TAlg[alg], CAP,
                                                        use_thr)
@@ -320,7 +339,7 @@ def test_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("alg", list(FACTORS))
+@pytest.mark.parametrize("alg", list(CARD_FACTORS))
 @pytest.mark.parametrize("use_thr", [False, True])
 def test_frame_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
     """The frame mode on rate-adapted frames: the medium code (R=0.5 to
@@ -334,7 +353,7 @@ def test_frame_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
         (read_sparse_matrix_alist(ALIST / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"),
          0.005, 1.5),
     ]
-    f1, f2 = FACTORS[alg]
+    f1, f2 = CARD_FACTORS[alg]
     thr = THRESHOLD if use_thr else 0.0
     for matrix, qber, eff in codes:
         params = adapt_code_rate(np.random.default_rng(3), matrix, qber, 0.1,
@@ -358,7 +377,7 @@ def test_frame_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("alg", list(FACTORS))
+@pytest.mark.parametrize("alg", list(CARD_FACTORS))
 @pytest.mark.parametrize("use_thr", [False, True])
 def test_mc_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
     """The mc mode (keys drawn in the kernel at each bit's external
@@ -375,7 +394,7 @@ def test_mc_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
          0.032),
         (generate_regular_ldpc(32768, 16384, 2, seed=1), 0.01),
     ]
-    f1, f2 = FACTORS[alg]
+    f1, f2 = CARD_FACTORS[alg]
     thr = THRESHOLD if use_thr else 0.0
     seed = chunk_seed(11, 0, 4)
     for matrix, qber in codes:

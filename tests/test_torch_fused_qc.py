@@ -10,7 +10,9 @@ Tests marked ``cuda`` compare the CUDA kernel with its plain version on the
 card and skip without one: the trial and decode modes, the frame mode on
 rate-adapted frames (ragged batches, and a frame whose checks around one bit
 have every other bit shortened, so that sums overflow to inf and NaN), and
-the mc mode against ``channel.mc_channel`` and the plain trial. They
+the mc mode against ``channel.mc_channel`` and the plain trial; and the
+SPA pair (SPA, SPA-lin-approx) in all four modes, forced frames included.
+They
 import no JAX, so on a machine without JAX they run with the conftest left
 out:
 
@@ -162,8 +164,23 @@ def test_wrappers_check_inputs(qc, keys):
         trial(alice.t().contiguous().t(), bob, 3.0)
     with pytest.raises(ValueError, match="schedule"):
         fused_qc.make_fused_qc_trial(qc, TAlg.NMSA, CAP, False, "zigzag")
-    with pytest.raises(NotImplementedError, match="SPA"):
-        fused_qc.make_fused_qc_trial(qc, TAlg.SPA_APPROX, CAP, False)
+    # The SPA pair floods: the layered schedule raises before any launch,
+    # and the flooding trial runs its plain version on the CPU.
+    for alg in (TAlg.SPA, TAlg.SPA_APPROX):
+        for make in (fused_qc.make_fused_qc_trial,
+                     fused_qc.make_fused_qc_montecarlo,
+                     fused_qc.make_fused_qc_frame_trial,
+                     fused_qc.make_fused_qc_decoder):
+            with pytest.raises(ValueError, match="layered"):
+                make(qc, alg, CAP, False, "layered")
+    fused_qc.reset_counts()
+    spa = fused_qc.make_fused_qc_trial(qc, TAlg.SPA_APPROX, CAP, False)
+    got = spa(alice, bob, 3.0, 1.0, 1.0, 0.0)
+    want = spa.plain(alice, bob, 3.0, 1.0, 1.0, 0.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert fused_qc.counts() == (0, 0)
+    assert fused_qc.COUNTS.plain("trial") == 2
 
 
 def test_non_cpu_tensors_never_take_the_plain_path(qc):
@@ -306,3 +323,55 @@ def test_mc_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, schedule,
                 assert torch.equal(g.cpu(), w.cpu())
             if ne == 0:
                 assert bool(got[1].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["SPA", "SPA_APPROX"])
+@pytest.mark.parametrize("thr", [None, 2.5, 100.0])
+def test_spa_kernel_matches_plain_on_card(cuda_device, alg, thr):
+    """The SPA pair in the trial, decode, frame and mc modes (flooding)
+    against the plain versions, with the clamp off, below the channel's
+    |LLR| and above it. The decode mode's LLRs carry a zero (the 0/0 ratio)
+    in frame 0 and eight times the channel's magnitude in frame 1 (tanh
+    rounds to +-1 and the guard clamps); the frame mode takes the
+    all-shortened neighbourhood of bit 0 (inf and NaN)."""
+    use_thr = thr is not None
+    t = thr if use_thr else 0.0
+    code = read_qc_matrix(HEADLINE)
+    n = code.num_bit_nodes
+    ne = int(n * 0.03)
+    lp = log_ratio(ne / n)
+    alice, bob = _keys(n, 64, ne, seed=13, device=cuda_device)
+    kinds = {
+        "trial": (fused_qc.make_fused_qc_trial, (alice, bob, lp, 1.0, 1.0, t)),
+    }
+    lpt = torch.tensor(lp, device=cuda_device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    llr[0, 0] = 0.0
+    llr[1] *= 8.0
+    kinds["decode"] = (fused_qc.make_fused_qc_decoder,
+                       (llr, qc_syndrome(code, alice), 1.0, 1.0, t))
+    small = generate_qc_ldpc(8, 4, 128, 3, seed=5)
+    matrix = small.to_hmatrix()
+    params = adapt_code_rate(np.random.default_rng(3), matrix, 0.08, 0.1, 1.3)
+    frame, fllr = rate_adapted_frames(matrix, all_shortened_plan(matrix,
+                                                                 params),
+                                      13, 0.08, seed=9, device=cuda_device)
+    for kind, (make, args) in kinds.items():
+        fn = make(code, TAlg[alg], CAP, use_thr)
+        got, want = fn(*args), fn.plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu()), kind
+    trial = fused_qc.make_fused_qc_frame_trial(small, TAlg[alg], CAP, use_thr)
+    got, want = trial(frame, fllr, 1.0, 1.0, t), trial.plain(frame, fllr, 1.0,
+                                                             1.0, t)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    mc = fused_qc.make_fused_qc_montecarlo(code, TAlg[alg], CAP, use_thr)
+    args = (tsim.chunk_seed(5, 2, 3), 1000, 37, ne, lp, 1.0, 1.0, t)
+    got, want = mc(*args, device=cuda_device), mc.plain(*args,
+                                                        device=cuda_device)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())

@@ -420,8 +420,8 @@ def test_forced_stream_run_matches_jax_stream(irregular, monkeypatch,
 
 def test_forced_stream_on_the_10k_alist_code_and_spa(irregular):
     """``force_engine = stream`` sends a code inside the generic gate to the
-    streamed kernel where JAX's gate admits it; SPA on the stream engine
-    raises, naming the SPA queue item."""
+    streamed kernel where JAX's gate admits it; SPA runs on the stream
+    engine too."""
     from qkd_ldpc_v_tpu.config import Config, DecodingAlgorithm
 
     alist = tread_matrix(ALIST / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx",
@@ -432,8 +432,7 @@ def test_forced_stream_on_the_10k_alist_code_and_spa(irregular):
     spa = config_from_dict(dataclasses.asdict(
         Config(use_pallas=True, decoding_algorithm=DecodingAlgorithm.SPA,
                force_engine="stream")))
-    with pytest.raises(NotImplementedError, match="SPA"):
-        tsim.check_engine(alist, spa)
+    assert tsim.check_engine(alist, spa) == "stream"
     with pytest.raises(ValueError, match="force_engine"):
         tsim.select_engine(irregular, forced)
 
@@ -454,12 +453,16 @@ def test_wrappers_check_inputs(irregular, channel):
         dec(llr, syn[:, :10])
     with pytest.raises(TypeError):
         dec(llr.double(), syn)
+    # The SPA pair builds in both modes and runs its plain version on the
+    # CPU, which equals the fused generic wrapper's.
     for alg in (TAlg.SPA, TAlg.SPA_APPROX):
-        with pytest.raises(NotImplementedError, match="SPA pair"):
-            generic_stream.make_generic_stream_trial(irregular, alg, CAP, False)
-        with pytest.raises(NotImplementedError, match="streamed generic"):
-            generic_stream.make_generic_stream_decoder(irregular, alg, CAP,
-                                                       False)
+        spa = generic_stream.make_generic_stream_decoder(irregular, alg, CAP,
+                                                         False)
+        want = fused_generic.make_fused_generic_decoder(irregular, alg, CAP,
+                                                        False)(llr, syn)
+        for g, w in zip(spa(llr, syn), want):
+            assert torch.equal(g, w)
+        generic_stream.make_generic_stream_trial(irregular, alg, CAP, False)
 
 
 def test_non_cpu_tensors_never_take_the_plain_path(irregular):
@@ -681,7 +684,8 @@ def _assert_kernel_equals_plain(matrix, alg, f1, f2, use_thr, thr, alice,
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", generic_stream.GROUPS)
 @pytest.mark.parametrize("use_thr", [False, True])
-@pytest.mark.parametrize("alg,f1,f2", ALGS)
+@pytest.mark.parametrize("alg,f1,f2",
+                         ALGS + [("SPA", 1.0, 1.0), ("SPA_APPROX", 1.0, 1.0)])
 def test_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, use_thr,
                                       group):
     # Each code in its waterfall, so some frames run to the cap; 63 and 40
@@ -757,3 +761,45 @@ def test_all_shortened_frames_fault_pin_on_card(cuda_device, group):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu()), (use_thr, primary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", generic_stream.GROUPS)
+@pytest.mark.parametrize("alg", ["SPA", "SPA_APPROX"])
+def test_spa_long_checks_and_forced_frames_on_card(cuda_device, alg, group):
+    """The SPA pair where a check's degree exceeds the register run (the 1k
+    alist code, check degrees 62-63: the long loop), and in decode mode on
+    forced LLRs (a zero, the 0/0 ratio; eight times the channel's
+    magnitude, where tanh rounds to +-1 and the guard clamps) and on the
+    all-shortened neighbourhood of one bit (inf and NaN), clamp off and
+    on."""
+    from test_torch_fused_qc import all_shortened_plan, rate_adapted_frames
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.rate_adapt import adapt_code_rate
+
+    deg63 = read_sparse_matrix_alist(ALIST / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx")
+    alice, bob = _card_keys(1024, 21, 5, seed=7, device=cuda_device)
+    _assert_kernel_equals_plain(deg63, alg, 1.0, 1.0, False, 0.0, alice, bob,
+                                log_ratio(5 / 1024), group)
+    matrix = stream_sized_code()
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.07)
+    alice, bob = _card_keys(n, 13, ne, seed=5, device=cuda_device)
+    lpt = torch.tensor(log_ratio(ne / n), device=cuda_device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    llr[0, 0] = 0.0
+    llr[1] *= 8.0
+    params = adapt_code_rate(np.random.default_rng(3), matrix, 0.08, 0.1, 1.3)
+    frame, fllr = rate_adapted_frames(matrix, all_shortened_plan(matrix, params),
+                                      16, 0.08, seed=9, device=cuda_device)
+    layout = layout_for(matrix)
+    for use_thr in (False, True):
+        dec = generic_stream.make_generic_stream_decoder(matrix, TAlg[alg],
+                                                         CAP, use_thr, group)
+        for x, a in ((llr, alice), (fllr, frame)):
+            syn = calculate_syndrome(layout, a)
+            got = dec(x, syn, 1.0, 1.0, 2.5)
+            want = dec.plain(x, syn, 1.0, 1.0, 2.5)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w.cpu()), use_thr

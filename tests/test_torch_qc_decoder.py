@@ -170,8 +170,16 @@ def test_layered_matches_pallas(codes, channels, alg, f1, f2, use_thr):
 
 
 def test_spa_is_not_ported(codes, channels):
+    """The SPA pair floods and is not ported to the layered schedule: the
+    flooding decode runs (tests/test_torch_spa.py holds it to the JAX
+    package) and the layered one raises ``ValueError``, as JAX's ``_build``
+    does."""
     _, tqc = codes
     _, llr, syn = channels["easy"]
-    with pytest.raises(NotImplementedError, match="SPA"):
-        decode_flooding(tqc, torch.tensor(llr), torch.tensor(syn),
-                        TAlg.SPA, CAP, False)
+    for alg in (TAlg.SPA, TAlg.SPA_APPROX):
+        res = decode_flooding(tqc, torch.tensor(llr), torch.tensor(syn), alg,
+                              CAP, False)
+        assert bool(res.syndromes_match.all())
+        with pytest.raises(ValueError, match="layered"):
+            decode_layered(tqc, torch.tensor(llr), torch.tensor(syn), alg,
+                           CAP, False)

@@ -23,7 +23,8 @@ kernels, which agree (ROADMAP.md §3):
     others leave unclamped.
 
 Tests marked ``cuda`` compare the CUDA kernel with its plain version and
-with the fused QC kernel on the card (trial, decode and mc modes), and the
+with the fused QC kernel on the card (trial, decode and mc modes, the
+min-sum family and the SPA pair), and the
 Python limit constants with the built library; they skip without a CUDA
 device. They import no JAX, so
 on a machine without JAX they run with the conftest left out:
@@ -232,8 +233,13 @@ def test_wrappers_check_inputs(qc, channels):
         dec(ch["llr"], ch["syn"][:, :10])
     with pytest.raises(ValueError, match="schedule"):
         qc_stream.make_qc_stream_trial(qc, TAlg.NMSA, CAP, False, "zigzag")
-    with pytest.raises(NotImplementedError, match="SPA"):
-        qc_stream.make_qc_stream_decoder(qc, TAlg.SPA, CAP, False)
+    # The SPA pair floods: the layered schedule raises before any launch.
+    for make in (qc_stream.make_qc_stream_trial,
+                 qc_stream.make_qc_stream_montecarlo,
+                 qc_stream.make_qc_stream_decoder):
+        with pytest.raises(ValueError, match="layered"):
+            make(qc, TAlg.SPA, CAP, False, "layered")
+    qc_stream.make_qc_stream_decoder(qc, TAlg.SPA, CAP, False)
 
 
 def test_non_cpu_tensors_never_take_the_plain_path(qc):
@@ -472,5 +478,50 @@ def test_mc_kernel_matches_plain_on_card(cuda_device, alg, f1, f2, schedule):
             fused = fused_qc.make_fused_qc_montecarlo(
                 code, TAlg[alg], CAP, False, schedule)(*args,
                                                        device=cuda_device)
+            for g, w in zip(got, fused):
+                assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["SPA", "SPA_APPROX"])
+def test_spa_kernel_matches_plain_on_card(cuda_device, alg):
+    """The SPA pair (flooding) in the trial, decode and mc modes against the
+    plain versions on the flagship and the headline code, where the fused
+    kernel must give the same results. The decode mode takes the clamp
+    below the channel's |LLR| and forced LLRs: a zero (the 0/0 ratio) in
+    frame 0 and eight times the channel's magnitude in frame 1."""
+    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
+
+    for path, frames in ((FLAGSHIP, 16), (HEADLINE, 64)):
+        code = read_qc_matrix(path)
+        n = code.num_bit_nodes
+        ne = int(n * 0.03)
+        lp = log_ratio(ne / n)
+        alice, bob = _card_keys(n, frames, ne, seed=7, device=cuda_device)
+        trial = qc_stream.make_qc_stream_trial(code, TAlg[alg], CAP, False)
+        got = trial(alice, bob, lp, 1.0, 1.0, 0.0)
+        want = trial.plain(alice, bob, lp, 1.0, 1.0, 0.0)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        lpt = torch.tensor(lp, device=cuda_device)
+        llr = torch.where(bob == 1, -lpt, lpt)
+        llr[0, 0] = 0.0
+        llr[1] *= 8.0
+        syn = qc_syndrome(code, alice)
+        dec = qc_stream.make_qc_stream_decoder(code, TAlg[alg], CAP, True)
+        got = dec(llr, syn, 1.0, 1.0, 2.5)
+        want = dec.plain(llr, syn, 1.0, 1.0, 2.5)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        args = (chunk_seed(7, 1, 2), 100, frames, ne, lp, 1.0, 1.0, 0.0)
+        mc = qc_stream.make_qc_stream_montecarlo(code, TAlg[alg], CAP, False)
+        got = mc(*args, device=cuda_device)
+        want = mc.plain(*args, device=cuda_device)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        if n == 10240:
+            fused = fused_qc.make_fused_qc_montecarlo(
+                code, TAlg[alg], CAP, False)(*args, device=cuda_device)
             for g, w in zip(got, fused):
                 assert torch.equal(g.cpu(), w.cpu())

@@ -164,14 +164,38 @@ def _stream_sized_code():
     ("stream-sized", "stream engine"),
     (dict(trace_decoding_alg=True), "traced"),
 ])
-def test_unported_engines_raise(matrices, change, match):
-    """What is not ported raises, naming its ROADMAP item. Two cases raised
+def test_unported_engines_raise(matrices, change, match, tmp_path):
+    """What is not ported raises, naming its ROADMAP item. Three cases raised
     until their slice came and now run: the stream-sized case through the
-    ``stream`` engine (8 frames of the N=22000 code on the CPU), and rate
+    ``stream`` engine (8 frames of the N=22000 code on the CPU), rate
     adaptation through the ``qc`` engine's frame trial (a real adaptation
-    point of the 1k QC code)."""
-    _, tm = matrices
+    point of the 1k QC code), and SPA through the ``qc`` engine, held to
+    JAX's run (its fused Pallas trial in interpret mode, on JAX's keys):
+    every field of the result equal, the success ratios and the iteration
+    statistics included, and the same CSV name and columns."""
+    jm, tm = matrices
     comb = tsim.SimCombination(QBER, TParams(), tsim.ScalingFactors(0.8))
+    if match == "SPA":
+        jcfg = _jax_cfg("flooding", **change)
+        tcfg = config_from_dict(dataclasses.asdict(jcfg))
+        assert tsim.check_engine(tm, tcfg) == jsim.pallas_engine(jm, jcfg) == "qc"
+        want = jsim.run_combination(
+            jm, jsim.SimCombination(QBER, JParams(), jsim.ScalingFactors(0.8)),
+            jcfg, sim_number=1)
+        fused_qc.reset_counts()
+        got = tsim.run_combination(
+            tm, comb, tcfg, 1, "cpu",
+            key_source=_jax_key_source(jcfg.simulation_seed))
+        assert fused_qc.counts() == (0, 0)
+        assert fused_qc.COUNTS.plain("trial") > 0
+        assert 0.0 < got.ratio_trials_success_ldpc
+        assert _asdict(got) == _asdict(want)
+        jpath = jsim.write_file([want], jcfg, "00h-00m-01s", tmp_path / "jax")
+        tpath = tsim.write_file([got], tcfg, "00h-00m-01s", tmp_path / "torch")
+        assert tpath.name == jpath.name
+        assert (tpath.read_text().splitlines()[0]
+                == jpath.read_text().splitlines()[0])
+        return
     if match == "rate adaptation":
         tcfg = config_from_dict(dataclasses.asdict(_jax_cfg("flooding", **change)))
         params = tra.adapt_code_rate(np.random.default_rng(3), tm, RA_QBER,
