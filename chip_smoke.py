@@ -31,8 +31,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    and decode modes, flooding and layered, NMSA/OMSA/ANMSA/AOMSA, QBER 0.03
    and 0.0375 (its waterfall: some frames must fail), plus cases with the
    message clamp; the 400-block-edge N=102400 code (Z=1024) at QBER 0.03,
-   NMSA and AOMSA; and the headline code forced through the streamed kernel,
-   512 frames, where its outputs must also equal the fused QC kernel's.
+   NMSA and AOMSA; the R=0.36 N=102400 code (Z=1024, 64 base rows) at QBER
+   0.09 and the R=0.92 one (rows of 50 edges) at QBER 0.0055, trial and
+   decode, both schedules, NMSA and AOMSA; and the headline code forced
+   through the streamed kernel, 512 frames, where its outputs must also
+   equal the fused QC kernel's.
    Conv, keys, iterations and decisions must be exactly equal.
 2d. Streamed generic kernel vs plain: the streamed generic kernel against
    its plain torch version (the fused generic kernel's), 128 frames each,
@@ -204,6 +207,8 @@ HEADLINE = QC_DIR / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"
 QC1K = QC_DIR / "(N=1024,M=384,R=0.62,CW=3,Z=128,SEED=33).mtrx"
 FLAGSHIP = QC_DIR / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx"
 QC100K_400BE = QC_DIR / "(N=102400,M=30720,R=0.70,CW=4,Z=1024,SEED=53).mtrx"
+QC100K_R036 = QC_DIR / "(N=102400,M=65536,R=0.36,CW=4,Z=1024,SEED=51).mtrx"
+QC100K_R092 = QC_DIR / "(N=102400,M=8192,R=0.92,CW=4,Z=1024,SEED=55).mtrx"
 ALIST_DIR = REPO / "sparse_matrices" / "matrices_alist"
 ALIST10K = ALIST_DIR / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"
 ALIST1K_DEG63 = ALIST_DIR / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"
@@ -559,8 +564,9 @@ def phase_stream_vs_plain(torch, card):
     from qkd_ldpc_v_tpu_torch.simulation import default_key_source
 
     dev = torch.device("cuda")
-    flagship, wide, headline = (read_qc_matrix(p) for p in
-                                (FLAGSHIP, QC100K_400BE, HEADLINE))
+    flagship, wide, headline, r036, r092 = (
+        read_qc_matrix(p) for p in
+        (FLAGSHIP, QC100K_400BE, HEADLINE, QC100K_R036, QC100K_R092))
     factors = dict(FACTORS, NMSA=(0.8, 1.0))  # alpha 0.8: the flagship's
     # (name, code, frames, QBER, schedule, alg, mode, clamp); QBER 0.0375 is
     # in the flagship's waterfall and 0.036 in the headline code's.
@@ -579,6 +585,16 @@ def phase_stream_vs_plain(torch, card):
         for alg in ("NMSA", "AOMSA"):
             cases.append(("qc100k_400be", wide, 128, 0.03, schedule, alg,
                           "trial", False))
+    # The R=0.36 code (64 base rows: the largest shared share of the
+    # committed assets) and the R=0.92 code (rows of 50 edges: four words
+    # of edge bits and the long-check path), each at a QBER its rate holds.
+    for code_name, code, qber in (("qc100k_r036", r036, 0.09),
+                                  ("qc100k_r092", r092, 0.0055)):
+        for schedule in ("flooding", "layered"):
+            for alg in ("NMSA", "AOMSA"):
+                for mode in ("trial", "decode"):
+                    cases.append((code_name, code, 128, qber, schedule, alg,
+                                  mode, False))
     for qber in (0.03, 0.036):
         for schedule in ("flooding", "layered"):
             for mode in ("trial", "decode"):

@@ -29,7 +29,16 @@ failed launch.
 engine, copied as a predicate so that ``simulation.select_engine`` names the
 engine JAX would run. Its byte budget is the TPU kernel's VMEM and says
 nothing about this kernel, whose own limits are ``MAX_LIFTING``,
-``MAX_BLOCK_EDGES`` and ``MAX_BASE_CHECKS``.
+``MAX_BLOCK_EDGES``, ``MAX_BASE_CHECKS``, ``MAX_BASE_BITS`` and one frame
+within the shared memory of a cluster of 16 CTAs, which admits every shape
+the gate admits (N up to about 786k).
+
+``plan_for`` is the launch plan of one mode, computed here so that the CPU
+tests reach it: the smallest thread-block cluster (1, 2, 4, 8 or 16 CTAs)
+whose per-CTA share of a frame fits in 227 KB, the threads and shared
+bytes per CTA, and the scratch words per cluster (the compressed min-sum
+checks, or the SPA pair's extrinsics). ``compress_row`` and
+``rebuild_row`` mirror the kernel's compressed check in torch, for tests.
 
 The wrapper body (checks, device routing, outputs, counting) is
 ``fused_qc.qc_trial`` / ``qc_montecarlo`` / ``qc_decoder``, shared with the
@@ -43,7 +52,8 @@ Counters: as ``fused_qc.KernelCounts`` (``launches``, ``mc_launches``,
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -52,6 +62,7 @@ from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+    SELECTION_BYTES,
     KernelCounts,
     cached_plans,
     block_edge_table,
@@ -62,17 +73,19 @@ from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     qc_trial,
     stream_of,
 )
-from qkd_ldpc_v_tpu_torch.ops.qc_decoder import base_tables
+from qkd_ldpc_v_tpu_torch.ops.qc_decoder import _RowUpdate, base_tables
 
 COUNTS = KernelCounts()
 reset_counts = COUNTS.reset
 counts = COUNTS.get
 
 # The kernel's limits (csrc/qc_stream.cu: kMaxLifting, kMaxBlockEdges,
-# kMaxBaseChecks; a card test holds them equal to the library's).
+# kMaxBaseChecks, kMaxBaseBits; a card test holds them equal to the
+# library's).
 MAX_LIFTING = 32768
 MAX_BLOCK_EDGES = 1024
 MAX_BASE_CHECKS = 1024
+MAX_BASE_BITS = 8191
 
 # The JAX package's gate (pallas_qc_stream.py: _MAX_BLOCK_EDGES, the 72 MiB
 # VMEM budget at its 8-frame tile, 128-lane lifting sizes).
@@ -100,10 +113,133 @@ def qc_stream_feasible(qc: QCMatrix) -> bool:
     return units * _JAX_TILE * qc.lifting * 4 <= _JAX_BUDGET
 
 
+# The cluster sizes the kernel launches with, smallest first, and what one
+# CTA may hold (csrc/qc_stream.cu: kMaxCluster, kMaxSharedBytes).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+MAX_SHARED_BYTES = 232448
+# The kernel's modes (csrc/qc_stream.cu: Mode), by which its shared layout,
+# cluster size and resident clusters differ.
+_MODES = {"decode": 0, "trial": 1, "mc": 2}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One mode's launch shape: CTAs per cluster, threads and shared bytes
+    per CTA, and scratch words per cluster (csrc/qc_stream.cu's
+    ``threads_for``, ``shared_layout`` and ``scratch_words``; a card test
+    holds them equal to the library's)."""
+
+    cluster: int
+    threads: int
+    shared_bytes: int
+    scratch_words: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def threads_for(z: int, cluster: int) -> int:
+    return min(1024, (-(-z // cluster) + 31) // 32 * 32)
+
+
+def shared_bytes(mb: int, nb: int, z: int, num_be: int, cluster: int,
+                 mode: str) -> int:
+    """One CTA's shared bytes: the table (``stream_table`` and one word
+    more per block edge: the kernel keeps two totals addresses and the
+    shift and split in one word, where the caller's table has cols and
+    shifts), the cluster votes, the mc selection, each thread's syndrome
+    words, the share of the f32 totals and (trial, mc) of Alice's and
+    Bob's packed bits."""
+    threads = threads_for(z, cluster)
+    share = (-(-nb * z // cluster) + 31) // 32 * 32
+    per_row = -(-z // (cluster * threads))
+    syn_words = (mb * per_row + 31) // 32
+    size = _align16(4 * (mb + 1 + 4 * num_be + (nb + 2) // 2))
+    size += _align16(4 * 2 * 16)
+    if mode == "mc":
+        size += _align16(SELECTION_BYTES)
+    size += _align16(4 * threads * syn_words)
+    size += 4 * share
+    if mode != "decode":
+        size += 2 * (share // 8)
+    return size
+
+
+def scratch_words(mb: int, z: int, num_be: int, max_deg: int,
+                  spa: bool) -> int:
+    """One cluster's global words: per check its two stored values and
+    the words of its edge bits (min-sum), or f32 extrinsics (the SPA
+    pair)."""
+    m = mb * z
+    words = num_be * z if spa else (2 + (2 * max_deg + 31) // 32) * m
+    return (words + 31) // 32 * 32
+
+
+def plan_for_shape(mb: int, nb: int, z: int, num_be: int, max_deg: int,
+                   mode: str, spa: bool,
+                   cluster: Optional[int] = None) -> Optional[Plan]:
+    """The smallest cluster whose per-CTA share fits (or ``cluster``, where
+    it fits), or None. A cluster has at most ``nb`` CTAs, so that a base
+    column spans at most two CTAs' shares."""
+    for c in CLUSTER_SIZES if cluster is None else (cluster,):
+        if c > nb:
+            break
+        size = shared_bytes(mb, nb, z, num_be, c, mode)
+        if size <= MAX_SHARED_BYTES:
+            return Plan(c, threads_for(z, c), size,
+                        scratch_words(mb, z, num_be, max_deg, spa))
+    return None
+
+
+def _shape(qc: QCMatrix) -> Tuple[int, int, int, int, int]:
+    """(mb, nb, Z, block edges, largest row degree)."""
+    rows, _, num_be = base_tables(qc)
+    return (qc.base_checks, qc.base_bits, qc.lifting, num_be,
+            max((len(r) for r in rows), default=0))
+
+
+def plan_for(qc: QCMatrix, mode: str, spa: bool = False,
+             cluster: Optional[int] = None) -> Plan:
+    """The launch plan of one mode; raises ``NotImplementedError`` beyond
+    the kernel's limits (``_check_limits``)."""
+    _check_limits(qc)
+    plan = plan_for_shape(*_shape(qc), mode, spa, cluster)
+    if plan is None:
+        raise NotImplementedError(
+            f"streamed QC kernel: cluster of {cluster} CTAs cannot hold the "
+            f"frame in {mode} mode")
+    return plan
+
+
 def _check_limits(qc: QCMatrix) -> None:
     reason = limit_reason(qc, MAX_LIFTING, MAX_BLOCK_EDGES, MAX_BASE_CHECKS)
+    if reason is None and qc.base_bits > MAX_BASE_BITS:
+        reason = f"base bits = {qc.base_bits} exceeds {MAX_BASE_BITS}"
+    if reason is None and plan_for_shape(*_shape(qc), "mc", False) is None:
+        reason = (f"one frame (N = {qc.num_bit_nodes}) exceeds the shared "
+                  f"memory of {CLUSTER_SIZES[-1]} CTAs")
     if reason is not None:
         raise NotImplementedError(f"streamed QC kernel: {reason}")
+
+
+def stream_table(qc: QCMatrix) -> List[int]:
+    """The kernel's table: the QC kernels' block-edge table (row_ptr,
+    cols, shifts), then, per column in base-row order, its edges as ``row |
+    edge << 10 | slot << 20`` (slot: the edge's index in its row), then
+    col_ptr[nb+1] as 16-bit halves, two to an int."""
+    rows, cols, _ = base_tables(qc)
+    where = {e: (r, k) for r, row in enumerate(rows)
+             for k, (e, _, _) in enumerate(row)}
+    col_ptr, col_edges = [0], []
+    for col in cols:
+        col_edges += [where[e][0] | (e << 10) | (where[e][1] << 20)
+                      for (e, _, _) in col]
+        col_ptr.append(len(col_edges))
+    col_ptr.append(0)
+    halves = [col_ptr[i] | (col_ptr[i + 1] << 16)
+              for i in range(0, 2 * ((qc.base_bits + 2) // 2), 2)]
+    return block_edge_table(qc) + col_edges + halves
 
 
 def _lib() -> ctypes.CDLL:
@@ -112,95 +248,93 @@ def _lib() -> ctypes.CDLL:
     if not _SIGNATURES_SET:
         p, i, f, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_longlong, ctypes.c_uint)
+        shape = [p, i, i, i, i, i]  # table, mb, nb, z, num_be, max_deg
+        tail = [p, ll, i, i]        # scratch, per_cluster, cluster, grid
         lib.qc_stream_trial.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, i, f, f, f, f, p, ll, i, p, p, p, p]
+            p, p, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
         lib.qc_stream_trial.restype = i
         lib.qc_stream_decode.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, i, f, f, f, p, ll, i, p, p, p, p]
+            p, p, i, *shape, i, i, i, f, f, f, *tail, p, p, p, p]
         lib.qc_stream_decode.restype = i
         lib.qc_stream_mc.argtypes = [
-            u, u, i, i, i, p, i, i, i, i, i, i, i, f, f, f, f, p, ll, i, p,
-            p, p, p]
+            u, u, i, i, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
         lib.qc_stream_mc.restype = i
-        lib.qc_stream_scratch_floats.argtypes = [i, i, i, i, i, i]
-        lib.qc_stream_scratch_floats.restype = ll
-        lib.qc_stream_resident_blocks.argtypes = [i, i, i, i, i]
-        lib.qc_stream_resident_blocks.restype = i
+        lib.qc_stream_threads.argtypes = [i, i]
+        lib.qc_stream_threads.restype = i
+        lib.qc_stream_shared_bytes.argtypes = [i, i, i, i, i, i]
+        lib.qc_stream_shared_bytes.restype = ll
+        lib.qc_stream_scratch_words.argtypes = [i, i, i, i, i]
+        lib.qc_stream_scratch_words.restype = ll
+        lib.qc_stream_resident_clusters.argtypes = [i, i, i, i, i, i, i]
+        lib.qc_stream_resident_clusters.restype = i
         for name in ("qc_stream_max_lifting", "qc_stream_max_block_edges",
-                     "qc_stream_max_base_checks"):
+                     "qc_stream_max_base_checks", "qc_stream_max_base_bits",
+                     "qc_stream_max_cluster"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         _SIGNATURES_SET = True
     return lib
 
 
-# The kernel's modes (csrc/qc_stream.cu: Mode), by which its scratch size
-# and, for mc, its shared memory and resident blocks differ.
-_MODES = {"decode": 0, "trial": 1, "mc": 2}
-
-
 class _Launch:
-    """Launch plan of one code, kernel variant and device: the block-edge
-    table on the device and, per mode, the persistent grid's size and each
-    block's scratch floats. ``trial``, ``mc`` and ``decode`` allocate the
-    grid's global scratch, launch the kernel and return its CUDA error code
-    (arguments: see ``fused_qc.qc_trial``, ``fused_qc.kernel_montecarlo``
-    and ``fused_qc.qc_decoder``)."""
+    """Launch plan of one code, kernel variant and device: the table on the
+    device and, per mode, the ``Plan`` and the clusters that fit on the
+    card at once. ``cluster`` forces the CTAs per cluster (tests only).
+    ``trial``, ``mc`` and ``decode`` allocate the clusters' global scratch,
+    launch the kernel and return its CUDA error code (arguments: see
+    ``fused_qc.qc_trial``, ``fused_qc.kernel_montecarlo`` and
+    ``fused_qc.qc_decoder``). A refused launch or no resident cluster
+    raises; there is no other path."""
 
-    def __init__(self, qc: QCMatrix, flags: int, device: torch.device):
-        _check_limits(qc)
-        mb, nb, z, num_be = (qc.base_checks, qc.base_bits, qc.lifting,
-                             len(qc.block_edges))
+    def __init__(self, qc: QCMatrix, flags: int, device: torch.device,
+                 cluster: Optional[int] = None):
+        mb, nb, z, num_be, max_deg = _shape(qc)
+        spa = bool(flags >> 3)
+        self.plans = {mode: plan_for(qc, mode, spa, cluster)
+                      for mode in _MODES}
         self.resident = {}
-        for mode in _MODES:
+        for mode, code in _MODES.items():
             with torch.cuda.device(device):
-                resident = _lib().qc_stream_resident_blocks(
-                    mb, z, num_be, flags, int(mode == "mc"))
+                resident = _lib().qc_stream_resident_clusters(
+                    mb, nb, z, num_be, flags, code, self.plans[mode].cluster)
             if resident <= 0:
                 raise RuntimeError(
-                    f"streamed QC kernel: no block fits on {device} "
+                    f"streamed QC kernel: no cluster of "
+                    f"{self.plans[mode].cluster} CTAs fits on {device} "
                     f"(CUDA error {-resident})")
             self.resident[mode] = resident
-        self.per_block = {
-            mode: _lib().qc_stream_scratch_floats(mb, nb, z, num_be, flags,
-                                                  code)
-            for mode, code in _MODES.items()}
-        self.table = torch.tensor(block_edge_table(qc), dtype=torch.int32,
+        self.table = torch.tensor(stream_table(qc), dtype=torch.int32,
                                   device=device)
-        self.shape = (self.table.data_ptr(), mb, nb, z, num_be)
+        self.shape = (self.table.data_ptr(), mb, nb, z, num_be, max_deg)
 
     def _scratch(self, batch: int, mode: str, device):
-        """(scratch tensor, floats per block, grid) of one launch. The
-        scratch is freed once the launch is queued; the caching allocator
-        reuses it only in stream order."""
-        grid = min(batch, self.resident[mode])
-        per_block = self.per_block[mode]
-        scratch = torch.empty(grid * per_block, dtype=torch.float32,
-                              device=device)
-        return scratch, per_block, grid
+        """(scratch tensor, words per cluster, cluster, grid) of one launch.
+        The scratch is freed once the launch is queued; the caching
+        allocator reuses it only in stream order."""
+        plan = self.plans[mode]
+        clusters = min(batch, self.resident[mode])
+        scratch = torch.empty(clusters * plan.scratch_words,
+                              dtype=torch.int32, device=device)
+        return (scratch.data_ptr(), plan.scratch_words, plan.cluster,
+                clusters * plan.cluster), scratch
 
     def trial(self, alice, bob, scalars, outs) -> int:
-        scratch, per_block, grid = self._scratch(alice.shape[0], "trial",
-                                                 alice.device)
+        tail, _keep = self._scratch(alice.shape[0], "trial", alice.device)
         return _lib().qc_stream_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            scratch.data_ptr(), per_block, grid, *pointers(*outs),
-            stream_of(alice))
+            *tail, *pointers(*outs), stream_of(alice))
 
     def mc(self, draw, scalars, outs) -> int:
-        scratch, per_block, grid = self._scratch(draw[-1], "mc",
-                                                 outs[0].device)
+        tail, _keep = self._scratch(draw[-1], "mc", outs[0].device)
         return _lib().qc_stream_mc(
-            *draw, *self.shape, *scalars, scratch.data_ptr(), per_block, grid,
-            *pointers(*outs), stream_of(outs[0]))
+            *draw, *self.shape, *scalars, *tail, *pointers(*outs),
+            stream_of(outs[0]))
 
     def decode(self, llr, syndrome, scalars, outs) -> int:
-        scratch, per_block, grid = self._scratch(llr.shape[0], "decode",
-                                                 llr.device)
+        tail, _keep = self._scratch(llr.shape[0], "decode", llr.device)
         return _lib().qc_stream_decode(
             *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            scratch.data_ptr(), per_block, grid, *pointers(*outs),
-            stream_of(llr))
+            *tail, *pointers(*outs), stream_of(llr))
 
 
 _launch_plan = cached_plans(_Launch)
@@ -255,3 +389,47 @@ def make_qc_stream_decoder(
     torch version with the same signature."""
     return qc_decoder("streamed QC", COUNTS, _launch_plan, qc, algorithm,
                       max_iterations, use_threshold, schedule)
+
+
+def compress_row(upd: _RowUpdate, msgs: List[torch.Tensor],
+                 syn_bits: torch.Tensor, second: torch.Tensor):
+    """The kernel's compressed form of one block-row's min-sum check
+    messages (plain mirror, used by tests): from the bit->check messages,
+    the syndrome bits and where the secondary factor applies, ``(p1, p2,
+    edge_bits)`` per check: the clamped check->bit values of an edge whose
+    message is positive with ``|m| != min1`` and with ``|m| == min1``, and
+    per edge bit 0 ``m > 0`` and bit 1 ``|m| == min1`` (int32 tensors)."""
+    a = [m.abs() for m in msgs]
+    min1 = a[0]
+    min2 = torch.full_like(min1, float(upd.big))
+    for ai in a[1:]:
+        min2 = torch.minimum(min2, torch.maximum(min1, ai))
+        min1 = torch.minimum(min1, ai)
+    neg = torch.zeros(min1.shape, dtype=torch.int32, device=min1.device)
+    for m in msgs:
+        neg = neg + (m < 0).to(torch.int32)
+    one = torch.ones_like(min1)
+    ss = torch.where(syn_bits == 1, -one, one)
+    row_sign = ss * torch.where(neg % 2 == 0, one, -one)
+    f = torch.where(second, upd.secondary, upd.primary)
+    p1, p2 = (upd.clamp(row_sign * one * torch.maximum(eabs - f, upd.zero))
+              if upd.offset else upd.clamp(f * row_sign * one * eabs)
+              for eabs in (min1, min2))
+    bits = [(m > 0).to(torch.int32) | ((ai == min1).to(torch.int32) << 1)
+            for m, ai in zip(msgs, a)]
+    return p1, p2, bits
+
+
+def rebuild_row(upd: _RowUpdate, p1: torch.Tensor, p2: torch.Tensor,
+                bits: List[torch.Tensor]):
+    """The check->bit values that ``compress_row``'s form stands for, as
+    the kernel rebuilds them (``stored_value``): p2 where ``|m| == min1``,
+    else p1, negated where ``m <= 0`` unless the clamp's threshold is
+    negative (every clamped value is then the threshold). Equal, bit for
+    bit, to ``_RowUpdate.__call__`` on the messages it was made from."""
+    neg_same = upd.use_threshold and float(upd.threshold) < 0.0
+    vals = []
+    for b in bits:
+        v = torch.where(b & 2 != 0, p2, p1)
+        vals.append(v if neg_same else torch.where(b & 1 != 0, v, -v))
+    return vals

@@ -9,20 +9,26 @@ Each DIR is the root of a checkout that holds ``qkd_ldpc_v_tpu_torch/``
 git-ignored directory, and the working tree). Every turn is a fresh
 process that imports the package from its DIR, builds that checkout's
 kernels there at first use, and times, after one untimed launch, the mean
-of three launches of each cell's trial chunk as ``chip_smoke.py`` phases 3,
-3c and 3d run it (the same keys: ``default_key_source`` seed 42, sim 0,
-chunk 0):
+of three launches of each cell's chunk as ``chip_smoke.py`` phases 3, 3c,
+3d and 3g run it (the same keys: ``default_key_source`` seed 42, sim 0,
+chunk 0; mc chunks: the chunk seed of simulation seed 42, sim 0, chunk 0):
 
-  * headline: the fused QC kernel, the headline QC code, QBER 0.03, NMSA
-    alpha 0.65, layered, 16384 frames;
-  * qc100k: the streamed QC kernel, the N=102400 flagship, QBER 0.03, NMSA
-    alpha 0.8, layered, 4096 frames;
+  * headline: the fused QC kernel's trial mode, the headline QC code, QBER
+    0.03, NMSA alpha 0.65, layered, 16384 frames;
+  * qc100k, qc100k_flooding: the streamed QC kernel's trial mode, the
+    N=102400 flagship, QBER 0.03, NMSA alpha 0.8, layered or flooding, 4096
+    frames;
+  * qc100k_mc, qc100k_mc_flooding: its mc mode (keys drawn in the kernel),
+    the same code, QBER, algorithm and frames;
   * alist100k: the streamed generic kernel, the N=102400 alist code, QBER
     0.03, NMSA alpha 0.8, flooding, 4096 frames;
-  * alist100k_spa: the same with SPA (as ``chip_smoke.py`` phase 3g runs
-    it), timed only when named.
+  * timed only when named: alist100k_spa, the same with SPA (as phase 3g
+    runs it); qc100k_spa_mc, the streamed QC mc mode with SPA on the
+    flagship (phase 3g's chunk); qc100k_decode, the streamed QC decode mode
+    on the flagship's channel LLRs and Alice's syndrome, NMSA alpha 0.8,
+    flooding.
 
-Without CELL arguments it times the three NMSA cells. It prints the
+Without CELL arguments it times the six NMSA cells. It prints the
 card's name and power limit, one line per turn and cell, and each cell's
 mean per checkout. The cells' outputs must agree across the
 checkouts. It needs one CUDA device.
@@ -37,8 +43,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-CELLS = ("headline", "qc100k", "alist100k")
-ALL_CELLS = CELLS + ("alist100k_spa",)
+CELLS = ("headline", "qc100k", "qc100k_flooding", "qc100k_mc",
+         "qc100k_mc_flooding", "alist100k")
+ALL_CELLS = CELLS + ("alist100k_spa", "qc100k_spa_mc", "qc100k_decode")
 
 
 def worker(checkout: Path, names: list[str]) -> None:
@@ -51,55 +58,85 @@ def worker(checkout: Path, names: list[str]) -> None:
     from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
     from qkd_ldpc_v_tpu_torch.ops import fused_qc, generic_stream, qc_stream
     from qkd_ldpc_v_tpu_torch.ops.channel import (
-        exact_error_count, inject_errors, log_ratio)
-    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+        exact_error_count, inject_errors, log_ratio, qc_syndrome)
+    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed, default_key_source
 
     assert Path(qkd_ldpc_v_tpu_torch.__file__).resolve().is_relative_to(
         checkout.resolve()), qkd_ldpc_v_tpu_torch.__file__
     dev = torch.device("cuda")
     assets = ROOT / "sparse_matrices"
-    nmsa = DecodingAlgorithm.NMSA
+    nmsa, spa = DecodingAlgorithm.NMSA, DecodingAlgorithm.SPA
     alist100k = read_sparse_matrix_alist(
         assets / "matrices_alist"
         / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx")
+    flagship = read_qc_matrix(
+        assets / "matrices_qc"
+        / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx")
+
+    def stream(make, alg, schedule):
+        return lambda code: make(code, alg, 100, False, schedule)
+
+    # name: (code, frames, alpha, mode, make)
     cells = {
         "headline": (read_qc_matrix(
             assets / "matrices_qc"
             / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"), 16384, 0.65,
-            lambda code: fused_qc.make_fused_qc_trial(code, nmsa, 100, False,
-                                                      "layered")),
-        "qc100k": (read_qc_matrix(
-            assets / "matrices_qc"
-            / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx"), 4096,
-            0.8, lambda code: qc_stream.make_qc_stream_trial(
-                code, nmsa, 100, False, "layered")),
-        "alist100k": (alist100k, 4096, 0.8,
+            "trial", stream(fused_qc.make_fused_qc_trial, nmsa, "layered")),
+        "qc100k": (flagship, 4096, 0.8, "trial", stream(
+            qc_stream.make_qc_stream_trial, nmsa, "layered")),
+        "qc100k_flooding": (flagship, 4096, 0.8, "trial", stream(
+            qc_stream.make_qc_stream_trial, nmsa, "flooding")),
+        "qc100k_mc": (flagship, 4096, 0.8, "mc", stream(
+            qc_stream.make_qc_stream_montecarlo, nmsa, "layered")),
+        "qc100k_mc_flooding": (flagship, 4096, 0.8, "mc", stream(
+            qc_stream.make_qc_stream_montecarlo, nmsa, "flooding")),
+        "qc100k_spa_mc": (flagship, 4096, 1.0, "mc", stream(
+            qc_stream.make_qc_stream_montecarlo, spa, "flooding")),
+        "qc100k_decode": (flagship, 4096, 0.8, "decode", stream(
+            qc_stream.make_qc_stream_decoder, nmsa, "flooding")),
+        "alist100k": (alist100k, 4096, 0.8, "trial",
                       lambda code: generic_stream.make_generic_stream_trial(
                           code, nmsa, 100, False)),
-        "alist100k_spa": (alist100k, 4096, 1.0,
+        "alist100k_spa": (alist100k, 4096, 1.0, "trial",
                           lambda code: generic_stream.make_generic_stream_trial(
-                              code, DecodingAlgorithm.SPA, 100, False)),
+                              code, spa, 100, False)),
     }
     out = {}
     for name in names:
-        code, frames, alpha, make = cells[name]
+        code, frames, alpha, mode, make = cells[name]
         n = code.num_bit_nodes
         ne = exact_error_count(n, 0.03)
-        alice, bits = default_key_source(42, dev)(0, 0, frames, n)
-        bob = inject_errors(bits, alice, ne, wide=True)
-        del bits
-        trial = make(code)
-        args = (alice, bob, log_ratio(ne / n), alpha, 1.0, 0.0)
-        trial(*args)  # first launch (and build), untimed
+        lp = log_ratio(ne / n)
+        fn = make(code)
+        if mode == "mc":
+            args = (chunk_seed(42, 0, 0), 0, frames, ne, lp, alpha, 1.0, 0.0)
+            keys = ()
+        else:
+            alice, bits = default_key_source(42, dev)(0, 0, frames, n)
+            bob = inject_errors(bits, alice, ne, wide=True)
+            del bits
+            if mode == "trial":
+                args = (alice, bob, lp, alpha, 1.0, 0.0)
+            else:
+                lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
+                args = (torch.where(bob == 1, -lpt, lpt),
+                        qc_syndrome(code, alice), alpha, 1.0, 0.0)
+            keys = (alice, bob)
+        kwargs = {"device": dev} if mode == "mc" else {}
+        fn(*args, **kwargs)  # first launch (and build), untimed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            res = trial(*args)
+            res = fn(*args, **kwargs)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / 3
-        out[name] = {"ms": ms, "iterations": int(res[2].sum().item()),
-                     "converged": int(res[0].sum().item())}
-        del alice, bob
+        conv = res[1] if mode == "decode" else res[0]
+        iters = res[2]
+        out[name] = {"ms": ms, "iterations": int(iters.sum().item()),
+                     "converged": int(conv.sum().item())}
+        if mode == "decode":
+            out[name]["decisions"] = int(res[0].to(torch.int64).sum().item())
+        del args, keys, res
     print(json.dumps(out), flush=True)
 
 
@@ -129,7 +166,8 @@ def main() -> int:
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         for cell in cells:
             times[which][cell].append(res[cell]["ms"])
-            stats = (res[cell]["iterations"], res[cell]["converged"])
+            stats = (res[cell]["iterations"], res[cell]["converged"],
+                     res[cell].get("decisions"))
             if seen.setdefault(cell, stats) != stats:
                 print(f"{cell}: outputs differ between checkouts",
                       file=sys.stderr)

@@ -399,6 +399,8 @@ def _card_keys(n, batch, num_errors, seed, device):
 
 FLAGSHIP = QC_DIR / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx"
 HEADLINE = QC_DIR / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"
+QC1K = QC_DIR / "(N=1024,M=384,R=0.62,CW=3,Z=128,SEED=33).mtrx"
+ALGS_BY_NAME = {name: (f1, f2) for name, f1, f2 in ALGS}
 
 
 @pytest.mark.cuda
@@ -413,6 +415,23 @@ def test_limit_constants_equal_the_library(cuda_device):
             qc_stream.MAX_BASE_CHECKS) == (lib.qc_stream_max_lifting(),
                                            lib.qc_stream_max_block_edges(),
                                            lib.qc_stream_max_base_checks())
+    assert max(qc_stream.CLUSTER_SIZES) == lib.qc_stream_max_cluster()
+    assert qc_stream.MAX_BASE_BITS == lib.qc_stream_max_base_bits()
+    # The Python plan mirrors the kernel's layout on every QC asset.
+    for path in QC_ASSETS:
+        code = read_qc_matrix(path)
+        mb, nb, z, num_be, max_deg = qc_stream._shape(code)
+        for cluster in qc_stream.CLUSTER_SIZES:
+            assert qc_stream.threads_for(z, cluster) == \
+                lib.qc_stream_threads(z, cluster)
+            for mode, code_of in qc_stream._MODES.items():
+                assert qc_stream.shared_bytes(
+                    mb, nb, z, num_be, cluster, mode) == \
+                    lib.qc_stream_shared_bytes(mb, nb, z, num_be, cluster,
+                                               code_of)
+        for flags, spa in ((0, False), (8, True)):
+            assert qc_stream.scratch_words(mb, z, num_be, max_deg, spa) == \
+                lib.qc_stream_scratch_words(mb, z, num_be, max_deg, flags)
 
 
 @pytest.mark.cuda
@@ -525,3 +544,59 @@ def test_spa_kernel_matches_plain_on_card(cuda_device, alg):
                 code, TAlg[alg], CAP, False)(*args, device=cuda_device)
             for g, w in zip(got, fused):
                 assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [4, 16])
+@pytest.mark.parametrize("schedule,alg", [("flooding", "NMSA"),
+                                          ("layered", "AOMSA"),
+                                          ("flooding", "ANMSA"),
+                                          ("flooding", "SPA")])
+def test_forced_cluster_matches_plain_on_card(cuda_device, cluster, schedule,
+                                              alg):
+    """A plan forced to 4 or 16 CTAs per cluster (every committed asset
+    takes 1 or 2): trial, decode and mc modes equal the plain versions, on
+    the flagship near its waterfall (at 16 CTAs of 128 threads, 6400 bits a
+    share, so some base columns span two CTAs) and, at 4 CTAs, on the 1k
+    QC code (8 base columns: a cluster has at most nb CTAs)."""
+    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
+
+    def forced(code, flags, device):
+        return qc_stream._Launch(code, flags, device, cluster=cluster)
+
+    plans = fused_qc.cached_plans(forced)
+    f1, f2 = dict(ALGS_BY_NAME, SPA=(1.0, 1.0))[alg]
+    algorithm = TAlg[alg]
+    codes = ((FLAGSHIP, 0.037, 12), (QC1K, 0.06, 40))
+    for path, qber, frames in codes[:1] if cluster == 16 else codes:
+        code = read_qc_matrix(path)
+        n = code.num_bit_nodes
+        ne = int(n * qber)
+        lp = log_ratio(ne / n)
+        trial = fused_qc.qc_trial("streamed QC", qc_stream.COUNTS, plans,
+                                  code, algorithm, CAP, False, schedule)
+        alice, bob = _card_keys(n, frames, ne, seed=11, device=cuda_device)
+        got = trial(alice, bob, lp, f1, f2, 0.0)
+        want = trial.plain(alice, bob, lp, f1, f2, 0.0)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        flags = fused_qc.kernel_flags(algorithm, schedule == "layered")
+        assert plans(code, flags, cuda_device).plans["trial"].cluster \
+            == cluster
+        lpt = torch.tensor(lp, device=cuda_device)
+        llr = torch.where(bob == 1, -lpt, lpt)
+        syn = qc_syndrome(code, alice)
+        dec = fused_qc.qc_decoder("streamed QC", qc_stream.COUNTS, plans,
+                                  code, algorithm, CAP, True, schedule)
+        got = dec(llr, syn, f1, f2, 2.5)
+        want = dec.plain(llr, syn, f1, f2, 2.5)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        mc = fused_qc.qc_montecarlo("streamed QC", qc_stream.COUNTS, plans,
+                                    code, algorithm, CAP, False, schedule)
+        mc_args = (chunk_seed(5, 1, 0), 7, frames, ne, lp, f1, f2, 0.0)
+        got = mc(*mc_args, device=cuda_device)
+        want = mc.plain(*mc_args, device=cuda_device)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
