@@ -14,7 +14,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    the same device-made keys, 512 frames each, at the headline code
    (N=10240, Z=512) and the 1k QC code (N=1024, Z=128): trial and decode
    modes, flooding and layered, NMSA/OMSA/ANMSA/AOMSA, QBER 0.03 and a
-   harder QBER where some frames fail, plus cases with the message clamp.
+   harder QBER where some frames fail, plus cases with the message clamp;
+   and, 128 frames each at cap 25, shapes that stress the kernel's layout:
+   the 10k QC code with 26 base rows (N=10240, M=6656, Z=256), QC-PEG codes
+   with rows of 40 edges (three words of edge bits), with Z=100 (not a warp
+   multiple) and with Z=1024, trial and decode modes, both schedules, NMSA
+   and AOMSA, each in its waterfall.
    Conv, keys, iterations and decisions must be exactly equal.
 2b. Generic kernel vs plain: the fused generic kernel against its plain
    torch version (the generic torch decoder in float32), 512 frames each,
@@ -106,7 +111,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    first 1024 frames equal the mc plain version's and the trial kernel's
    its plain version's; the mc chunk and the whole trial path are timed in
    turns (mc, trial, trial, mc), with the trial path split into keys,
-   error injection and kernel.
+   error injection and kernel. Cell 3 follows: the 1k QC asset (N=1024,
+   Z=128) at QBER 0.02 and alpha 0.65 through the CLI, both schedules, 65536
+   trials in 16384-frame chunks, where the fused QC mc kernel must launch
+   alone at FER <= 0.01 and chunk 0's first 1024 frames equal the mc plain
+   version.
 3b. Generic main path: the same on a copy of
    configs/campaign_fer_1k_alist.json narrowed to QBER 0.025 (its R=0.78
    bracket, NMSA alpha 0.70, cap 100, flooding), over the committed 10k
@@ -213,7 +222,11 @@ ALIST_DIR = REPO / "sparse_matrices" / "matrices_alist"
 ALIST10K = ALIST_DIR / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"
 ALIST1K_DEG63 = ALIST_DIR / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"
 ALIST100K = ALIST_DIR / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx"
+QC10K_ROWS26 = QC_DIR / "(N=10240,M=6656,R=0.35,CW=4,Z=256,SEED=41).mtrx"
 FRAMES = 512
+# Phase 2's stressing shapes: frames per case and the iteration cap.
+STRESS_FRAMES = 128
+STRESS_CAP = 25
 THRESHOLD = 2.5
 FACTORS = {"NMSA": (0.65, 1.0), "OMSA": (0.3, 1.0),
            "ANMSA": (0.88, 0.5), "AOMSA": (0.3, 0.6)}
@@ -441,8 +454,82 @@ def phase_kernel_vs_plain(torch, card):
     for code_name, _, qbers in codes:
         check(failing[(code_name, qbers[1])] > 0,
               f"{code_name}: no frame failed at QBER {qbers[1]}")
+    worst = max(worst, stress_shapes_vs_plain(torch, card))
     print(f"phase 2: {len(cases)} cases, kernel == plain exactly ({card})")
     return worst, headline_times
+
+
+def stress_codes():
+    """(name, code, QBER in its waterfall) of the shapes that stress the
+    fused QC kernel's layout: the 10k QC asset with 26 base rows, a QC-PEG
+    code with rows of 40 edges (three words of edge bits, longer than the
+    kernel's register run), one whose Z = 100 is not a warp multiple, and
+    one at Z = 1024, the kernel's largest lifting."""
+    from qkd_ldpc_v_tpu_torch.models.qc import generate_qc_peg, read_qc_matrix
+
+    return [("rows26", read_qc_matrix(QC10K_ROWS26), 0.105),
+            ("peg_deg40", generate_qc_peg(40, 3, 96, 3, seed=1), 0.004),
+            ("peg_z100", generate_qc_peg(12, 4, 100, 3, seed=1), 0.04),
+            ("peg_z1024", generate_qc_peg(8, 4, 1024, 3, seed=1), 0.075)]
+
+
+def stress_shapes_vs_plain(torch, card):
+    """Phase 2's stressing shapes: trial and decode modes, both schedules,
+    NMSA and AOMSA, STRESS_FRAMES frames at cap STRESS_CAP, in each code's
+    waterfall (some frames must fail); kernel == plain exactly."""
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        inject_errors, log_ratio, qc_syndrome)
+    from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+        make_fused_qc_decoder, make_fused_qc_trial, shape_of)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
+    dev = torch.device("cuda")
+    worst, i = 0, 0
+    for name, qc, qber in stress_codes():
+        n = qc.num_bit_nodes
+        alice, bits = default_key_source(11, dev)(0, 0, STRESS_FRAMES, n)
+        ne = int(n * qber)
+        bob = inject_errors(bits, alice, ne, wide=True)
+        del bits
+        lp = log_ratio(ne / n)
+        lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
+        llr = torch.where(bob == 1, -lpt, lpt)
+        syn = qc_syndrome(qc, alice)
+        failed = 0
+        for schedule in ("flooding", "layered"):
+            for alg in ("NMSA", "AOMSA"):
+                f1, f2 = FACTORS[alg]
+                algorithm = DecodingAlgorithm[alg]
+                for mode in ("trial", "decode"):
+                    if mode == "trial":
+                        fn = make_fused_qc_trial(qc, algorithm, STRESS_CAP,
+                                                 False, schedule)
+                        args = (alice, bob, lp, f1, f2, 0.0)
+                    else:
+                        fn = make_fused_qc_decoder(qc, algorithm, STRESS_CAP,
+                                                   False, schedule)
+                        args = (llr, syn, f1, f2, 0.0)
+                    fn(*args)  # first launch of this configuration
+                    got, ms = timed(lambda: fn(*args), torch)
+                    want = fn.plain(*args)
+                    diff = max_abs_diff(tuple(got), tuple(want), torch)
+                    worst = max(worst, diff)
+                    conv = got[0] if mode == "trial" else got[1]
+                    n_fail = int((~conv).sum().item())
+                    failed += n_fail
+                    print(f"case 2-{name}-{i:02d} N={n} Z={qc.lifting} "
+                          f"(mb, nb, block edges, max row degree) = "
+                          f"{shape_of(qc)[:2] + shape_of(qc)[3:]} {mode} "
+                          f"{schedule} {alg} qber={qber}: unconverged="
+                          f"{n_fail}/{STRESS_FRAMES} kernel_ms={ms:.3f} "
+                          f"max_abs_err={diff}", flush=True)
+                    check(diff == 0, f"kernel != plain in case 2-{name}-{i}")
+                    i += 1
+        check(failed > 0, f"{name}: no frame failed at QBER {qber}")
+    print(f"phase 2: {i} stressing-shape cases, kernel == plain exactly "
+          f"({card})", flush=True)
+    return worst
 
 
 def irregular_code():
@@ -1028,8 +1115,86 @@ def phase_main_path(torch, card):
         if schedule == "layered":
             chunks = (mc_chunk, trial_chunk)
         print(f"{label}: {path.name}", flush=True)
+    worst = max(worst, cell3_main_path(torch, card))
     return {"mc": (launches, worst, chunks[0]),
             "trial": (trial_launches, worst, chunks[1])}
+
+
+def cell3_main_path(torch, card):
+    """Cell 3: the 1k QC asset at QBER 0.02 and alpha 0.65, both schedules,
+    through the CLI on copies of configs/example_qc_layered.json, 65536
+    trials in 16384-frame chunks (the fused QC mc mode, 128 threads a
+    frame). The mc kernel must launch alone, with no plain version on the
+    card, at FER <= 0.01; chunk 0's first 1024 frames are held to the mc
+    plain version and the chunk is timed against its bound. Returns the
+    worst difference."""
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        chunk_seed, exact_error_count, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import prepare_sim_inputs
+
+    work = REPO / "build" / "chip_smoke_cell3"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_qc"
+    matrices.mkdir(parents=True)
+    (matrices / QC1K.name).symlink_to(QC1K)
+    base = json.loads((REPO / "configs" / "example_qc_layered.json").read_text())
+    base["trials_number"] = 65536
+    base["tpu"]["batch_size"] = 16384
+    base["code_rate_QBER_ranges"][0]["QBER"] = {"begin": 0.02, "end": 0.02,
+                                                "step": 0.01}
+    runs = {}
+    for schedule in ("layered", "flooding"):
+        cfg = json.loads(json.dumps(base))
+        cfg["tpu"]["schedule"] = schedule
+        cdir = work / f"configs_{schedule}"
+        cdir.mkdir()
+        (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+        runs[schedule] = cdir
+    dev = torch.device("cuda")
+    worst = 0
+    for schedule, cdir in runs.items():
+        label = f"cell 3 {schedule}"
+        fused_qc.reset_counts()
+        qc_stream.reset_counts()
+        wall = run_cli(cdir, work / "sparse_matrices",
+                       work / f"results_{schedule}", "cuda")
+        check_mc_counts(label, fused_qc, [qc_stream])
+        path, row = read_csv(work / f"results_{schedule}")
+        check(row["N"] == "1024", f"N = {row['N']}")
+        check(row["CONFIG_QBER"] == "0,0200", f"QBER = {row['CONFIG_QBER']}")
+        check(row["ALPHA"] == "0,650", f"alpha = {row['ALPHA']}")
+        cfg = parse_config_data(cdir / "run.json")
+        fer = print_rate(label, row, cfg, 1024, wall, card)
+        check(fer <= 0.01, f"cell 3 {schedule}: FER {fer} > 0.01")
+        sim_in = prepare_sim_inputs([QC1K], cfg)[0]
+        comb = sim_in.combinations[0]
+        qc = sim_in.matrix.qc
+        n = qc.num_bit_nodes
+        ne = exact_error_count(n, comb.config_qber)
+        mc = fused_qc.make_fused_qc_montecarlo(
+            qc, cfg.decoding_algorithm, cfg.decoding_alg_max_iterations,
+            cfg.enable_msg_llr_threshold, cfg.schedule)
+        args = (log_ratio(ne / n), comb.scaling_factors.primary,
+                comb.scaling_factors.secondary, cfg.msg_llr_threshold)
+        seed = chunk_seed(cfg.simulation_seed, 0, 0)
+        batch = cfg.batch_size
+        full, ms = timed(lambda: mc(seed, 0, batch, ne, *args, device=dev),
+                         torch)
+        want = mc.plain(seed, 0, 1024, ne, *args, device=dev)
+        diff = max_abs_diff(tuple(t[:1024] for t in full), tuple(want), torch)
+        check(diff == 0, f"{label}: chunk-0 mc kernel stats != mc plain")
+        worst = max(worst, diff)
+        iters = int(full[2].sum().item())
+        b = mc_bound(batch, n, len(qc.block_edges) * qc.lifting, iters,
+                     schedule)
+        print(f"{label}: one {batch}-frame chunk: mc kernel {ms:.2f} ms "
+              f"(bound {b[0]:.2f} ms, {b[1]}; mean iterations "
+              f"{iters / batch:.2f}); chunk 0 frames 0-1023 kernel == plain "
+              f"({path.name}; card={card})", flush=True)
+    return worst
 
 
 def phase_stream_main_path(torch, card):

@@ -22,16 +22,19 @@
 // Selection (kth_smallest): a radix select on the keys' bytes, high byte
 // first. Each level counts the keys that share the prefix found so far in a
 // 256-bin shared histogram, and one thread walks the bins to the bucket that
-// holds the k-th key. As soon as that bucket holds at most kCollect keys,
-// one more pass gathers them into a shared list and each is ranked against
-// the others; the keys are distinct, so one of them has rank k. On uniform
-// keys that is two passes over the keys at N=10240 (about 40 keys per
-// bucket) and three at N=102400 (about 400, then 2).
+// holds the k-th key (kth_smallest_scan: one warp, with a scan). As soon as
+// that bucket holds at most kCollect keys, one more pass gathers them into
+// a shared list and each is ranked against the others; the keys are
+// distinct, so one of them has rank k. On uniform keys that is two passes
+// over the keys at N=10240 (about 40 keys per bucket) and three at
+// N=102400 (about 400, then 2).
 //
 // Cost: one Philox call (ten rounds of two 32-bit multiplies, two
-// multiply-highs, two three-input XORs and two key adds) per bit and stream,
-// of which each call uses one word of four; sharing a call among the four
-// positions of a counter is later work.
+// multiply-highs, two three-input XORs and two key adds) per bit and stream
+// where a kernel calls mc_alice / mc_sort_key, of which each call uses one
+// word of four (the streamed QC and fused generic kernels); the fused QC
+// kernel's prologue calls mc_counter_words once per counter and uses all
+// four.
 
 #pragma once
 
@@ -109,6 +112,14 @@ __device__ __forceinline__ uint32_t mc_word(McKey key, int p, int frame,
   }
 }
 
+// The four words of counter q (external positions 4q .. 4q + 3) of
+// `frame` in `stream`, from one call.
+__device__ __forceinline__ uint4 mc_counter_words(McKey key, int q, int frame,
+                                                  uint32_t stream) {
+  return philox4x32_10(make_uint4((uint32_t)q, (uint32_t)frame, stream, 0u),
+                       key.k0, key.k1);
+}
+
 __device__ __forceinline__ int mc_alice(McKey key, int p, int frame) {
   return (int)(mc_word(key, p, frame, kStreamAlice) & 1u);
 }
@@ -158,6 +169,93 @@ __device__ uint32_t kth_smallest(ForEach for_each, int k, Selection& s) {
       s.rank = r;
       s.count = (int)s.hist[b];
       s.listed = 0;
+    }
+    __syncthreads();
+    if (shift == 0) {  // every bit fixed: the key itself
+      const uint32_t key = s.prefix;
+      __syncthreads();  // read before a later call resets it
+      return key;
+    }
+    if (s.count <= kCollect) break;
+  }
+  // The bucket's keys (those that share the prefix down to this byte),
+  // gathered and ranked among themselves.
+  const uint32_t within = 0xffffffffu << shift;
+  const uint32_t prefix = s.prefix;
+  for_each([&](uint32_t key) {
+    if ((key & within) == prefix) s.list[atomicAdd(&s.listed, 1)] = key;
+  });
+  __syncthreads();
+  const int n = s.listed, rank = s.rank;
+  for (int i = tid; i < n; i += nt) {
+    const uint32_t key = s.list[i];
+    int below = 0;
+    for (int j = 0; j < n; ++j) below += s.list[j] < key;
+    if (below == rank - 1) s.result = key;
+  }
+  __syncthreads();
+  return s.result;
+}
+
+// kth_smallest with each level's bucket found by one warp at once (lane l
+// sums bins 8l .. 8l + 7, a warp scan and a ballot find the lane whose bins
+// hold the rank-th key, and that lane walks its eight) in place of one
+// thread's walk over the 256 bins while the block waits; the same result.
+// The fused QC kernel's selection.
+template <typename ForEach>
+__device__ uint32_t kth_smallest_scan(ForEach for_each, int k, Selection& s) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (tid == 0) {
+    s.prefix = 0;
+    s.rank = k;
+  }
+  int shift = 24;
+  for (;; shift -= 8) {
+    const uint32_t above = shift == 24 ? 0u : 0xffffffffu << (shift + 8);
+    for (int b = tid; b < kSelectBins; b += nt) s.hist[b] = 0;
+    __syncthreads();
+    const uint32_t prefix = s.prefix;
+    for_each([&](uint32_t key) {
+      if ((key & above) == prefix)
+        atomicAdd(&s.hist[(key >> shift) & 0xffu], 1u);
+    });
+    __syncthreads();
+    if (tid < 32) {
+      const int rank = s.rank;
+      unsigned c[8], sum = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        c[i] = s.hist[8 * tid + i];
+        sum += c[i];
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (tid >= d) incl += v;
+      }
+      const unsigned hit = __ballot_sync(0xffffffffu, incl >= (unsigned)rank);
+      if (tid == __ffs(hit) - 1) {
+        int r = rank - (int)(incl - sum), bin = 8 * tid + 7;
+        unsigned cnt = c[7];
+        bool found = false;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!found) {
+            if (r <= (int)c[i]) {
+              bin = 8 * tid + i;
+              cnt = c[i];
+              found = true;
+            } else {
+              r -= (int)c[i];
+            }
+          }
+        }
+        s.prefix = prefix | ((uint32_t)bin << shift);
+        s.rank = r;
+        s.count = (int)cnt;
+        s.listed = 0;
+      }
     }
     __syncthreads();
     if (shift == 0) {  // every bit fixed: the key itself

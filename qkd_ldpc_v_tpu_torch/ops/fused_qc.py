@@ -29,11 +29,15 @@ package; ``qc_trial``, ``qc_montecarlo`` and ``qc_decoder`` give it the QC
 plain versions, and the streamed QC kernel (``ops/qc_stream.py``) uses them
 with its own launch plan.
 
+``launch_plan(qc, flags, mode)`` is the kernel's launch shape, computed
+here so that the CPU tests reach it (a mirror of the kernel's shared
+layout, held to the library's by a card test): threads and frames per
+block, shared bytes per block, and where the SPA pair's messages live.
 ``fused_qc_fits(qc, layered)`` says, without building anything, whether the
 kernel holds a code: Z, the block-edge count and the base rows within its
-limits, and one frame's totals (and, flooding, its channel LLRs) within a
-block's shared memory. Codes beyond it run on the streamed QC kernel;
-``simulation.qc_kernel`` makes that choice.
+limits, and one frame's totals, compressed min-sum messages, key bits and
+the mc selection within a block's shared memory. Codes beyond it run on
+the streamed QC kernel; ``simulation.qc_kernel`` makes that choice.
 
 Counters: ``COUNTS.launches`` counts kernel launches in the trial, frame
 and decode modes and ``COUNTS.mc_launches`` those in the mc mode;
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -122,8 +127,15 @@ MAX_BASE_CHECKS = 64
 # 256 bins, 512 listed keys, five words; a card test holds it equal to the
 # library's).
 SELECTION_BYTES = 4 * (256 + 512 + 5)
+# The kernel's modes (csrc/fused_qc.cu: Mode), by which its shared layout
+# differs, and its launch flag for the SPA pair's messages in global memory
+# (kSpaGlobal).
+MODES = {"decode": 0, "trial": 1, "frame": 2, "mc": 3}
+SPA_GLOBAL = 32
+# Edges of a check the kernel keeps in registers (csrc/fused_qc.cu: kRun);
+# its address table pads each block-row to this many slots.
+RUN = 16
 
-_TABLES = PlanCache()
 _SIGNATURES_SET = False
 
 
@@ -187,23 +199,125 @@ def block_edge_table(qc: QCMatrix) -> List[int]:
     return row_ptr + cols + shifts
 
 
+def fused_table(qc: QCMatrix) -> List[int]:
+    """The fused kernel's table: the block-edge table, then, per column in
+    base-row order, its edges as ``edge | row << 8 | slot << 16`` (slot: the
+    edge's index in its row), then col_ptr[nb+1]."""
+    rows, cols, _ = base_tables(qc)
+    where = {e: (r, k) for r, row in enumerate(rows)
+             for k, (e, _, _) in enumerate(row)}
+    col_ptr, col_edges = [0], []
+    for col in cols:
+        col_edges += [e | (where[e][0] << 8) | (where[e][1] << 16)
+                      for (e, _, _) in col]
+        col_ptr.append(len(col_edges))
+    return block_edge_table(qc) + col_edges + col_ptr
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One mode's launch shape (csrc/fused_qc.cu's ``threads_for`` and
+    ``shared_layout``; a card test holds them equal to the library's):
+    threads and frames per block, shared bytes per block, and where the
+    SPA pair's messages live: ``"shared"``, or ``"global"``, a per-block
+    slice of ``slice_floats`` floats in global memory, in which case a
+    persistent grid of as many blocks as fit at once walks the frames."""
+
+    threads: int
+    frames_per_block: int
+    shared_bytes: int
+    messages: str
+    slice_floats: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def shape_of(qc: QCMatrix) -> Tuple[int, int, int, int, int]:
+    """(mb, nb, Z, block edges, largest row degree)."""
+    rows, _, num_be = base_tables(qc)
+    return (qc.base_checks, qc.base_bits, qc.lifting, num_be,
+            max((len(r) for r in rows), default=0))
+
+
+def shared_bytes(mb: int, nb: int, z: int, num_be: int, max_deg: int,
+                 spa: bool, spa_global: bool, mode: str) -> int:
+    """One block's shared bytes: per block edge its column entry (16 bytes)
+    and its address pair (8), the address pairs again by row padded to
+    ``RUN`` slots, row_ptr and col_ptr; the f32 totals; the messages
+    (min-sum: 8 bytes of value pair and 2 bits per edge, in words, per
+    check; the SPA pair in shared memory: f32 per edge; the mc mode's
+    selection state shares this space); Alice's bits (all modes but
+    decode) and Bob's (trial, mc), packed."""
+    n, m = nb * z, mb * z
+    size = _align16(24 * num_be + 8 * RUN * mb + 4 * (mb + 1) + 4 * (nb + 1))
+    size = _align16(size + 4 * n)
+    if not spa:
+        msgs = 8 * m + 4 * ((2 * max_deg + 31) // 32) * m
+    else:
+        msgs = 0 if spa_global else 4 * num_be * z
+    if mode == "mc":
+        msgs = max(msgs, SELECTION_BYTES)
+    size = _align16(size + msgs)
+    bits = 4 * ((n + 31) // 32)
+    if mode != "decode":
+        size += bits
+    if mode in ("trial", "mc"):
+        size += bits
+    return size
+
+
+def launch_plan(qc: QCMatrix, flags: int, mode: str,
+                messages: Optional[str] = None) -> LaunchPlan:
+    """The launch plan of one mode and template ``flags`` (``kernel_flags``):
+    a block of Z threads rounded up to a warp multiple per frame; the SPA
+    pair's messages in shared memory where a frame's fit, else in global
+    memory (``messages`` forces either, for tests)."""
+    mb, nb, z, num_be, max_deg = shape_of(qc)
+    spa = bool((flags >> 3) & 3)
+    if messages is None:
+        messages = "shared"
+        if spa and shared_bytes(mb, nb, z, num_be, max_deg, True, False,
+                                mode) > MAX_SHARED_BYTES:
+            messages = "global"
+    if messages not in ("shared", "global") or (messages == "global"
+                                                and not spa):
+        raise ValueError(f"messages = {messages!r}: the SPA pair's messages "
+                         "are 'shared' or 'global', min-sum's 'shared'")
+    glob = messages == "global"
+    return LaunchPlan((z + 31) // 32 * 32, 1,
+                      shared_bytes(mb, nb, z, num_be, max_deg, spa, glob,
+                                   mode),
+                      messages, num_be * z if glob else 0)
+
+
 def _lib() -> ctypes.CDLL:
     global _SIGNATURES_SET
     lib = kernels.library()
     if not _SIGNATURES_SET:
         p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
+        ll = ctypes.c_longlong
+        shape = [p, i, i, i, i, i]  # table, mb, nb, z, num_be, max_deg
+        tail = [p, i]               # slice, grid
         lib.fused_qc_trial.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, i, f, f, f, f, p, p, p, p]
+            p, p, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
         lib.fused_qc_trial.restype = i
         lib.fused_qc_decode.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, i, f, f, f, p, p, p, p]
+            p, p, i, *shape, i, i, i, f, f, f, *tail, p, p, p, p]
         lib.fused_qc_decode.restype = i
         lib.fused_qc_frame.argtypes = lib.fused_qc_decode.argtypes
         lib.fused_qc_frame.restype = i
         lib.fused_qc_mc.argtypes = [
-            u, u, i, i, i, p, i, i, i, i, i, i, i, f, f, f, f, p, p, p, p]
+            u, u, i, i, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
         lib.fused_qc_mc.restype = i
+        lib.fused_qc_threads.argtypes = [i]
+        lib.fused_qc_threads.restype = i
+        lib.fused_qc_shared_bytes.argtypes = [i, i, i, i, i, i, i]
+        lib.fused_qc_shared_bytes.restype = ll
+        lib.fused_qc_resident_blocks.argtypes = [i, i, i, i, i, i, i]
+        lib.fused_qc_resident_blocks.restype = i
         for name in ("fused_qc_max_lifting", "fused_qc_max_block_edges",
                      "fused_qc_max_base_checks", "mc_selection_bytes"):
             getattr(lib, name).argtypes = []
@@ -227,12 +341,15 @@ def limit_reason(qc: QCMatrix, max_lifting: int, max_block_edges: int,
 
 
 def _unfit_reason(qc: QCMatrix, layered: bool) -> Optional[str]:
-    """Why the fused kernel cannot hold this code, or None where it can."""
+    """Why the fused kernel cannot hold this code, or None where it can.
+    Both schedules keep the same layout; the min-sum mc mode's is the
+    largest (the SPA pair's messages go to global memory where they do not
+    fit)."""
     reason = limit_reason(qc, MAX_LIFTING, MAX_BLOCK_EDGES, MAX_BASE_CHECKS)
     if reason is not None:
         return reason
-    shared = 4 * (qc.base_checks + 1 + 2 * len(qc.block_edges)) + \
-        (1 if layered else 2) * 4 * qc.num_bit_nodes + SELECTION_BYTES
+    shared = launch_plan(qc, kernel_flags(DecodingAlgorithm.NMSA, layered),
+                         "mc").shared_bytes
     if shared > MAX_SHARED_BYTES:
         return (f"{shared} bytes of shared memory per frame exceed "
                 f"{MAX_SHARED_BYTES}")
@@ -241,8 +358,9 @@ def _unfit_reason(qc: QCMatrix, layered: bool) -> Optional[str]:
 
 def fused_qc_fits(qc: QCMatrix, layered: bool) -> bool:
     """Whether the fused kernel holds this code in every mode (its limits
-    above, and one frame's totals and the mc mode's selection state in
-    shared memory). Pure Python: routing needs no build."""
+    above, and one frame's totals, compressed messages, key bits and the mc
+    mode's selection state in shared memory). Pure Python: routing needs no
+    build."""
     return _unfit_reason(qc, layered) is None
 
 
@@ -271,53 +389,84 @@ def cached_plans(make: Callable) -> Callable:
 
 
 class _Launch:
-    """Launch plan of one code on one device: the block-edge table
-    (row_ptr[mb+1], cols[num_be], shifts[num_be] int32, storage order).
-    ``trial``, ``mc``, ``frame`` and ``decode`` launch the kernel and return
-    its CUDA error code (arguments: see ``kernel_trial``,
+    """Launch plan of one code, kernel variant and device: the kernel's
+    table on the device and, per mode, the ``LaunchPlan`` and, where the SPA
+    pair's messages are in global memory, the blocks that fit on the card
+    at once. ``messages`` forces where the SPA pair's messages live (tests
+    only). ``trial``, ``mc``, ``frame`` and ``decode`` launch the kernel and
+    return its CUDA error code (arguments: see ``kernel_trial``,
     ``kernel_montecarlo``, ``kernel_frame_trial`` and ``kernel_decoder``)."""
 
-    def __init__(self, qc: QCMatrix, layered: bool, device: torch.device):
-        reason = _unfit_reason(qc, layered)
+    def __init__(self, qc: QCMatrix, flags: int, device: torch.device,
+                 messages: Optional[str] = None):
+        reason = _unfit_reason(qc, bool(flags & 1))
         if reason is not None:
             raise NotImplementedError(
                 f"fused QC kernel: {reason}; larger codes need the streamed "
                 "QC kernel (ops/qc_stream.py)"
             )
-        self.table = torch.tensor(block_edge_table(qc), dtype=torch.int32,
+        self.plans = {mode: launch_plan(qc, flags, mode, messages)
+                      for mode in MODES}
+        mb, nb, z, num_be, max_deg = shape_of(qc)
+        self.resident = {}
+        for mode, plan in self.plans.items():
+            if plan.messages == "global":
+                with torch.cuda.device(device):
+                    resident = _lib().fused_qc_resident_blocks(
+                        mb, nb, z, num_be, max_deg, flags | SPA_GLOBAL,
+                        MODES[mode])
+                if resident <= 0:
+                    raise RuntimeError(
+                        f"fused QC kernel: no block fits on {device} (CUDA "
+                        f"error {-resident})")
+                self.resident[mode] = resident
+        self.table = torch.tensor(fused_table(qc), dtype=torch.int32,
                                   device=device)
-        self.shape = (self.table.data_ptr(), qc.base_checks, qc.base_bits,
-                      qc.lifting, len(qc.block_edges))
+        self.shape = (self.table.data_ptr(), mb, nb, z, num_be, max_deg)
+
+    def _launch(self, mode: str, batch: int, scalars, device):
+        """(scalars with the plan's flags, (slice, grid), the slice tensor)
+        of one launch. The slice is freed once the launch is queued; the
+        caching allocator reuses it only in stream order."""
+        plan = self.plans[mode]
+        if plan.messages == "shared":
+            return scalars, (None, batch), None
+        blocks = min(batch, self.resident[mode])
+        ext = torch.empty(blocks * plan.slice_floats, dtype=torch.float32,
+                          device=device)
+        return ((scalars[0] | SPA_GLOBAL,) + tuple(scalars[1:]),
+                (ext.data_ptr(), blocks), ext)
 
     def trial(self, alice, bob, scalars, outs) -> int:
+        scalars, tail, _keep = self._launch("trial", alice.shape[0], scalars,
+                                            alice.device)
         return _lib().fused_qc_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            *pointers(*outs), stream_of(alice))
+            *tail, *pointers(*outs), stream_of(alice))
 
     def mc(self, draw, scalars, outs) -> int:
+        scalars, tail, _keep = self._launch("mc", draw[-1], scalars,
+                                            outs[0].device)
         return _lib().fused_qc_mc(
-            *draw, *self.shape, *scalars, *pointers(*outs),
+            *draw, *self.shape, *scalars, *tail, *pointers(*outs),
             stream_of(outs[0]))
 
     def frame(self, alice, llr, scalars, outs) -> int:
+        scalars, tail, _keep = self._launch("frame", alice.shape[0], scalars,
+                                            alice.device)
         return _lib().fused_qc_frame(
             *pointers(alice, llr), alice.shape[0], *self.shape, *scalars,
-            *pointers(*outs), stream_of(alice))
+            *tail, *pointers(*outs), stream_of(alice))
 
     def decode(self, llr, syndrome, scalars, outs) -> int:
+        scalars, tail, _keep = self._launch("decode", llr.shape[0], scalars,
+                                            llr.device)
         return _lib().fused_qc_decode(
             *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            *pointers(*outs), stream_of(llr))
+            *tail, *pointers(*outs), stream_of(llr))
 
 
-def _launch_plan(qc: QCMatrix, flags: int, device) -> _Launch:
-    layered = bool(flags & 1)
-    key = (layered, str(device))
-    plan = _TABLES.get(qc, extra=key)
-    if plan is None:
-        plan = _Launch(qc, layered, device)
-        _TABLES.put(qc, plan, extra=key)
-    return plan
+_launch_plan = cached_plans(_Launch)
 
 
 def check_tensor(name, t, dtype, shape, device):

@@ -15,6 +15,13 @@ chunk 0; mc chunks: the chunk seed of simulation seed 42, sim 0, chunk 0):
 
   * headline: the fused QC kernel's trial mode, the headline QC code, QBER
     0.03, NMSA alpha 0.65, layered, 16384 frames;
+  * timed only when named, the fused QC kernel's other chunks on the
+    headline code (phases 3, 3e and 3g): headline_flooding, its trial mode
+    flooding; headline_mc and headline_mc_flooding, its mc mode, layered
+    and flooding; headline_frame, its frame mode on 4096 rate-adapted
+    frames of the f_EC 1.52 point (QBER 0.034, delta 0.1, untainted
+    puncturing from the committed pool), NMSA alpha 0.7, flooding; and
+    headline_spa_mc, its mc mode with SPA (flooding);
   * qc100k, qc100k_flooding: the streamed QC kernel's trial mode, the
     N=102400 flagship, QBER 0.03, NMSA alpha 0.8, layered or flooding, 4096
     frames;
@@ -45,12 +52,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 CELLS = ("headline", "qc100k", "qc100k_flooding", "qc100k_mc",
          "qc100k_mc_flooding", "alist100k")
-ALL_CELLS = CELLS + ("alist100k_spa", "qc100k_spa_mc", "qc100k_decode")
+ALL_CELLS = CELLS + ("alist100k_spa", "qc100k_spa_mc", "qc100k_decode",
+                     "headline_flooding", "headline_mc",
+                     "headline_mc_flooding", "headline_frame",
+                     "headline_spa_mc")
 
 
 def worker(checkout: Path, names: list[str]) -> None:
     sys.path.insert(0, str(checkout))
     import torch
+
+    import numpy as np
 
     import qkd_ldpc_v_tpu_torch
     from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
@@ -58,8 +70,12 @@ def worker(checkout: Path, names: list[str]) -> None:
     from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
     from qkd_ldpc_v_tpu_torch.ops import fused_qc, generic_stream, qc_stream
     from qkd_ldpc_v_tpu_torch.ops.channel import (
-        exact_error_count, inject_errors, log_ratio, qc_syndrome)
-    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed, default_key_source
+        build_frames, exact_error_count, inject_errors, log_ratio,
+        qc_syndrome)
+    from qkd_ldpc_v_tpu_torch.rate_adapt import (
+        adapt_code_rate, get_punctured_bits_untainted)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        chunk_seed, default_key_source, make_frame_plan)
 
     assert Path(qkd_ldpc_v_tpu_torch.__file__).resolve().is_relative_to(
         checkout.resolve()), qkd_ldpc_v_tpu_torch.__file__
@@ -73,15 +89,47 @@ def worker(checkout: Path, names: list[str]) -> None:
         assets / "matrices_qc"
         / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx")
 
+    headline_path = (assets / "matrices_qc"
+                     / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx")
+    headline = read_qc_matrix(headline_path)
+
     def stream(make, alg, schedule):
         return lambda code: make(code, alg, 100, False, schedule)
 
+    def frame_chunk(code, frames, qber, point):
+        """(alice_frame, llr) of 4096 rate-adapted frames of ``point`` (as
+        chip_smoke.py's build_chunk makes them)."""
+        matrix = code.to_hmatrix()
+        matrix.punctured_bits_untainted = get_punctured_bits_untainted(
+            headline_path, np.random.default_rng(0), matrix)
+        params = adapt_code_rate(np.random.default_rng(1), matrix, *point,
+                                 use_untainted=True)
+        n = code.num_bit_nodes
+        ne = exact_error_count(n, qber)
+        alice, bits, punct = default_key_source(42, dev)(
+            0, 0, frames, n, punctured=True)
+        bob = inject_errors(bits, alice, ne, wide=True)
+        pos_class, gather = make_frame_plan(n, params)
+        return build_frames(
+            alice, bob, punct, torch.tensor(pos_class == 0, device=dev),
+            torch.tensor(pos_class == 1, device=dev),
+            torch.tensor(gather.astype(np.int64), device=dev),
+            log_ratio(ne / n), torch.float32)
+
     # name: (code, frames, alpha, mode, make)
     cells = {
-        "headline": (read_qc_matrix(
-            assets / "matrices_qc"
-            / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"), 16384, 0.65,
-            "trial", stream(fused_qc.make_fused_qc_trial, nmsa, "layered")),
+        "headline": (headline, 16384, 0.65, "trial", stream(
+            fused_qc.make_fused_qc_trial, nmsa, "layered")),
+        "headline_flooding": (headline, 16384, 0.65, "trial", stream(
+            fused_qc.make_fused_qc_trial, nmsa, "flooding")),
+        "headline_mc": (headline, 16384, 0.65, "mc", stream(
+            fused_qc.make_fused_qc_montecarlo, nmsa, "layered")),
+        "headline_mc_flooding": (headline, 16384, 0.65, "mc", stream(
+            fused_qc.make_fused_qc_montecarlo, nmsa, "flooding")),
+        "headline_frame": (headline, 4096, 0.7, "frame", stream(
+            fused_qc.make_fused_qc_frame_trial, nmsa, "flooding")),
+        "headline_spa_mc": (headline, 16384, 1.0, "mc", stream(
+            fused_qc.make_fused_qc_montecarlo, spa, "flooding")),
         "qc100k": (flagship, 4096, 0.8, "trial", stream(
             qc_stream.make_qc_stream_trial, nmsa, "layered")),
         "qc100k_flooding": (flagship, 4096, 0.8, "trial", stream(
@@ -111,6 +159,9 @@ def worker(checkout: Path, names: list[str]) -> None:
         if mode == "mc":
             args = (chunk_seed(42, 0, 0), 0, frames, ne, lp, alpha, 1.0, 0.0)
             keys = ()
+        elif mode == "frame":
+            keys = frame_chunk(code, frames, 0.034, (0.034, 0.1, 1.52))
+            args = (*keys, alpha, 1.0, 0.0)
         else:
             alice, bits = default_key_source(42, dev)(0, 0, frames, n)
             bob = inject_errors(bits, alice, ne, wide=True)

@@ -375,3 +375,168 @@ def test_spa_kernel_matches_plain_on_card(cuda_device, alg, thr):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w.cpu())
+
+
+# ---------------------------------------------------------------------------
+# The redesigned layout on the card: the plan against the library, shapes
+# that stress it, a batch that mixes converging and capped frames, and the
+# SPA pair's messages in global memory.
+# ---------------------------------------------------------------------------
+
+QC_DIR = HEADLINE.parent
+R035 = QC_DIR / "(N=10240,M=6656,R=0.35,CW=4,Z=256,SEED=41).mtrx"
+
+
+def _shape_code(name):
+    """(code, QBER in its waterfall) of the shapes that stress the layout:
+    26 base rows, rows of 40 edges (three words of edge bits, checks longer
+    than the register run), Z = 100 (not a warp multiple) and Z = 1024."""
+    from qkd_ldpc_v_tpu_torch.models.qc import generate_qc_peg
+
+    if name == "rows26":
+        return read_qc_matrix(R035), 0.1
+    if name == "deg40":
+        return generate_qc_peg(40, 3, 96, 3, seed=1), 0.004
+    if name == "z100":
+        return generate_qc_peg(12, 4, 100, 3, seed=1), 0.04
+    return generate_qc_peg(8, 4, 1024, 3, seed=1), 0.075
+
+
+def _assert_equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+def test_launch_plan_equals_the_library(cuda_device):
+    lib = fused_qc._lib()
+    codes = [read_qc_matrix(HEADLINE), read_qc_matrix(R035),
+             generate_qc_ldpc(8, 4, 128, 3, seed=5)]
+    codes += [_shape_code(name)[0] for name in ("deg40", "z100", "z1024")]
+    for code in codes:
+        shape = fused_qc.shape_of(code)
+        assert lib.fused_qc_threads(code.lifting) \
+            == fused_qc.launch_plan(code, 0, "trial").threads
+        for flags in list(range(8)) + [8, 16]:
+            for messages in (("shared", "global") if flags >= 8
+                             else ("shared",)):
+                extra = fused_qc.SPA_GLOBAL if messages == "global" else 0
+                for mode, code_of in fused_qc.MODES.items():
+                    plan = fused_qc.launch_plan(code, flags, mode, messages)
+                    assert lib.fused_qc_shared_bytes(
+                        *shape, flags | extra, code_of) == plan.shared_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rows26", "deg40", "z100", "z1024"])
+@pytest.mark.parametrize("alg,f1,f2,schedule", [
+    ("NMSA", 0.8, 1.0, "flooding"), ("NMSA", 0.8, 1.0, "layered"),
+    ("AOMSA", 0.3, 0.6, "flooding"), ("ANMSA", 0.88, 0.5, "layered")])
+def test_stress_shapes_match_plain_on_card(cuda_device, name, alg, f1, f2,
+                                           schedule):
+    """The trial, decode, frame and mc modes on each stressing shape, in its
+    waterfall (some frames converge, some run to the cap)."""
+    code, qber = _shape_code(name)
+    n = code.num_bit_nodes
+    ne = int(n * qber)
+    lp = log_ratio(ne / n)
+    algorithm = TAlg[alg]
+    alice, bob = _keys(n, 48, ne, seed=21, device=cuda_device)
+    trial = fused_qc.make_fused_qc_trial(code, algorithm, CAP, False,
+                                         schedule)
+    got = trial(alice, bob, lp, f1, f2, 0.0)
+    _assert_equal(got, trial.plain(alice, bob, lp, f1, f2, 0.0))
+    # Flooding fails some frames of each shape at its QBER; layered
+    # converges more of them.
+    assert 0 < int(got[0].sum()) and (int(got[0].sum()) < 48
+                                      or schedule == "layered")
+    lpt = torch.tensor(lp, device=cuda_device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    dec = fused_qc.make_fused_qc_decoder(code, algorithm, CAP, True,
+                                         schedule)
+    syn = qc_syndrome(code, alice)
+    _assert_equal(dec(llr, syn, f1, f2, THRESHOLD),
+                  dec.plain(llr, syn, f1, f2, THRESHOLD))
+    frame_trial = fused_qc.make_fused_qc_frame_trial(code, algorithm, CAP,
+                                                     False, schedule)
+    _assert_equal(frame_trial(alice, llr, f1, f2, 0.0),
+                  frame_trial.plain(alice, llr, f1, f2, 0.0))
+    mc = fused_qc.make_fused_qc_montecarlo(code, algorithm, CAP, False,
+                                           schedule)
+    args = (tsim.chunk_seed(9, 0, 1), 500, 37, ne, lp, f1, f2, 0.0)
+    _assert_equal(mc(*args, device=cuda_device),
+                  mc.plain(*args, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,f1,f2", [("NMSA", 0.8, 1.0),
+                                       ("ANMSA", 0.88, 0.5)])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_mixed_batch_matches_plain_on_card(cuda_device, alg, f1, f2,
+                                           schedule):
+    """One batch whose frames converge at once (no errors), within the cap
+    (the waterfall) and never (far past it), interleaved."""
+    code = read_qc_matrix(HEADLINE)
+    n = code.num_bit_nodes
+    parts = [_keys(n, 8, ne, seed=s, device=cuda_device)
+             for s, ne in ((1, 0), (2, int(n * 0.036)), (3, int(n * 0.06)))]
+    order = torch.arange(24, device=cuda_device).reshape(3, 8).t().reshape(-1)
+    alice = torch.cat([a for a, _ in parts])[order].contiguous()
+    bob = torch.cat([b for _, b in parts])[order].contiguous()
+    lp = log_ratio(0.036)
+    trial = fused_qc.make_fused_qc_trial(code, TAlg[alg], CAP, False,
+                                         schedule)
+    got = trial(alice, bob, lp, f1, f2, 0.0)
+    _assert_equal(got, trial.plain(alice, bob, lp, f1, f2, 0.0))
+    assert bool(got[0][0::3].all()) and not bool(got[0][2::3].any())
+    lpt = torch.tensor(lp, device=cuda_device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    syn = qc_syndrome(code, alice)
+    dec = fused_qc.make_fused_qc_decoder(code, TAlg[alg], CAP, False,
+                                         schedule)
+    _assert_equal(dec(llr, syn, f1, f2, 0.0), dec.plain(llr, syn, f1, f2, 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["SPA", "SPA_APPROX"])
+def test_spa_global_messages_match_plain_on_card(cuda_device, alg):
+    """The SPA pair with its messages forced into the per-block global slice
+    (the plan's choice where a frame's do not fit in shared memory): trial,
+    decode, frame and mc modes, on batches larger than the resident blocks,
+    so that each block walks several frames."""
+    def forced(code, flags, device):
+        return fused_qc._Launch(code, flags, device, messages="global")
+
+    plans = fused_qc.cached_plans(forced)
+    algorithm = TAlg[alg]
+    code = generate_qc_ldpc(8, 4, 128, 3, seed=5)
+    n = code.num_bit_nodes
+    ne = int(n * 0.075)
+    lp = log_ratio(ne / n)
+    flags = fused_qc.kernel_flags(algorithm, False)
+    resident = plans(code, flags, cuda_device).resident["trial"]
+    batch = resident + 37
+    alice, bob = _keys(n, batch, ne, seed=5, device=cuda_device)
+    for use_thr, thr in ((False, 0.0), (True, THRESHOLD)):
+        trial = fused_qc.qc_trial("fused QC", fused_qc.COUNTS, plans, code,
+                                  algorithm, CAP, use_thr, "flooding")
+        _assert_equal(trial(alice, bob, lp, 1.0, 1.0, thr),
+                      trial.plain(alice, bob, lp, 1.0, 1.0, thr))
+        lpt = torch.tensor(lp, device=cuda_device)
+        llr = torch.where(bob == 1, -lpt, lpt)
+        dec = fused_qc.qc_decoder("fused QC", fused_qc.COUNTS, plans, code,
+                                  algorithm, CAP, use_thr, "flooding")
+        syn = qc_syndrome(code, alice)
+        _assert_equal(dec(llr, syn, 1.0, 1.0, thr),
+                      dec.plain(llr, syn, 1.0, 1.0, thr))
+        frame = fused_qc.qc_frame_trial("fused QC", fused_qc.COUNTS, plans,
+                                        code, algorithm, CAP, use_thr,
+                                        "flooding")
+        _assert_equal(frame(alice, llr, 1.0, 1.0, thr),
+                      frame.plain(alice, llr, 1.0, 1.0, thr))
+        mc = fused_qc.qc_montecarlo("fused QC", fused_qc.COUNTS, plans, code,
+                                    algorithm, CAP, use_thr, "flooding")
+        args = (tsim.chunk_seed(5, 2, 3), 1000, batch, ne, lp, 1.0, 1.0, thr)
+        _assert_equal(mc(*args, device=cuda_device),
+                      mc.plain(*args, device=cuda_device))
