@@ -25,8 +25,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    torch version (the generic torch decoder in float32), 512 frames each,
    on the 10k alist code (N=10240, check degrees 14-15), the 1k alist code
    with check degrees 62-63, a seeded irregular code with bit degrees 2-5
-   and, at the gate's edge, a degree-2 code with N=32768 whose messages
-   live in global memory: trial and decode modes, NMSA/OMSA/ANMSA/AOMSA,
+   and, at the gate's edge, a degree-2 code with N=32768 whose checks live
+   in a per-block global slice: trial and decode modes, NMSA/OMSA/ANMSA/AOMSA,
    an easy QBER and a waterfall QBER where some frames fail, plus cases
    with the message clamp. Conv, keys, iterations and decisions must be
    exactly equal.
@@ -75,8 +75,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    0.0375, and on the headline code, where it must also equal the fused QC
    kernel's mc mode; the fused generic kernel on the 10k alist and
    degree-63 1k alist codes, the four algorithms at an easy and a waterfall
-   QBER, and one case with the clamp each. Conv, keys and iterations must
-   be exactly equal.
+   QBER, and one case with the clamp each, and, 128 frames each, NMSA and
+   AOMSA on the gate's-edge degree-2 N=32768 code (checks in the global
+   slice by its plan) and on the 10k alist code with its checks forced into
+   the global slice, where the outputs must also equal the shared layout's.
+   Conv, keys and iterations must be exactly equal.
 2g. The SPA pair vs plain: (a) each elementwise step of csrc/spa.cuh
    (tanh(x * 0.5), the guarded 2 * atanh, and the two SPA-lin tables) on
    every one of the 2**32 float32 bit patterns against torch on the card,
@@ -119,7 +122,9 @@ Phases (each raises on failure, and the script then exits non-zero):
 3b. Generic main path: the same on a copy of
    configs/campaign_fer_1k_alist.json narrowed to QBER 0.025 (its R=0.78
    bracket, NMSA alpha 0.70, cap 100, flooding), over the committed 10k
-   alist asset, through the fused generic kernel.
+   alist asset, through the fused generic kernel, whose launch plan it
+   prints (threads, shared bytes and blocks per SM of each mode, NMSA and
+   SPA-lin).
 3c. 100k QC main path: the same on a copy of
    configs/campaign_fer_sweep_100k.json narrowed to the flagship asset,
    NMSA alpha 0.8, QBER 0.03, cap 100, 16384 trials in 4096-frame chunks,
@@ -995,6 +1000,29 @@ def print_rate(label, row, cfg, n, wall, card):
     return fer
 
 
+def print_generic_plan(torch, label, matrix, card):
+    """The fused generic kernel's launch plan of each mode, NMSA and
+    SPA-lin: threads, shared bytes, where the checks live and the blocks
+    that share an SM. Min-sum's trial and mc frames must leave room for two
+    blocks per SM."""
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic
+
+    dev = torch.device("cuda")
+    for alg in (DecodingAlgorithm.NMSA, DecodingAlgorithm.SPA_APPROX):
+        launch = fused_generic._launch_plan(matrix, fused_generic._flags(alg),
+                                            dev)
+        for mode, plan in launch.plans.items():
+            print(f"{label}: {alg.name} {mode} plan: {plan.threads} threads, "
+                  f"{plan.shared_bytes} shared bytes, checks in "
+                  f"{plan.checks} memory, {launch.per_sm[mode]} blocks per "
+                  f"SM ({launch.resident[mode]} on the card; {card})",
+                  flush=True)
+        if alg == DecodingAlgorithm.NMSA:
+            check(launch.per_sm["trial"] >= 2 and launch.per_sm["mc"] >= 2,
+                  f"{label}: min-sum frames do not share an SM")
+
+
 def phase_generic_main_path(torch, card):
     from qkd_ldpc_v_tpu_torch.config import parse_config_data
     from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream
@@ -1037,6 +1065,7 @@ def phase_generic_main_path(torch, card):
     comb = sim_in.combinations[0]
     matrix = sim_in.matrix
     n = matrix.num_bit_nodes
+    print_generic_plan(torch, "generic main path", matrix, card)
     ne = exact_error_count(n, comb.config_qber)
     alg = run_cfg.decoding_algorithm
     cap = run_cfg.decoding_alg_max_iterations
@@ -1734,6 +1763,7 @@ def phase_mc_vs_plain(torch, card):
     from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
     from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
     from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
+    from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
     from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, qc_stream
     from qkd_ldpc_v_tpu_torch.ops.channel import (
         chunk_seed, exact_error_count, log_ratio)
@@ -1741,6 +1771,7 @@ def phase_mc_vs_plain(torch, card):
     dev = torch.device("cuda")
     headline, qc1k, flagship = (read_qc_matrix(p) for p in
                                 (HEADLINE, QC1K, FLAGSHIP))
+    gate = generate_regular_ldpc(32768, 16384, 2, seed=1)
     alist10k, alist1k = (read_sparse_matrix_alist(p) for p in
                          (ALIST10K, ALIST1K_DEG63))
     # (kernel, code name, code, frames, QBER, schedule, alg, clamp); the
@@ -1769,6 +1800,11 @@ def phase_mc_vs_plain(torch, card):
                               "flooding", alg, False))
         cases.append(("fused_generic_mc", name, code, MC_FRAMES, qbers[1],
                       "flooding", "NMSA", True))
+    for alg in ("NMSA", "AOMSA"):
+        cases.append(("fused_generic_mc", "gate_deg2", gate, 128, 0.01,
+                      "flooding", alg, False))
+        cases.append(("fused_generic_mc_global", "alist10k", alist10k, 128,
+                      0.032, "flooding", alg, False))
 
     makers = {
         "fused_qc_mc": lambda code, alg, clamp, schedule:
@@ -1778,6 +1814,14 @@ def phase_mc_vs_plain(torch, card):
                                                 schedule),
         "fused_generic_mc": lambda code, alg, clamp, schedule:
             fused_generic.make_fused_generic_montecarlo(code, alg, 100, clamp),
+        # The checks forced into the per-block global slice.
+        "fused_generic_mc_global": lambda code, alg, clamp, schedule:
+            fused_generic.generic_montecarlo(
+                "fused generic", fused_generic.COUNTS,
+                fused_generic.cached_plans(
+                    lambda m, flags, device: fused_generic._Launch(
+                        m, flags, device, "global")),
+                code, alg, 100, clamp),
     }
     timed_cases = {("fused_qc_mc", "headline", 0.03, "layered"),
                    ("qc_stream_mc", "flagship", 0.03, "layered"),
@@ -1808,6 +1852,13 @@ def phase_mc_vs_plain(torch, card):
             d = max_abs_diff(tuple(got), tuple(fused), torch)
             diff = max(diff, d)
             extra = f" fused_qc_mc_err={d}"
+        if kernel == "fused_generic_mc_global":
+            shared = makers["fused_generic_mc"](code, DecodingAlgorithm[alg],
+                                                clamp, schedule)(*args,
+                                                                 device=dev)
+            d = max_abs_diff(tuple(got), tuple(shared), torch)
+            diff = max(diff, d)
+            extra = f" shared_layout_err={d}"
         worst[kernel] = max(worst[kernel], diff)
         n_fail = int((~got[0]).sum().item())
         failing[(name, qber)] = failing.get((name, qber), 0) + n_fail
@@ -1825,6 +1876,8 @@ def phase_mc_vs_plain(torch, card):
                        ("alist1k_deg63", 0.004)):
         check(failing[(name, qber)] > 0, f"{name}: no frame failed at QBER "
               f"{qber}")
+    worst["fused_generic_mc"] = max(worst["fused_generic_mc"],
+                                    worst.pop("fused_generic_mc_global"))
     print(f"phase 2f: {len(cases)} cases, mc kernels == mc_channel + plain "
           f"trial exactly ({card})")
     return worst, times

@@ -16,8 +16,8 @@
 // flooding schedule. The while-loop becomes the block's iteration
 // loop, which exits per frame. The plain torch version it is held to, bit
 // for bit, is ops/decoders.py::make_decoder in float32 (wrapped by
-// ops/generic_stream.py), as for the fused generic kernel, whose per-edge
-// steps (generic_decode.cuh) it calls. None of the TPU machinery crosses
+// ops/generic_stream.py), as for the fused generic kernel; its per-edge
+// steps are generic_decode.cuh's. None of the TPU machinery crosses
 // over: no staged exchange, no stream_plan.py Clos permutes, no bf16x2
 // transport, no decision bit in the mantissa. Edges are addressed directly
 // through fused_generic.launch_tables (cbit and bedge are 1.2 MB each at

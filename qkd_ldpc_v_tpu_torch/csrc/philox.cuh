@@ -1,7 +1,7 @@
 // The Monte-Carlo (mc) channel inside a kernel: the Philox4x32-10 generator,
 // the error sort keys, and a block-wide exact selection of the k smallest
 // keys. Included by the three kernels with an mc mode (csrc/fused_qc.cu,
-// csrc/qc_stream.cu, and csrc/fused_generic.cu through generic_decode.cuh).
+// csrc/qc_stream.cu and csrc/fused_generic.cu).
 //
 // Replaces the TPU's hardware PRNG (pltpu.prng_seed / prng_random_bits) and
 // the 32-pass bitwise k-th-smallest search of the JAX mc kernels
@@ -32,9 +32,8 @@
 // Cost: one Philox call (ten rounds of two 32-bit multiplies, two
 // multiply-highs, two three-input XORs and two key adds) per bit and stream
 // where a kernel calls mc_alice / mc_sort_key, of which each call uses one
-// word of four (the streamed QC and fused generic kernels); the fused QC
-// kernel's prologue calls mc_counter_words once per counter and uses all
-// four.
+// word of four (the streamed QC kernel); the fused QC and fused generic
+// kernels call mc_counter_words once per counter and use all four.
 
 #pragma once
 
@@ -201,7 +200,7 @@ __device__ uint32_t kth_smallest(ForEach for_each, int k, Selection& s) {
 // sums bins 8l .. 8l + 7, a warp scan and a ballot find the lane whose bins
 // hold the rank-th key, and that lane walks its eight) in place of one
 // thread's walk over the 256 bins while the block waits; the same result.
-// The fused QC kernel's selection.
+// The fused QC and fused generic kernels' selection.
 template <typename ForEach>
 __device__ uint32_t kth_smallest_scan(ForEach for_each, int k, Selection& s) {
   const int tid = threadIdx.x, nt = blockDim.x;

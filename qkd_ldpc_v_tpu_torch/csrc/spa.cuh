@@ -1,7 +1,6 @@
 // The SPA pair's check update (SPA and SPA-lin-approx), once for the four
 // kernels of this package: csrc/fused_qc.cu, csrc/qc_stream.cu,
-// csrc/fused_generic.cu (through generic_decode.cuh) and
-// csrc/generic_stream.cu.
+// csrc/fused_generic.cu and csrc/generic_stream.cu.
 //
 // It is the check-pass variant every TPU kernel computes for the pair
 // (qkd_ldpc_v_tpu/ops/pallas_qc.py, pallas_qc_stream.py, pallas_generic.py

@@ -118,6 +118,17 @@ def _minsum_check_stats(msgs: torch.Tensor, syn_sign: torch.Tensor, big, one):
     return row_sign, excl_sign, eabs
 
 
+def _minsum_values(msgs: torch.Tensor, syn_sign: torch.Tensor, f,
+                   normalized: bool, big, one) -> torch.Tensor:
+    """The min-sum check update, unclamped: msgs [c,d,B], syn_sign [c,B]
+    and the factor f (a scalar, or [c,1,B] per check) -> check->bit values
+    [c,d,B]; NMSA/ANMSA scale, OMSA/AOMSA offset and clamp at zero."""
+    row_sign, excl_sign, eabs = _minsum_check_stats(msgs, syn_sign, big, one)
+    if normalized:
+        return f * row_sign[:, None, :] * excl_sign * eabs
+    return row_sign[:, None, :] * excl_sign * torch.clamp(eabs - f, min=0.0)
+
+
 def make_decoder(
     layout: EdgeLayout,
     algorithm: DecodingAlgorithm,
@@ -192,17 +203,11 @@ def make_decoder(
                         ratio = guard_atanh_ratio(ratio)
                     e = two * atanh_fn(ratio)
                 else:
-                    row_sign, excl_sign, eabs = _minsum_check_stats(
-                        msgs, ss, big, one)
                     if factor is None:
                         f = primary_t
                     else:
                         f = factor[g.node_start:g.node_start + g.count][:, None, :]
-                    if normalized:
-                        e = f * row_sign[:, None, :] * excl_sign * eabs
-                    else:  # OMSA / AOMSA: offset and clamp at zero
-                        diff = eabs - f
-                        e = row_sign[:, None, :] * excl_sign * torch.clamp(diff, min=0.0)
+                    e = _minsum_values(msgs, ss, f, normalized, big, one)
                 parts.append(e.reshape(-1, batch))
             return torch.cat(parts, dim=0)
 

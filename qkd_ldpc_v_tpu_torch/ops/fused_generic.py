@@ -43,7 +43,17 @@ engine. It picks exactly the codes that the JAX package's
 ``generic_plan_feasible`` picks: its edge space in the TPU kernel's
 degree-grouped 128-lane plane layout needs at most ``MAX_TILES``
 128 x 128 tiles (about N = 32k at bit degree 2). The kernel serves every
-code inside it.
+code inside it whose totals and key bits fit a block's shared memory.
+
+``launch_plan(matrix, flags, mode)`` is the kernel's launch shape, computed
+here so that the CPU tests reach it (a mirror of the kernel's shared
+layout, held to the library's by a card test): threads and shared bytes
+per block, and where a frame's checks live (min-sum: compressed, 12 bytes
+a check of degree <= 16; the SPA pair: an f32 per slot) — in shared memory
+where one frame fits a block's, else in a per-block global slice.
+``fused_tables`` builds the kernel's index tables from the layout, and
+``compress_check`` / ``rebuild_check`` mirror its compressed min-sum check
+for the tests. ``launch_tables`` is the streamed generic kernel's table.
 
 Counters: as ``fused_qc.KernelCounts`` (``launches``, ``mc_launches``,
 ``plain_calls``, ``plain_on_cuda``); ``reset_counts`` zeroes them and
@@ -53,7 +63,8 @@ Counters: as ``fused_qc.KernelCounts`` (``launches``, ``mc_launches``,
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +82,8 @@ from qkd_ldpc_v_tpu_torch.ops.decoders import (
 )
 from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     MAX_SHARED_BYTES,
+    MODES,
+    SELECTION_BYTES,
     KernelCounts,
     cached_plans,
     check_flags,
@@ -91,11 +104,24 @@ counts = COUNTS.get
 MAX_TILES = 4
 LANES = 128
 
-# Threads per block. At the 10k alist code (one block per SM, messages in
-# shared memory) a 16384-frame trial took 40.2 ms at 1024 threads, 45.9 ms
-# at 512 and 72.0 ms at 256 (NVIDIA H100 80GB HBM3, 700 W): more warps
-# hide more of the latency of the dependent table and message accesses.
-THREADS = 1024
+# Threads per block (a warp multiple; csrc/fused_generic.cu takes 32 to
+# kMaxThreads = 1024 at up to 64 registers a thread): 512 where two
+# blocks' shared memory fits on an SM, else 1024 (one block). At the 10k
+# alist code's 16384-frame mc chunk (NVIDIA H100 80GB HBM3, 700 W;
+# scripts/probe_fused_generic.py) min-sum (78 KB a block) took 25.6 ms at
+# 512 threads against 28.5 at 1024 and 30.0 at 256, and SPA-lin (214 KB)
+# 34.5 ms at 1024 against 54.5 at 512 and 93.0 at 256.
+THREADS = (512, 1024)
+# Shared memory of one SM on sm_90 (228 KB), of which each block reserves
+# 1 KB.
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+# The kernel's launch flag for the checks in a per-block global slice
+# (csrc/fused_generic.cu: kSlice).
+SLICE = 16
+# Edges of a check the kernel keeps in registers (csrc/fused_generic.cu:
+# kRun); the check table is padded with this many entries.
+RUN = 16
 
 _SIGNATURES_SET = False
 
@@ -125,41 +151,49 @@ def _lib() -> ctypes.CDLL:
     if not _SIGNATURES_SET:
         p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
+        ll = ctypes.c_longlong
+        shape = [p, i, i, i, i]  # table, n, m, e, max_deg
+        tail = [p, i, i]         # slice, grid, threads
         lib.fused_generic_trial.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, f, f, f, f, p, i, i, i, p, p, p, p]
+            p, p, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
         lib.fused_generic_trial.restype = i
         lib.fused_generic_decode.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, f, f, f, p, i, i, i, p, p, p, p]
+            p, p, i, *shape, i, i, i, f, f, f, *tail, p, p, p, p]
         lib.fused_generic_decode.restype = i
         lib.fused_generic_frame.argtypes = lib.fused_generic_decode.argtypes
         lib.fused_generic_frame.restype = i
         lib.fused_generic_mc.argtypes = [
-            u, u, i, i, i, p, i, i, i, i, i, i, f, f, f, f, p, i, i, i, p, p,
-            p, p]
+            u, u, i, i, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
         lib.fused_generic_mc.restype = i
-        lib.fused_generic_resident_blocks.argtypes = [i, i, i, i, i, i, i]
+        lib.fused_generic_resident_blocks.argtypes = [
+            i, i, i, i, i, i, i, ctypes.POINTER(i)]
         lib.fused_generic_resident_blocks.restype = i
         lib.fused_generic_shared_bytes.argtypes = [i, i, i, i, i]
-        lib.fused_generic_shared_bytes.restype = ctypes.c_longlong
+        lib.fused_generic_shared_bytes.restype = ll
+        lib.fused_generic_slice_floats.argtypes = [i, i, i]
+        lib.fused_generic_slice_floats.restype = ll
+        lib.fused_generic_max_threads.argtypes = []
+        lib.fused_generic_max_threads.restype = i
         _SIGNATURES_SET = True
     return lib
 
 
+def _offsets(groups, count: int) -> np.ndarray:
+    """[count + 1] edge offsets of the nodes of one side's degree groups."""
+    deg = np.zeros(count, dtype=np.int64)
+    for g in groups:
+        deg[g.node_start:g.node_start + g.count] = g.degree
+    return np.concatenate([[0], np.cumsum(deg)])
+
+
 def launch_tables(layout: EdgeLayout) -> np.ndarray:
-    """The kernel's index tables, concatenated as int32: cptr[M+1],
-    cbit[E], bptr[N+1], bedge[E], bit_ext[N], chk_ext[M] (see the header
-    of csrc/generic_decode.cuh), shared by both generic kernels."""
-
-    def offsets(groups, count):
-        deg = np.zeros(count, dtype=np.int64)
-        for g in groups:
-            deg[g.node_start:g.node_start + g.count] = g.degree
-        return np.concatenate([[0], np.cumsum(deg)])
-
+    """The streamed generic kernel's index tables, concatenated as int32:
+    cptr[M+1], cbit[E], bptr[N+1], bedge[E], bit_ext[N], chk_ext[M] (see
+    the header of csrc/generic_decode.cuh)."""
     parts = [
-        offsets(layout.check_groups, layout.num_checks),
+        _offsets(layout.check_groups, layout.num_checks),
         layout.check_edge_bit,
-        offsets(layout.bit_groups, layout.num_bits),
+        _offsets(layout.bit_groups, layout.num_bits),
         layout.to_bit_major,
         layout.bit_order,
         layout.check_order,
@@ -168,85 +202,293 @@ def launch_tables(layout: EdgeLayout) -> np.ndarray:
                           ).astype(np.int32)
 
 
+def bit_entries(layout: EdgeLayout) -> np.ndarray:
+    """[E] the bit-major edge words in the layout's bit-major order (each
+    bit's edges in slot order, ascending check index): the edge's internal
+    check c and its slot s in that check's row, as ``c | s << 16``."""
+    cptr = _offsets(layout.check_groups, layout.num_checks)
+    check_of = np.repeat(np.arange(layout.num_checks), np.diff(cptr))
+    pos = np.asarray(layout.to_bit_major, dtype=np.int64)
+    c = check_of[pos]
+    return c | ((pos - cptr[c]) << 16)
+
+
+def _slot_major(groups, values) -> np.ndarray:
+    """[E] one side's edge values from node-major order within each degree
+    group ([count, degree]) to slot-major ([degree, count])."""
+    out = np.empty_like(values)
+    for g in groups:
+        size = g.count * g.degree
+        block = values[g.edge_offset:g.edge_offset + size]
+        out[g.edge_offset:g.edge_offset + size] = \
+            block.reshape(g.count, g.degree).T.reshape(-1)
+    return out
+
+
+def _rows(groups, count: int, slot_major: bool) -> np.ndarray:
+    """[count, 4] each node's Row in its table: (offset of its slot 0,
+    stride, degree, 0); node-major: the node's edge offset and stride 1,
+    slot-major: its group's offset plus its index there and the group's
+    node count."""
+    rows = np.zeros((count, 4), dtype=np.int64)
+    for g in groups:
+        j = np.arange(g.count)
+        node = g.node_start + j
+        if slot_major:
+            rows[node, 0], rows[node, 1] = g.edge_offset + j, g.count
+        else:
+            rows[node, 0], rows[node, 1] = g.edge_offset + j * g.degree, 1
+        rows[node, 2] = g.degree
+    return rows
+
+
+def fused_tables(layout: EdgeLayout, slot_major: bool) -> np.ndarray:
+    """The fused kernel's index tables, concatenated as int32 (see
+    csrc/fused_generic.cu): the checks' Rows [M][4] (slot k of internal
+    check c at ``row[0] + k * row[1]``, ``row[2]`` slots), the bits' Rows
+    [N][4], the internal bit of each check edge [E] padded with ``RUN``
+    zeros (a register run may read past the last check), and each bit
+    edge's ``c | s << 16`` word [E] (``bit_entries``), both node-major
+    (min-sum) or slot-major within their degree groups (``slot_major``: the
+    SPA pair), then bit_ext[N] (external index of each internal bit),
+    chk_ext[M] (of each internal check) and ext_bit[N] (the internal index
+    of each external bit, bit_ext's inverse)."""
+    cbit = np.asarray(layout.check_edge_bit, dtype=np.int64)
+    bent = bit_entries(layout)
+    if slot_major:
+        cbit = _slot_major(layout.check_groups, cbit)
+        bent = _slot_major(layout.bit_groups, bent)
+    parts = [
+        _rows(layout.check_groups, layout.num_checks, slot_major).reshape(-1),
+        _rows(layout.bit_groups, layout.num_bits, slot_major).reshape(-1),
+        cbit,
+        np.zeros(RUN, dtype=np.int64),
+        bent,
+        layout.bit_order,
+        layout.check_order,
+        layout.bit_inv,
+    ]
+    return np.concatenate([np.asarray(x, dtype=np.int64) for x in parts]
+                          ).astype(np.int32)
+
+
+def compress_check(msgs: List[torch.Tensor], syn_bits: torch.Tensor,
+                   factor: torch.Tensor, offset: bool, use_threshold: bool,
+                   threshold: float):
+    """The kernel's compressed form of a check's min-sum check->bit values
+    (plain mirror of ``csrc/fused_generic.cu::minsum_run``, used by tests):
+    from the bit->check messages in slot order (one tensor of checks per
+    slot), the syndrome bits and each check's factor, ``(p1, p2,
+    edge_bits)``: the clamped values of an edge whose message is positive
+    with ``|m| != min1`` and with ``|m| == min1``, and per edge bit 0
+    ``m > 0`` and bit 1 ``|m| == min1`` (int32). The second minimum follows
+    the generic decoder's tie rule: inf where every ``|m|`` of a check of two
+    or more edges is inf."""
+    a = [m.abs() for m in msgs]
+    min1 = a[0]
+    min2 = torch.full_like(min1, float(np.finfo(np.float32).max))
+    for ai in a[1:]:
+        min2 = torch.minimum(min2, torch.maximum(min1, ai))
+        min1 = torch.minimum(min1, ai)
+    if len(msgs) >= 2:
+        min2 = torch.where(torch.isinf(min1), min1, min2)
+    neg = torch.zeros(min1.shape, dtype=torch.int32)
+    for m in msgs:
+        neg = neg ^ (m < 0).to(torch.int32)
+    one = torch.ones_like(min1)
+    row_sign = (torch.where(syn_bits == 1, -one, one)
+                * torch.where(neg == 0, one, -one))
+    bound = threshold if use_threshold else float("inf")
+
+    def value(eabs):
+        v = (row_sign * one * torch.maximum(eabs - factor,
+                                            torch.zeros_like(eabs))
+             if offset else factor * row_sign * one * eabs)
+        return torch.minimum(torch.maximum(v, -one * bound), one * bound)
+
+    bits = [(m > 0).to(torch.int32) | ((ai == min1).to(torch.int32) << 1)
+            for m, ai in zip(msgs, a)]
+    return value(min1), value(min2), bits
+
+
+def rebuild_check(p1: torch.Tensor, p2: torch.Tensor,
+                  bits: List[torch.Tensor], neg_same: bool):
+    """The check->bit values that ``compress_check``'s form stands for, as
+    the kernel rebuilds them (``stored_value``): p2 where ``|m| == min1``,
+    else p1, negated where ``m <= 0`` unless the clamp's threshold is
+    negative (``neg_same``: every clamped value is then the threshold)."""
+    vals = []
+    for b in bits:
+        v = torch.where(b & 2 != 0, p2, p1)
+        vals.append(v if neg_same else torch.where(b & 1 != 0, v, -v))
+    return vals
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One mode's launch shape (csrc/fused_generic.cu's ``shared_layout``
+    and ``slice_floats``; a card test holds them equal to the library's):
+    threads and shared bytes per block, and where the checks live:
+    ``"shared"``, one frame per block and one block per frame, or
+    ``"global"``, a per-block slice of ``slice_floats`` floats (a frame's
+    checks rounded up to 16 bytes) in global memory walked by a persistent
+    grid of as many blocks as fit at once."""
+
+    threads: int
+    shared_bytes: int
+    checks: str
+    slice_floats: int
+
+
+def code_shape(layout: EdgeLayout) -> Tuple[int, int, int, int]:
+    """(N, M, E, largest check degree)."""
+    max_deg = max((g.degree for g in layout.check_groups), default=0)
+    return layout.num_bits, layout.num_checks, layout.num_edges, max_deg
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def check_floats(m: int, max_deg: int, spa: bool) -> int:
+    """Floats of one frame's checks: min-sum 8 bytes of value pair and 2
+    bits per edge, in words, per check; the SPA pair one f32 per slot of
+    the largest degree, per check."""
+    if spa:
+        return max_deg * m
+    return (2 + (2 * max_deg + 31) // 32) * m
+
+
+def shared_bytes(n: int, m: int, max_deg: int, spa: bool, slice_: bool,
+                 mode: str) -> int:
+    """One block's shared bytes: the f32 totals; the checks unless they are
+    in the global slice (the mc mode's staging holds the selection state,
+    then Alice's bits in external order, in this space); the syndrome bits,
+    Alice's bits (all modes but decode) and Bob's (trial, mc), packed."""
+    bits = 4 * (-(-n // 32))
+    msgs = 0 if slice_ else 4 * check_floats(m, max_deg, spa)
+    if mode == "mc":
+        msgs = max(msgs, _align16(SELECTION_BYTES) + bits)
+    size = _align16(_align16(4 * n) + msgs) + 4 * (-(-m // 32))
+    if mode != "decode":
+        size += bits
+    if mode in ("trial", "mc"):
+        size += bits
+    return size
+
+
+def launch_plan(matrix: HMatrix, flags: int, mode: str,
+                checks: Optional[str] = None,
+                threads: Optional[int] = None) -> LaunchPlan:
+    """The launch plan of one mode and template ``flags`` (``_flags``): the
+    checks in shared memory where one frame fits a block's, else in global
+    memory; ``THREADS[0]`` threads where two blocks fit an SM's shared
+    memory, else ``THREADS[1]`` (``checks`` and ``threads`` force either,
+    for tests and probes). Raises ``NotImplementedError`` where even the
+    totals and key bits exceed a block's shared memory."""
+    n, m, _, max_deg = code_shape(layout_for(matrix))
+    spa = bool((flags >> 2) & 3)
+    if checks is None:
+        checks = "shared"
+        if shared_bytes(n, m, max_deg, spa, False, mode) > MAX_SHARED_BYTES:
+            checks = "global"
+    if checks not in ("shared", "global"):
+        raise ValueError(f"checks = {checks!r}: 'shared' or 'global'")
+    glob = checks == "global"
+    size = shared_bytes(n, m, max_deg, spa, glob, mode)
+    if size > MAX_SHARED_BYTES:
+        raise NotImplementedError(
+            f"fused generic kernel: {size} bytes of shared memory per block "
+            f"exceed {MAX_SHARED_BYTES} (N={n}, M={m})")
+    if threads is None:
+        two = 2 * (size + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+        threads = THREADS[0] if two else THREADS[1]
+    return LaunchPlan(threads, size, checks,
+                      -(-check_floats(m, max_deg, spa) // 4) * 4 if glob
+                      else 0)
+
+
 class _Launch:
     """Launch plan of one code, algorithm family and device: the index
-    tables on the device and, for the mc mode and for the other modes
-    (compiled apart; the mc mode's selection state takes shared memory of
-    its own), where the messages live and the persistent grid's size.
+    tables on the device and, per mode, the ``LaunchPlan`` and the blocks
+    that fit on one SM (``per_sm``) and on the card (``resident``) at once.
+    ``checks`` and ``threads`` force the plan (tests and probes only).
     ``trial``, ``mc``, ``frame`` and ``decode`` launch the kernel and
     return its CUDA error code (arguments: see ``fused_qc.kernel_trial``,
     ``fused_qc.kernel_montecarlo``, ``fused_qc.kernel_frame_trial`` and
     ``fused_qc.kernel_decoder``)."""
 
-    def __init__(self, matrix: HMatrix, flags: int, device: torch.device):
+    def __init__(self, matrix: HMatrix, flags: int, device: torch.device,
+                 checks: Optional[str] = None,
+                 threads: Optional[int] = None):
         layout = layout_for(matrix)
-        self.n, self.m, self.e = layout.num_bits, layout.num_checks, layout.num_edges
+        n, m, e, max_deg = code_shape(layout)
         if not generic_feasible(matrix):
             raise NotImplementedError(
-                f"fused generic kernel: the code (N={self.n}, E={self.e}) is "
-                "outside the generic engine's gate; larger codes need the "
-                "streamed generic kernel (ops/generic_stream.py)"
+                f"fused generic kernel: the code (N={n}, E={e}) is outside "
+                "the generic engine's gate; larger codes need the streamed "
+                "generic kernel (ops/generic_stream.py)"
             )
-        lib = _lib()
-        self.msg_shared, self.resident = {}, {}
-        for mc in (False, True):
-            shared = {s: lib.fused_generic_shared_bytes(
-                self.n, self.m, self.e, s, int(mc)) for s in (1, 0)}
-            self.msg_shared[mc] = int(shared[1] <= MAX_SHARED_BYTES)
-            if shared[self.msg_shared[mc]] > MAX_SHARED_BYTES:
-                raise NotImplementedError(
-                    f"fused generic kernel: {shared[0]} bytes of shared "
-                    f"memory per block exceed {MAX_SHARED_BYTES} "
-                    f"(N={self.n}, M={self.m})")
+        self.plans = {mode: launch_plan(matrix, flags, mode, checks, threads)
+                      for mode in MODES}
+        self.per_sm, self.resident = {}, {}
+        for mode, plan in self.plans.items():
+            launch_flags = flags | (SLICE if plan.checks == "global" else 0)
+            per_sm = ctypes.c_int(0)
             with torch.cuda.device(device):
-                resident = lib.fused_generic_resident_blocks(
-                    self.n, self.m, self.e, flags, self.msg_shared[mc],
-                    THREADS, int(mc))
+                resident = _lib().fused_generic_resident_blocks(
+                    n, m, e, max_deg, launch_flags, MODES[mode],
+                    plan.threads, ctypes.byref(per_sm))
             if resident <= 0:
                 raise RuntimeError(
-                    f"fused generic kernel: no block fits on {device} "
-                    f"(CUDA error {-resident})")
-            self.resident[mc] = resident
-        self.table = torch.tensor(launch_tables(layout), dtype=torch.int32,
-                                  device=device)
-        self.shape = (self.table.data_ptr(), self.n, self.m, self.e)
+                    f"fused generic kernel: no block fits on {device} (CUDA "
+                    f"error {-resident})")
+            self.per_sm[mode], self.resident[mode] = per_sm.value, resident
+        self.table = torch.tensor(
+            fused_tables(layout, slot_major=bool((flags >> 2) & 3)),
+            dtype=torch.int32, device=device)
+        self.shape = (self.table.data_ptr(), n, m, e, max_deg)
 
-    def _scratch(self, batch: int, device, mc: bool = False):
-        """(scratch or None, grid) of one launch. The scratch (messages not
-        shared) is freed once the launch is queued; the caching allocator
-        reuses it only in stream order."""
-        grid = min(batch, self.resident[mc])
-        if self.msg_shared[mc]:
-            return None, grid
-        return torch.empty((grid, self.e), dtype=torch.float32,
-                           device=device), grid
+    def _launch(self, mode: str, batch: int, scalars, device):
+        """(scalars with the plan's flags, (slice, grid, threads), the slice
+        tensor) of one launch. The slice is freed once the launch is
+        queued; the caching allocator reuses it only in stream order."""
+        plan = self.plans[mode]
+        if plan.checks == "shared":
+            return scalars, (None, batch, plan.threads), None
+        blocks = min(batch, self.resident[mode])
+        ext = torch.empty(blocks * plan.slice_floats, dtype=torch.float32,
+                          device=device)
+        return ((scalars[0] | SLICE,) + tuple(scalars[1:]),
+                (ext.data_ptr(), blocks, plan.threads), ext)
 
     def trial(self, alice, bob, scalars, outs) -> int:
-        scratch, grid = self._scratch(alice.shape[0], alice.device)
+        scalars, tail, _keep = self._launch("trial", alice.shape[0], scalars,
+                                            alice.device)
         return _lib().fused_generic_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            _ptr(scratch), self.msg_shared[False], grid, THREADS,
-            *pointers(*outs), stream_of(alice))
+            *tail, *pointers(*outs), stream_of(alice))
 
     def mc(self, draw, scalars, outs) -> int:
-        scratch, grid = self._scratch(draw[-1], outs[0].device, mc=True)
+        scalars, tail, _keep = self._launch("mc", draw[-1], scalars,
+                                            outs[0].device)
         return _lib().fused_generic_mc(
-            *draw, *self.shape, *scalars, _ptr(scratch), self.msg_shared[True],
-            grid, THREADS, *pointers(*outs), stream_of(outs[0]))
+            *draw, *self.shape, *scalars, *tail, *pointers(*outs),
+            stream_of(outs[0]))
 
     def frame(self, alice, llr, scalars, outs) -> int:
-        scratch, grid = self._scratch(alice.shape[0], alice.device)
+        scalars, tail, _keep = self._launch("frame", alice.shape[0], scalars,
+                                            alice.device)
         return _lib().fused_generic_frame(
             *pointers(alice, llr), alice.shape[0], *self.shape, *scalars,
-            _ptr(scratch), self.msg_shared[False], grid, THREADS,
-            *pointers(*outs), stream_of(alice))
+            *tail, *pointers(*outs), stream_of(alice))
 
     def decode(self, llr, syndrome, scalars, outs) -> int:
-        scratch, grid = self._scratch(llr.shape[0], llr.device)
+        scalars, tail, _keep = self._launch("decode", llr.shape[0], scalars,
+                                            llr.device)
         return _lib().fused_generic_decode(
             *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            _ptr(scratch), self.msg_shared[False], grid, THREADS,
-            *pointers(*outs), stream_of(llr))
+            *tail, *pointers(*outs), stream_of(llr))
 
 
 _launch_plan = cached_plans(_Launch)
@@ -255,14 +497,11 @@ _launch_plan = cached_plans(_Launch)
 def _flags(algorithm: DecodingAlgorithm) -> int:
     """The generic kernels' template flags: bit 0 adaptive, bit 1 offset
     (OMSA/AOMSA), bits 2-3 the check update (``fused_qc.check_flags``: 4
-    SPA, 8 SPA-lin)."""
+    SPA, 8 SPA-lin). The fused kernel's launch adds ``SLICE`` where its
+    plan puts the checks in global memory."""
     offset = algorithm in (DecodingAlgorithm.OMSA, DecodingAlgorithm.AOMSA)
     return (int(algorithm.is_adaptive) | (int(offset) << 1)
             | (check_flags(algorithm) << 2))
-
-
-def _ptr(t) -> int:
-    return 0 if t is None else t.data_ptr()
 
 
 def generic_trial(kernel: str, counts: KernelCounts, plan_for: Callable,

@@ -64,7 +64,6 @@ from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.models.layout import layout_for
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
 from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
-    THREADS,
     generic_decoder,
     generic_trial,
     launch_tables,
@@ -87,6 +86,8 @@ _JAX_LANES = 128
 # Frames per group the library carries, narrowest first
 # (csrc/generic_stream.cu::Group).
 GROUPS = (8, 16)
+# Threads per block: one 1024-thread block per SM.
+THREADS = 1024
 
 _SIGNATURES_SET = False
 

@@ -33,7 +33,17 @@ chunk 0; mc chunks: the chunk seed of simulation seed 42, sim 0, chunk 0):
     runs it); qc100k_spa_mc, the streamed QC mc mode with SPA on the
     flagship (phase 3g's chunk); qc100k_decode, the streamed QC decode mode
     on the flagship's channel LLRs and Alice's syndrome, NMSA alpha 0.8,
-    flooding.
+    flooding;
+  * timed only when named, the fused generic kernel on the 10k alist code
+    (phases 2b, 3b, 3e and 3g): alist10k and alist10k_mc, its trial and mc
+    modes at QBER 0.025, NMSA alpha 0.70, 16384 frames (cell 4);
+    alist10k_frame, its frame mode on 4096 rate-adapted frames of the
+    point QBER 0.0252, delta 0.1, f_EC 1.5 (untainted puncturing from the
+    committed pool), AOMSA beta 0.5, sigma 1.0 (cell 9); alist10k_spa_lin_mc,
+    its mc mode with SPA-lin at QBER 0.025, 16384 frames (phase 3g); and
+    alist10k_decode, its decode mode on 512 frames' channel LLRs and
+    Alice's syndrome at QBER 0.025, NMSA alpha 0.70 (phase 2b's timed
+    case).
 
 Without CELL arguments it times the six NMSA cells. It prints the
 card's name and power limit, one line per turn and cell, and each cell's
@@ -55,7 +65,9 @@ CELLS = ("headline", "qc100k", "qc100k_flooding", "qc100k_mc",
 ALL_CELLS = CELLS + ("alist100k_spa", "qc100k_spa_mc", "qc100k_decode",
                      "headline_flooding", "headline_mc",
                      "headline_mc_flooding", "headline_frame",
-                     "headline_spa_mc")
+                     "headline_spa_mc", "alist10k", "alist10k_mc",
+                     "alist10k_frame", "alist10k_spa_lin_mc",
+                     "alist10k_decode")
 
 
 def worker(checkout: Path, names: list[str]) -> None:
@@ -68,10 +80,12 @@ def worker(checkout: Path, names: list[str]) -> None:
     from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
     from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
     from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
-    from qkd_ldpc_v_tpu_torch.ops import fused_qc, generic_stream, qc_stream
+    from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+    from qkd_ldpc_v_tpu_torch.ops import (
+        fused_generic, fused_qc, generic_stream, qc_stream)
     from qkd_ldpc_v_tpu_torch.ops.channel import (
-        build_frames, exact_error_count, inject_errors, log_ratio,
-        qc_syndrome)
+        build_frames, calculate_syndrome, exact_error_count, inject_errors,
+        log_ratio, qc_syndrome)
     from qkd_ldpc_v_tpu_torch.rate_adapt import (
         adapt_code_rate, get_punctured_bits_untainted)
     from qkd_ldpc_v_tpu_torch.simulation import (
@@ -82,6 +96,10 @@ def worker(checkout: Path, names: list[str]) -> None:
     dev = torch.device("cuda")
     assets = ROOT / "sparse_matrices"
     nmsa, spa = DecodingAlgorithm.NMSA, DecodingAlgorithm.SPA
+    aomsa, spa_lin = DecodingAlgorithm.AOMSA, DecodingAlgorithm.SPA_APPROX
+    alist10k_path = (assets / "matrices_alist"
+                     / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx")
+    alist10k = read_sparse_matrix_alist(alist10k_path)
     alist100k = read_sparse_matrix_alist(
         assets / "matrices_alist"
         / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx")
@@ -96,12 +114,17 @@ def worker(checkout: Path, names: list[str]) -> None:
     def stream(make, alg, schedule):
         return lambda code: make(code, alg, 100, False, schedule)
 
+    def generic(make, alg):
+        return lambda code: make(code, alg, 100, False)
+
     def frame_chunk(code, frames, qber, point):
         """(alice_frame, llr) of 4096 rate-adapted frames of ``point`` (as
-        chip_smoke.py's build_chunk makes them)."""
-        matrix = code.to_hmatrix()
+        chip_smoke.py's build_chunk makes them), with the committed
+        untainted pool of the code's asset."""
+        matrix, path = ((alist10k, alist10k_path) if code is alist10k
+                        else (code.to_hmatrix(), headline_path))
         matrix.punctured_bits_untainted = get_punctured_bits_untainted(
-            headline_path, np.random.default_rng(0), matrix)
+            path, np.random.default_rng(0), matrix)
         params = adapt_code_rate(np.random.default_rng(1), matrix, *point,
                                  use_untainted=True)
         n = code.num_bit_nodes
@@ -116,7 +139,7 @@ def worker(checkout: Path, names: list[str]) -> None:
             torch.tensor(gather.astype(np.int64), device=dev),
             log_ratio(ne / n), torch.float32)
 
-    # name: (code, frames, alpha, mode, make)
+    # name: (code, frames, alpha, mode, make[, qber, frame point])
     cells = {
         "headline": (headline, 16384, 0.65, "trial", stream(
             fused_qc.make_fused_qc_trial, nmsa, "layered")),
@@ -148,19 +171,32 @@ def worker(checkout: Path, names: list[str]) -> None:
         "alist100k_spa": (alist100k, 4096, 1.0, "trial",
                           lambda code: generic_stream.make_generic_stream_trial(
                               code, spa, 100, False)),
+        "alist10k": (alist10k, 16384, 0.7, "trial", generic(
+            fused_generic.make_fused_generic_trial, nmsa), 0.025),
+        "alist10k_mc": (alist10k, 16384, 0.7, "mc", generic(
+            fused_generic.make_fused_generic_montecarlo, nmsa), 0.025),
+        "alist10k_frame": (alist10k, 4096, 0.5, "frame", generic(
+            fused_generic.make_fused_generic_frame_trial, aomsa), 0.0252,
+            (0.0252, 0.1, 1.5)),
+        "alist10k_spa_lin_mc": (alist10k, 16384, 1.0, "mc", generic(
+            fused_generic.make_fused_generic_montecarlo, spa_lin), 0.025),
+        "alist10k_decode": (alist10k, 512, 0.7, "decode", generic(
+            fused_generic.make_fused_generic_decoder, nmsa), 0.025),
     }
     out = {}
     for name in names:
-        code, frames, alpha, mode, make = cells[name]
+        code, frames, alpha, mode, make, *rest = cells[name]
+        qber = rest[0] if rest else 0.03
+        point = rest[1] if len(rest) > 1 else (0.034, 0.1, 1.52)
         n = code.num_bit_nodes
-        ne = exact_error_count(n, 0.03)
+        ne = exact_error_count(n, qber)
         lp = log_ratio(ne / n)
         fn = make(code)
         if mode == "mc":
             args = (chunk_seed(42, 0, 0), 0, frames, ne, lp, alpha, 1.0, 0.0)
             keys = ()
         elif mode == "frame":
-            keys = frame_chunk(code, frames, 0.034, (0.034, 0.1, 1.52))
+            keys = frame_chunk(code, frames, point[0], point)
             args = (*keys, alpha, 1.0, 0.0)
         else:
             alice, bits = default_key_source(42, dev)(0, 0, frames, n)
@@ -170,8 +206,10 @@ def worker(checkout: Path, names: list[str]) -> None:
                 args = (alice, bob, lp, alpha, 1.0, 0.0)
             else:
                 lpt = torch.tensor(lp, dtype=torch.float32, device=dev)
-                args = (torch.where(bob == 1, -lpt, lpt),
-                        qc_syndrome(code, alice), alpha, 1.0, 0.0)
+                syndrome = (calculate_syndrome(layout_for(code), alice)
+                            if code is alist10k else qc_syndrome(code, alice))
+                args = (torch.where(bob == 1, -lpt, lpt), syndrome, alpha,
+                        1.0, 0.0)
             keys = (alice, bob)
         kwargs = {"device": dev} if mode == "mc" else {}
         fn(*args, **kwargs)  # first launch (and build), untimed

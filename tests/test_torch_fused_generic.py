@@ -408,3 +408,191 @@ def test_mc_kernel_matches_plain_on_card(cuda_device, alg, use_thr):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
+
+
+ALIST10K = ALIST / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"
+ALIST1K_DEG63 = ALIST / "(N=1024,M=82,R=0.92,CW=5,SEED=65).mtrx"
+
+
+def _forced(matrix, alg, checks, threads=None):
+    """The fused generic kernel's four wrappers of one algorithm, cap CAP,
+    clamp off, with the launch plan forced to ``checks`` (and
+    ``threads``)."""
+    plan_for = fused_generic.cached_plans(
+        lambda m, flags, device: fused_generic._Launch(m, flags, device,
+                                                       checks, threads))
+    args = ("fused generic", fused_generic.COUNTS, plan_for, matrix,
+            TAlg[alg], CAP, False)
+    frame = fused_generic.kernel_frame_trial(
+        "fused generic", fused_generic.COUNTS, plan_for, matrix,
+        fused_generic._flags(TAlg[alg]), matrix.num_bit_nodes, CAP, False,
+        fused_generic.make_fused_generic_frame_trial(matrix, TAlg[alg], CAP,
+                                                     False).plain)
+    return (fused_generic.generic_trial(*args),
+            fused_generic.generic_decoder(*args),
+            fused_generic.generic_montecarlo(*args), frame)
+
+
+def _all_modes(matrix, alg, qber, wrappers, device, batch=37):
+    """Each mode's outputs of ``wrappers`` (trial, decode, mc, frame) on
+    seeded inputs, each held to its plain version exactly. Returns them."""
+    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
+
+    trial, decode, mc, frame = wrappers
+    f1, f2 = CARD_FACTORS[alg]
+    n = matrix.num_bit_nodes
+    ne = int(n * qber)
+    lp = log_ratio(ne / n)
+    alice, bob = _keys(n, batch, ne, seed=5, device=device)
+    lpt = torch.tensor(lp, device=device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    syn = calculate_syndrome(layout_for(matrix), alice)
+    params = adapt_code_rate(np.random.default_rng(3), matrix, qber, 0.1, 1.5)
+    fr, fllr = rate_adapted_frames(matrix, params, batch, qber, seed=9,
+                                   device=device)
+    mc_args = (chunk_seed(11, 0, 4), 300, batch, ne, lp, f1, f2, 0.0)
+    calls = [(trial, (alice, bob, lp, f1, f2, 0.0), {}),
+             (decode, (llr, syn, f1, f2, 0.0), {}),
+             (mc, mc_args, {"device": device}),
+             (frame, (fr, fllr, f1, f2, 0.0), {})]
+    outs = []
+    for fn, args, kwargs in calls:
+        got = tuple(fn(*args, **kwargs))
+        want = fn.plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+        outs.append(got)
+    return outs
+
+
+@pytest.mark.cuda
+def test_plan_matches_library_on_card(cuda_device):
+    """``launch_plan``'s bytes and slice floats equal the library's layout
+    for every mode, check update and storage, on codes that take each
+    storage; the 10k alist code runs 2 blocks per SM (min-sum) and 1
+    (the SPA pair)."""
+    lib = fused_generic._lib()
+    assert lib.fused_generic_max_threads() == 1024
+    codes = [read_sparse_matrix_alist(ALIST10K),
+             read_sparse_matrix_alist(ALIST1K_DEG63),
+             from_dense(irregular_dense()),
+             generate_regular_ldpc(32768, 16384, 2, seed=1)]
+    for matrix in codes:
+        n, m, _, max_deg = fused_generic.code_shape(layout_for(matrix))
+        for alg in ("NMSA", "AOMSA", "SPA", "SPA_APPROX"):
+            flags = fused_generic._flags(TAlg[alg])
+            for checks in ("shared", "global"):
+                slice_flag = fused_generic.SLICE if checks == "global" else 0
+                for mode, code in fused_generic.MODES.items():
+                    try:
+                        plan = fused_generic.launch_plan(matrix, flags, mode,
+                                                         checks)
+                    except NotImplementedError:
+                        assert checks == "shared"
+                        continue
+                    assert plan.shared_bytes == lib.fused_generic_shared_bytes(
+                        n, m, max_deg, flags | slice_flag, code)
+                    if checks == "global":
+                        assert plan.slice_floats == \
+                            lib.fused_generic_slice_floats(m, max_deg, flags)
+    matrix = codes[0]
+    for alg, per_sm in (("NMSA", 2), ("SPA_APPROX", 1)):
+        launch = fused_generic._Launch(matrix, fused_generic._flags(TAlg[alg]),
+                                       cuda_device)
+        assert all(v == per_sm for v in launch.per_sm.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["NMSA", "AOMSA", "SPA", "SPA_APPROX"])
+def test_global_slice_layout_on_card(cuda_device, alg):
+    """The 10k alist code with its checks forced into the per-block global
+    slice (a persistent grid): every mode equals the plain version and the
+    shared layout's outputs."""
+    matrix = read_sparse_matrix_alist(ALIST10K)
+    shared = _all_modes(matrix, alg, 0.03, _forced(matrix, alg, "shared"),
+                        cuda_device)
+    forced = _all_modes(matrix, alg, 0.03, _forced(matrix, alg, "global"),
+                        cuda_device)
+    for s, g in zip(shared, forced):
+        for a, b in zip(s, g):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", list(CARD_FACTORS))
+def test_mixed_converging_and_capped_frames_on_card(cuda_device, alg):
+    """One batch of the 10k alist code that mixes an error-free frame (it
+    converges at once), frames in the easy region and frames far in the
+    waterfall that run to the cap, trial and decode modes."""
+    matrix = read_sparse_matrix_alist(ALIST10K)
+    n = matrix.num_bit_nodes
+    parts = [_keys(n, 1, 0, seed=1, device=cuda_device),
+             _keys(n, 20, int(n * 0.02), seed=2, device=cuda_device),
+             _keys(n, 20, int(n * 0.07), seed=3, device=cuda_device)]
+    alice = torch.cat([p[0] for p in parts])
+    bob = torch.cat([p[1] for p in parts])
+    lp = log_ratio(0.03)
+    f1, f2 = CARD_FACTORS[alg]
+    trial = fused_generic.make_fused_generic_trial(matrix, TAlg[alg], CAP,
+                                                   False)
+    got = trial(alice, bob, lp, f1, f2, 0.0)
+    want = trial.plain(alice, bob, lp, f1, f2, 0.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    conv, iters = got[0].cpu(), got[2].cpu()
+    assert bool(conv[0]) and int(iters[0]) <= 1
+    assert not bool(conv[21:].any()) and bool((iters[21:] == CAP).all())
+    lpt = torch.tensor(lp, device=cuda_device)
+    dec = fused_generic.make_fused_generic_decoder(matrix, TAlg[alg], CAP,
+                                                   False)
+    args = (torch.where(bob == 1, -lpt, lpt),
+            calculate_syndrome(layout_for(matrix), alice), f1, f2, 0.0)
+    got = dec(*args)
+    want = dec.plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", list(CARD_FACTORS))
+def test_degree63_code_every_mode_on_card(cuda_device, alg):
+    """The 1k alist code with check degrees 62-63 (four words of edge bits,
+    longer than the register run): trial, decode, mc and frame modes, each
+    equal to its plain version."""
+    matrix = read_sparse_matrix_alist(ALIST1K_DEG63)
+    _all_modes(matrix, alg, 0.004, _forced(matrix, alg, None), cuda_device,
+               batch=63)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["SPA", "SPA_APPROX"])
+@pytest.mark.parametrize("checks", ["shared", "global"])
+def test_spa_pair_both_storages_on_card(cuda_device, alg, checks):
+    """The SPA pair with its f32 values in shared memory (one block of 1024
+    threads per SM at the 10k alist code) and in the global slice, decode
+    mode on LLRs with a zero (the 0/0 ratio) and eight times the channel's
+    magnitude (tanh rounds to +-1), and mc mode, each equal to its plain
+    version."""
+    from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
+
+    matrix = read_sparse_matrix_alist(ALIST10K)
+    trial, decode, mc, _ = _forced(matrix, alg, checks)
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.03)
+    alice, bob = _keys(n, 40, ne, seed=7, device=cuda_device)
+    lpt = torch.tensor(log_ratio(ne / n), device=cuda_device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    llr[0, 0] = 0.0
+    llr[1] *= 8.0
+    syn = calculate_syndrome(layout_for(matrix), alice)
+    for fn, args, kwargs in (
+            (decode, (llr, syn, 1.0, 1.0, 0.0), {}),
+            (mc, (chunk_seed(11, 0, 4), 300, 40, ne, log_ratio(ne / n), 1.0,
+                  1.0, 0.0), {"device": cuda_device})):
+        got = fn(*args, **kwargs)
+        want = fn.plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
