@@ -185,7 +185,34 @@ Phases (each raises on failure, and the script then exits non-zero):
    at FER <= 0.01; it prints the chunk-timer and whole-call frames/s and
    the mean iterations, and chunk 0 again: its kernel time against its
    bound, with its first frames held to the plain version.
-4. Result: one JSON line of kernel figures, then the last line
+4. The library API and the resumable, traced CLI, at full width:
+   (4a) ``qkd_ldpc`` on CUDA tensors: the 10k alist code, 4096 frames,
+   NMSA alpha 0.70, QBER 0.025 (cell 4's point), with and without privacy
+   maintenance, through the fused generic kernel's decode mode; the
+   N=102400 alist code, 1024 frames, alpha 0.8, QBER 0.03, through the
+   streamed generic kernel's; and the headline QC code, 4096 frames, alpha
+   0.65, QBER 0.03, which must take the fused generic kernel (JAX's
+   protocol decodes with its generic decoder) and not the fused QC one;
+   (4b) ``qkd_ldpc_rate_adapt`` at an adaptation point of
+   configs/campaign_adaptive_aomsa.json (format 1, delta 0.1, efficiency
+   1.5, AOMSA, untainted puncturing from a copy of the .untp cache,
+   privacy maintenance) on the 10k alist code (4096 frames) and the
+   N=102400 one (1024); (4c) one SPA-lin round on the 10k alist code,
+   1024 frames. Each round must launch its kernel's decode mode once and
+   nothing else, with no plain version on the card, at FER <= 0.01, and
+   equal exactly (syndromes_match, keys_match, iterations, alice_out,
+   bob_out) the same round composed from the plain version on the card;
+   it prints frames/s and the decode's time alone in turns with the whole
+   round. (4d) Checkpoint and resume through the CLI: the 1k QC asset at
+   QBER 0.02 and 0.03, 16384 trials each; a run stopped after its first
+   combination by a progress callback that raises, then resumed, must run
+   only the second combination, write the rows of an uninterrupted run
+   apart from the throughput columns and delete its checkpoint. (4e)
+   ``--profile`` on cell 1's config at 4 chunks of 16384 frames: the
+   Chrome trace must name the fused QC mc kernel; prints the device's busy
+   share of the traced window. (4f) examples/qkd_ldpc_example_torch.py
+   --device cuda: the float64 decode on the card equals the oracle.
+5. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
    (the least time the card could take for the same work) are those of one
    main-path chunk of phase 3, 3b, 3c, 3d or 3e (``frames`` frames, layered
@@ -198,7 +225,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    fed trial path's chunk and launches. The SPA instantiations have entries
    of their own too: phase 3g's chunk and launches, phase 2g's case for
    ``plain_ms``, and a bound with the SFU's (MUFU) operations beside the
-   bytes and the f32 operations.
+   bytes and the f32 operations. The decode modes of the two generic
+   kernels have entries of phase 4's library rounds: their launches summed
+   over 4a-4c, the first round's decode for ``ms`` and ``bound_ms``, and
+   the plain decode of the same round for ``plain_ms``.
 
 It imports no JAX. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -2563,6 +2593,427 @@ def phase_spa_main_path(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The library API and the resumable, traced CLI (phase 4)
+# ---------------------------------------------------------------------------
+
+# Phase 4's depth: frames per round of the 10k and the N=102400 codes,
+# trials per point of the resumed sweep (4d, one chunk each) and of the
+# profiled run (4e, 4 chunks of 16384).
+ROUND_FRAMES = 4096
+ROUND_FRAMES_100K = 1024
+RESUME_TRIALS = 16384
+PROFILE_TRIALS = 65536
+
+
+def kernel_modules():
+    from qkd_ldpc_v_tpu_torch.ops import (
+        fused_generic, fused_qc, generic_stream, qc_stream)
+
+    return {"fused_qc": fused_qc, "qc_stream": qc_stream,
+            "fused_generic": fused_generic, "generic_stream": generic_stream}
+
+
+def round_keys(torch, n, qber, frames, seed):
+    """Alice's keys [frames, n] and Bob's with exactly floor(n * qber)
+    errors, made on the card from a seed; and the accurate QBER."""
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, generate_keys, inject_errors, random_bits)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    alice = generate_keys(gen, frames, n, dev)
+    ne = exact_error_count(n, qber)
+    bob = inject_errors(random_bits(gen, frames, n, dev), alice, ne, wide=True)
+    return alice, bob, ne / n
+
+
+def composed_frames(torch, spec, alice, bob, qber, punct):
+    """(alice_frame, llr) of a round composed by hand: the keys spread over
+    the frame (Alice's punctured bits at the punctured positions, 0 at the
+    shortened ones) and the LLRs +-log((1-q)/q) on the payload, ALMOST_ZERO
+    punctured, the largest float32 shortened."""
+    import math
+
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch.rate_adapt import ALMOST_ZERO
+
+    dev = alice.device
+    lp = torch.tensor(math.log((1.0 - qber) / qber), dtype=torch.float32,
+                      device=dev)
+    payload_llr = torch.where(bob == 1, -lp, lp)
+    if not spec.rate_adaptive:
+        return alice, payload_llr
+    frames, n = alice.shape[0], spec.num_frame_bits
+    pay, pun, sho = (torch.as_tensor(p.astype(np.int64), device=dev)
+                     for p in (spec.payload_positions,
+                               spec.punctured_positions,
+                               spec.shortened_positions))
+    frame = torch.zeros((frames, n), dtype=torch.int8, device=dev)
+    frame[:, pay] = alice
+    frame[:, pun] = punct
+    llr = torch.zeros((frames, n), dtype=torch.float32, device=dev)
+    llr[:, pay] = payload_llr
+    llr[:, pun] = ALMOST_ZERO
+    llr[:, sho] = torch.finfo(torch.float32).max
+    return frame, llr
+
+
+def protocol_round(torch, card, label, spec, kernel, frames, qber, factors,
+                   seed):
+    """One library round on CUDA tensors (``qkd_ldpc`` or, for a
+    rate-adaptive spec, ``qkd_ldpc_rate_adapt`` with Alice's punctured bits
+    fed): it must launch ``kernel``'s decode mode once and nothing else,
+    with no plain version on the card, and reconcile at FER <= 0.01. Then
+    the same round composed from the plain version on the card must equal
+    it in every field, and the whole round and its decode launch alone are
+    timed in turns (round, decode, decode, round). Returns the round's
+    launches, its worst difference, the decode's (ms, bound_ms, bound_by,
+    frames) and the plain decode's (ms, frames)."""
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch import protocol
+    from qkd_ldpc_v_tpu_torch.ops.channel import calculate_syndrome
+
+    mods = kernel_modules()
+    alice, bob, q = round_keys(torch, spec.num_key_bits, qber, frames, seed)
+    punct = None
+    if spec.rate_adaptive:
+        gen = torch.Generator(device=alice.device)
+        gen.manual_seed(seed + 1)
+        punct = torch.randint(0, 2, (frames, len(spec.punctured_positions)),
+                              generator=gen, dtype=torch.int8,
+                              device=alice.device)
+
+    def run_round():
+        if spec.rate_adaptive:
+            return protocol.qkd_ldpc_rate_adapt(spec, alice, bob, q, None,
+                                                *factors, alice_punct=punct)
+        return protocol.qkd_ldpc(spec, alice, bob, q, *factors)
+
+    for mod in mods.values():
+        mod.reset_counts()
+    res = run_round()
+    torch.cuda.synchronize()
+    counts = {k: (m.COUNTS.launches, m.COUNTS.mc_launches,
+                  m.COUNTS.plain_on_cuda) for k, m in mods.items()}
+    print(f"{label}: launches (decode, mc, plain on the card) {counts}",
+          flush=True)
+    check(counts[kernel] == (1, 0, 0),
+          f"{label}: {kernel}'s decode mode did not launch alone")
+    check(all(c == (0, 0, 0) for k, c in counts.items() if k != kernel),
+          f"{label}: another kernel launched")
+    fer = 1.0 - res.keys_match.float().mean().item()
+    check(fer <= 0.01, f"{label}: FER {fer} > 0.01")
+    ok = res.keys_match
+    check(torch.equal(res.alice_out[ok], res.bob_out[ok]),
+          f"{label}: reconciled frames' outputs differ")
+
+    decode = protocol.round_decoder(spec)
+    frame, llr = composed_frames(torch, spec, alice, bob, q, punct)
+    syndrome = calculate_syndrome(spec.layout, frame)
+    want, plain_ms = timed(lambda: decode.plain(llr, syndrome, *factors),
+                           torch)
+    keep = torch.as_tensor(spec.keep.astype(np.int64), device=frame.device)
+    want = (want.syndromes_match, (want.decision == frame).all(dim=1),
+            want.iterations, frame[:, keep], want.decision[:, keep])
+    got = (res.syndromes_match, res.keys_match, res.iterations,
+           res.alice_out, res.bob_out)
+    diff = max_abs_diff(got, want, torch)
+    check(diff == 0, f"{label}: the round != the composed plain round")
+
+    turns = {"round": [], "decode": []}
+    for which in ("round", "decode", "decode", "round"):
+        fn = (run_round if which == "round"
+              else lambda: decode(llr, syndrome, *factors))
+        turns[which].append(timed(fn, torch)[1])
+    round_ms = sum(turns["round"]) / 2
+    decode_ms = sum(turns["decode"]) / 2
+    matrix = spec.matrix
+    iters = int(res.iterations.sum().item())
+    if spec.algorithm.name.startswith("SPA"):
+        chunk_bound = spa_bound("decode", frames, matrix, iters,
+                                spec.algorithm.name)
+    else:
+        chunk_bound = decode_bound(frames, matrix.num_bit_nodes,
+                                   matrix.num_check_nodes, matrix.num_edges,
+                                   iters, "flooding")
+    print(f"{label}: {frames} frames, FER {fer}, mean iterations "
+          f"{iters / frames:.2f}: round {round_ms:.2f} ms "
+          f"({frames / round_ms * 1e3:.0f} frames/s), {kernel} decode "
+          f"{decode_ms:.2f} ms ({decode_ms / round_ms:.1%} of the round; "
+          f"bound {chunk_bound[0]:.3f} ms, {chunk_bound[1]}), in turns "
+          f"{turns}; plain decode {plain_ms:.1f} ms; round == composed plain "
+          f"round (card={card})", flush=True)
+    return counts[kernel][0], diff, (decode_ms, *chunk_bound, frames), \
+        (plain_ms, frames)
+
+
+def adaptation_spec(name, path, rate, frames):
+    """The protocol spec and scaling factors of one adaptation point of
+    configs/campaign_adaptive_aomsa.json (format 1, delta 0.1, efficiency
+    1.5 in the code's rate bracket; untainted puncturing from a copy of the
+    committed .untp cache, privacy maintenance as the config has it)."""
+    from qkd_ldpc_v_tpu_torch.config import parse_config_data
+    from qkd_ldpc_v_tpu_torch.protocol import make_protocol_spec
+    from qkd_ldpc_v_tpu_torch.simulation import prepare_sim_inputs
+
+    work = REPO / "build" / f"chip_smoke_protocol_{name}"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    (work / path.name).symlink_to(path)
+    shutil.copy(path.with_suffix(".untp"), work / path.with_suffix(".untp").name)
+    (work / "run.json").write_text(json.dumps(narrowed(
+        "campaign_adaptive_aomsa.json", rate, 1, frames, 1.5)))
+    cfg = parse_config_data(work / "run.json")
+    sim_in = prepare_sim_inputs([work / path.name], cfg)[0]
+    check(len(sim_in.combinations) == 1, f"{path.name}: one point expected")
+    comb = sim_in.combinations[0]
+    spec = make_protocol_spec(sim_in.matrix, cfg.decoding_algorithm,
+                              cfg.decoding_alg_max_iterations,
+                              cfg.enable_msg_llr_threshold,
+                              cfg.enable_privacy_maintenance,
+                              params=comb.matrix_params)
+    return spec, comb.config_qber, (comb.scaling_factors.primary,
+                                    comb.scaling_factors.secondary,
+                                    cfg.msg_llr_threshold)
+
+
+def phase_protocol(torch, card):
+    """Phases 4a-4c: the library rounds at full width. Returns
+    {kernel entry: (launches, worst difference, decode chunk, plain
+    case)}."""
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as Alg
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
+    from qkd_ldpc_v_tpu_torch.ops.fused_generic import generic_feasible
+    from qkd_ldpc_v_tpu_torch.protocol import make_protocol_spec
+
+    alist10k = read_sparse_matrix_alist(ALIST10K)
+    alist100k = read_sparse_matrix_alist(ALIST100K)
+    headline = read_qc_matrix(HEADLINE).to_hmatrix()
+    check(generic_feasible(headline), "the headline code is outside the "
+          "fused generic kernel's gate")
+    rounds = [
+        # 4a: fixed rate. Cell 4's point (campaign_fer_1k_alist.json: NMSA
+        # alpha 0.70, cap 100) with and without privacy maintenance; cell
+        # 6's (alpha 0.8, QBER 0.03); the headline QC code at cells 1-2's
+        # point, through the generic kernel as JAX's protocol takes its
+        # generic decoder.
+        ("4a alist10k", make_protocol_spec(alist10k, Alg.NMSA, 100, False,
+                                           False), "fused_generic",
+         ROUND_FRAMES, 0.025, (0.70, 1.0, 0.0), "fused_generic_decode"),
+        ("4a alist10k privacy", make_protocol_spec(alist10k, Alg.NMSA, 100,
+                                                   False, True),
+         "fused_generic", ROUND_FRAMES, 0.025, (0.70, 1.0, 0.0),
+         "fused_generic_decode"),
+        ("4a alist100k", make_protocol_spec(alist100k, Alg.NMSA, 100, False,
+                                            False), "generic_stream",
+         ROUND_FRAMES_100K, 0.03, (0.8, 1.0, 0.0), "generic_stream_decode"),
+        ("4a headline QC", make_protocol_spec(headline, Alg.NMSA, 100, False,
+                                              False), "fused_generic",
+         ROUND_FRAMES, 0.03, (0.65, 1.0, 0.0), "fused_generic_decode"),
+    ]
+    # 4b: rate adaptive, AOMSA, at an adaptation point of the config.
+    for name, path, rate, frames, kernel, entry in (
+            ("alist10k", ALIST10K, 0.7226, ROUND_FRAMES, "fused_generic",
+             "fused_generic_decode"),
+            ("alist100k", ALIST100K, 0.69, ROUND_FRAMES_100K,
+             "generic_stream", "generic_stream_decode")):
+        spec, qber, factors = adaptation_spec(name, path, rate, frames)
+        rounds.append((f"4b {name}", spec, kernel, frames, qber, factors,
+                       entry))
+    # 4c: one SPA-lin round on the 10k alist code.
+    rounds.append(("4c alist10k SPA-lin", make_protocol_spec(
+        alist10k, Alg.SPA_APPROX, 100, False, False), "fused_generic", 1024,
+        0.025, (1.0, 1.0, 0.0), "fused_generic_spa_lin_decode"))
+
+    out = {}
+    for i, (label, spec, kernel, frames, qber, factors, entry) in \
+            enumerate(rounds):
+        launches, diff, chunk, case = protocol_round(
+            torch, card, label, spec, kernel, frames, qber, factors,
+            seed=100 + i)
+        if entry in out:
+            total, worst, first_chunk, first_case = out[entry]
+            out[entry] = (total + launches, max(worst, diff), first_chunk,
+                          first_case)
+        else:
+            out[entry] = (launches, diff, chunk, case)
+    return out
+
+
+class SmokeStop(Exception):
+    """Raised by phase 4d's progress callback to stop a sweep."""
+
+
+def phase_checkpoint_resume(torch, card):
+    """Phase 4d: the CLI on the card over the 1k QC asset at two QBER
+    points (copies of configs/example_qc_layered.json, the fused QC mc
+    mode): a run stopped after its first combination by a progress
+    callback that raises, then resumed, writes the rows of an
+    uninterrupted run (apart from the throughput columns), runs only the
+    second combination, and deletes its checkpoint once the CSV lands."""
+    from qkd_ldpc_v_tpu_torch import cli
+    from qkd_ldpc_v_tpu_torch.ops import fused_qc
+
+    work = REPO / "build" / "chip_smoke_resume"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_qc"
+    matrices.mkdir(parents=True)
+    (matrices / QC1K.name).symlink_to(QC1K)
+    cfg = json.loads((REPO / "configs" / "example_qc_layered.json").read_text())
+    cfg["trials_number"] = RESUME_TRIALS
+    cfg["tpu"]["batch_size"] = RESUME_TRIALS
+    cfg["code_rate_QBER_ranges"][0]["QBER"] = {"begin": 0.02, "end": 0.03,
+                                               "step": 0.01}
+    cdir = work / "configs"
+    cdir.mkdir()
+    (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+
+    def rows(results):
+        _, _, found = read_rows(results)
+        return [{k: v for k, v in r.items() if not k.startswith("THROUGHPUT")}
+                for r in found]
+
+    fused_qc.reset_counts()
+    run_cli(cdir, work / "sparse_matrices", work / "results_full", "cuda")
+    full_launches = fused_qc.COUNTS.mc_launches
+    want = rows(work / "results_full")
+    check(len(want) == 2, f"resume: {len(want)} rows, 2 expected")
+
+    printer = cli._progress_printer
+
+    def stop_after_first(quiet):
+        done = [0]
+
+        def cb(inc, total):
+            done[0] += inc
+            if done[0] > cfg["trials_number"]:
+                raise SmokeStop("stopped after the first combination")
+        return cb
+
+    results = work / "results_resumed"
+    checkpoint = results / ".run.checkpoint.json"
+    cli._progress_printer = stop_after_first
+    try:
+        rc = cli.main(["--configs", str(cdir), "--matrices",
+                       str(work / "sparse_matrices"), "--results",
+                       str(results), "--device", "cuda", "--quiet"])
+    finally:
+        cli._progress_printer = printer
+    check(rc == 1, f"resume: the stopped run returned {rc}")
+    saved = json.loads(checkpoint.read_text())["results"]
+    check(len(saved) == 1 and not list(results.glob("*.csv")),
+          f"resume: the stopped run left {len(saved)} results")
+    fused_qc.reset_counts()
+    run_cli(cdir, work / "sparse_matrices", results, "cuda")
+    resumed_launches = fused_qc.COUNTS.mc_launches
+    got = rows(results)
+    print(f"4d resume: uninterrupted run {full_launches} mc launches, resumed "
+          f"run {resumed_launches}; rows {got}", flush=True)
+    check(2 * resumed_launches == full_launches,
+          "resume: the resumed run did not skip the finished combination")
+    check(got == want, "resume: the resumed CSV rows differ from the "
+          "uninterrupted run's")
+    check(not checkpoint.exists(), "resume: the checkpoint was not deleted")
+    print(f"4d resume: the resumed CSV rows equal the uninterrupted run's "
+          f"apart from the throughput columns (card={card})", flush=True)
+
+
+def busy_share(events, cats=("kernel", "gpu_memcpy", "gpu_memset")):
+    """(busy ms, window ms) of a Chrome trace: the union of the device's
+    kernel and copy intervals, and the span of every timed event."""
+    timed_events = [e for e in events if "ts" in e and "dur" in e]
+    start = min(float(e["ts"]) for e in timed_events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in timed_events)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in timed_events
+                   if str(e.get("cat", "")).lower() in cats)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3, (end - start) / 1e3
+
+
+def phase_profile(torch, card):
+    """Phase 4e: ``--profile`` on cell 1's config
+    (configs/example_qc_layered.json over the headline asset) at 4 chunks
+    of 16384 frames: the trace must exist and name the fused QC mc kernel;
+    prints the share of the traced window, and of the span of its fused QC
+    kernels, in which the device is busy."""
+    from qkd_ldpc_v_tpu_torch import cli
+
+    work = REPO / "build" / "chip_smoke_profile"
+    if work.exists():
+        shutil.rmtree(work)
+    matrices = work / "sparse_matrices" / "matrices_qc"
+    matrices.mkdir(parents=True)
+    (matrices / HEADLINE.name).symlink_to(HEADLINE)
+    cfg = json.loads((REPO / "configs" / "example_qc_layered.json").read_text())
+    cfg["trials_number"] = PROFILE_TRIALS
+    cfg["tpu"]["batch_size"] = PROFILE_TRIALS // 4
+    cdir = work / "configs"
+    cdir.mkdir()
+    (cdir / "run.json").write_text(json.dumps(cfg, indent=2))
+    t0 = time.perf_counter()
+    rc = cli.main(["--configs", str(cdir), "--matrices",
+                   str(work / "sparse_matrices"), "--results",
+                   str(work / "results"), "--device", "cuda", "--quiet",
+                   "--profile", str(work / "profile")])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"--profile run returned {rc}")
+    trace = work / "profile" / "trace.json"
+    check(trace.exists(), f"no trace at {trace}")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    fused = [e for e in kernels if "fused_qc_kernel" in e.get("name", "")]
+    check(fused, f"the trace names no fused QC kernel: "
+          f"{sorted({e.get('name', '')[:60] for e in kernels})[:8]}")
+    busy, window = busy_share(events)
+    span0 = min(float(e["ts"]) for e in fused)
+    span1 = max(float(e["ts"]) + float(e["dur"]) for e in fused)
+    in_loop = [e for e in events if "ts" in e and "dur" in e
+               and span0 <= float(e["ts"]) <= span1]
+    loop_busy, _ = busy_share(in_loop)
+    loop_ms = (span1 - span0) / 1e3
+    _, _, rows = read_rows(work / "results")
+    print(f"4e profile: {trace.stat().st_size} bytes, {len(events)} events, "
+          f"{len(kernels)} kernels ({len(fused)} fused QC, e.g. "
+          f"{fused[0]['name'][:80]!r}, {sum(float(e['dur']) for e in fused) / 1e3:.2f} ms); "
+          f"device busy {busy:.2f} ms of the {window:.2f} ms traced window "
+          f"({busy / window:.1%}; idle {1 - busy / window:.1%}), "
+          f"{loop_busy:.2f} ms of the {loop_ms:.2f} ms from the first to "
+          f"the last fused QC kernel ({loop_busy / loop_ms:.1%}); whole CLI "
+          f"call {wall:.1f} s, FER {rows[0]['FER']} (card={card})",
+          flush=True)
+
+
+def phase_example(torch, card):
+    """Phase 4f: examples/qkd_ldpc_example_torch.py --device cuda, in a
+    process of its own: the float64 decode on the card must equal the
+    oracle's decision and iterations."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "qkd_ldpc_example_torch.py"),
+         "--device", "cuda"], capture_output=True, text=True, timeout=300,
+        cwd=REPO)
+    check(proc.returncode == 0, f"the example failed: {proc.stderr[-2000:]}")
+    check("device decode matches the reference-exact trajectory."
+          in proc.stdout, "the example did not match the oracle")
+    tail = [ln for ln in proc.stdout.splitlines() if ln.startswith(
+        ("decision:", "iterations:", "device decode"))]
+    print(f"4f example on the card: {tail} (card={card})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2624,6 +3075,14 @@ def main() -> int:
     elapsed("3e")
     spa3g = phase_spa_main_path(torch, card)
     elapsed("3g")
+    protocol4 = phase_protocol(torch, card)
+    elapsed("4a-4c")
+    phase_checkpoint_resume(torch, card)
+    elapsed("4d")
+    phase_profile(torch, card)
+    elapsed("4e")
+    phase_example(torch, card)
+    elapsed("4f")
     check("jax" not in sys.modules, "jax was imported")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s "
           f"({card})", flush=True)
@@ -2652,6 +3111,14 @@ def main() -> int:
         launches, worst, chunk = spa3g[run]
         return entry(name, source, replaces, launches,
                      max(worst2g[kernel], worst), chunk, spa_times[name])
+
+    def protocol_entry(name, source, replaces, worst2x):
+        # The library rounds of phase 4a-4c: launches summed over them, ms
+        # and bound_ms of the first round's decode, plain_ms the plain
+        # decode of the same round.
+        launches, worst, chunk, case = protocol4[name]
+        return entry(name, source, replaces, launches, max(worst2x, worst),
+                     chunk, case)
 
     def mc_entry(name, source, replaces, main):
         launches, worst, chunk = main["mc"]
@@ -2691,6 +3158,12 @@ def main() -> int:
                   "spa_lin_alist10k"),
         spa_entry("generic_stream_spa", "generic_stream.cu",
                   "pallas_stream.py:348", "generic_stream", "spa_alist100k"),
+        protocol_entry("fused_generic_decode", "fused_generic.cu",
+                       "pallas_generic.py:998", worst2b),
+        protocol_entry("generic_stream_decode", "generic_stream.cu",
+                       "pallas_stream.py:1010", worst2d),
+        protocol_entry("fused_generic_spa_lin_decode", "fused_generic.cu",
+                       "pallas_generic.py:665", worst2g["fused_generic"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

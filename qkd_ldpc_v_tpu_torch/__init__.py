@@ -1,17 +1,23 @@
 """qkd_ldpc_v_tpu_torch — the PyTorch and CUDA port of qkd_ldpc_v_tpu.
 
-QKD LDPC information reconciliation on an NVIDIA H100: the fixed-rate
-Monte-Carlo sweep over codes in all five matrix formats (alist, format 1,
-format 2, dense, quasi-cyclic). The min-sum decoders (NMSA, OMSA, ANMSA,
-AOMSA) run through four hand-written kernels: the fused QC decoder
-(``csrc/fused_qc.cu``, flooding or layered), the streamed QC decoder for QC
-codes too large for it, such as the N=102400 codes (``csrc/qc_stream.cu``,
-flooding or layered), the fused generic decoder for arbitrary sparse codes
-(``csrc/fused_generic.cu``, flooding) and the streamed generic decoder for
-those too large for it, such as the N=102400 alist code
-(``csrc/generic_stream.cu``, flooding). The generic
-torch decoder (``ops/decoders.py``) runs all six algorithms in float32,
-float64 or bfloat16 when ``tpu.use_pallas`` is false. CPU tensors run the
+QKD LDPC information reconciliation on an NVIDIA H100: the Monte-Carlo
+sweep (fixed rate and rate-adaptive, with privacy maintenance) over codes
+in all five matrix formats (alist, format 1, format 2, dense,
+quasi-cyclic), resumable from a per-combination checkpoint, and the
+single-round library API that a QKD stack calls on each block of sifted
+key (``make_protocol_spec``, ``qkd_ldpc``, ``qkd_ldpc_rate_adapt``). All six
+algorithms (SPA, SPA-lin-approx, NMSA, OMSA, ANMSA, AOMSA) run through four
+hand-written kernels: the fused QC decoder (``csrc/fused_qc.cu``, flooding
+or layered), the streamed QC decoder for QC codes too large for it, such as
+the N=102400 codes (``csrc/qc_stream.cu``, flooding or layered), the fused
+generic decoder for arbitrary sparse codes (``csrc/fused_generic.cu``,
+flooding) and the streamed generic decoder for those too large for it,
+such as the N=102400 alist code (``csrc/generic_stream.cu``, flooding).
+The library rounds decode with the two generic kernels, as the JAX
+package's rounds take its generic decoder. The generic torch decoder
+(``ops/decoders.py``) runs in float32, float64 or bfloat16 when
+``tpu.use_pallas`` is false. Traced runs decode on the host through the
+float64 oracle (``oracle.py``, ``tracing.py``). CPU tensors run the
 kernels' plain torch versions. The JAX package ``qkd_ldpc_v_tpu`` is the
 reference this package is tested against; this package never imports it
 or JAX.
@@ -32,6 +38,14 @@ from qkd_ldpc_v_tpu_torch.models.qc import (  # noqa: F401
     generate_qc_ldpc,
     generate_qc_peg,
     read_qc_matrix,
+    write_qc_matrix,
+)
+from qkd_ldpc_v_tpu_torch.protocol import (  # noqa: F401
+    ProtocolResult,
+    ProtocolSpec,
+    make_protocol_spec,
+    qkd_ldpc,
+    qkd_ldpc_rate_adapt,
 )
 from qkd_ldpc_v_tpu_torch.simulation import (  # noqa: F401
     SimResult,

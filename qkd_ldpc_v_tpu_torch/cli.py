@@ -7,16 +7,23 @@ run writes one self-describing CSV into the results directory.
 
 ``--device`` picks where trials run: ``cuda`` (the default) launches the
 hand-written kernels and raises when no CUDA device is present; ``cpu``
-runs their plain torch versions. There is no profile option and no
-checkpoint/resume yet.
+runs their plain torch versions. Each config's finished combinations are
+checkpointed to ``RESULTS/.{stem}.checkpoint.json``; a rerun of the same
+campaign resumes after them, and the checkpoint is deleted once the CSV
+has landed. ``--profile DIR`` records the whole run with
+``torch.profiler`` (the CPU, and the CUDA device's kernels and copies on
+``--device cuda``) into the Chrome trace ``DIR/trace.json``; on the card it
+raises where the trace holds no kernel.
 
     python -m qkd_ldpc_v_tpu_torch --configs D --matrices D --results D \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--profile DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import logging
 import sys
 import time
@@ -71,7 +78,12 @@ ported so far:
                efficiency:{begin,end,step}}] crossed with the QBER range.
     false -> code_rate_QBER_adaptation_parameters_maps:
              [{code_rate, QBER, delta, efficiency}] explicit points.
-  trace_*                       false.
+  trace_qkd_ldpc                bool. Dump protocol-level tensors.
+  trace_decoding_algorithm      bool. Dump per-iteration decoder tensors.
+  trace_decoding_algorithm_llr  bool. Track the max-|LLR| watermark.
+                                Any trace flag decodes every trial on the
+                                host through the float64 oracle, on the
+                                keys and frames of the float64 run.
   tpu.use_pallas                true: the hand-written kernels (CUDA) or
                                 their plain torch versions (CPU) — the
                                 fused QC kernel for QC codes it holds, the
@@ -94,10 +106,9 @@ ported so far:
                                 kernel for any code inside the JAX
                                 package's stream gate).
 
-Anything else not listed raises NotImplementedError naming the port step
-that brings it. Results: one CSV
-per config, semicolon-separated with comma decimal marks, byte-compatible
-with qkd_ldpc_v_tpu's.
+tpu.phase1_iterations is read and has no effect: no engine of this package
+re-decodes stragglers. Results: one CSV per config, semicolon-separated
+with comma decimal marks, byte-compatible with qkd_ldpc_v_tpu's.
 """
 
 
@@ -125,22 +136,32 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--help-config", action="store_true",
                    help="print the config-file reference and exit")
     p.add_argument("--quiet", action="store_true", help="suppress progress output")
+    p.add_argument("--profile", type=Path, default=None, metavar="DIR",
+                   help="record the whole run with torch.profiler into the "
+                        "Chrome trace DIR/trace.json (view in Perfetto or "
+                        "chrome://tracing)")
     return p
 
 
 def _progress_printer(quiet: bool):
-    state = {"done": 0, "last": -1.0, "t0": time.monotonic()}
+    # `base` counts trials credited within 2s of startup (checkpoint
+    # restores); they are excluded from the ETA rate so a resumed campaign
+    # doesn't report a near-zero ETA.
+    state = {"done": 0, "base": 0, "last": -1.0, "t0": time.monotonic()}
 
     def cb(inc: int, total: int) -> None:
         if quiet:
             return
         now = time.monotonic()
         state["done"] += inc
+        if now - state["t0"] < 2.0:
+            state["base"] = state["done"]
         if now - state["last"] >= 0.5 or state["done"] >= total:
             state["last"] = now
             pct = 100.0 * state["done"] / total
             elapsed = now - state["t0"]
-            eta = elapsed * (total - state["done"]) / max(state["done"], 1)
+            run_done = max(state["done"] - state["base"], 1)
+            eta = elapsed * (total - state["done"]) / run_done
             print(
                 f"\rPROGRESS [{state['done']}/{total}] {pct:5.1f}% "
                 f"elapsed {elapsed:5.0f}s eta {eta:5.0f}s",
@@ -156,6 +177,70 @@ def _color(code: str, text: str) -> str:
     if not sys.stdout.isatty():
         return text
     return f"\033[{code}m{text}\033[0m"
+
+
+def _kernel_events(trace: Path) -> int:
+    """The device kernels a Chrome trace records."""
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    return sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel")
+
+
+@contextlib.contextmanager
+def _profiled(directory, device: torch.device):
+    """``torch.profiler`` around the body, its Chrome trace written to
+    ``directory/trace.json`` (also when the body raises). On a CUDA device
+    it traces the device too, and raises where the profiler cannot trace it
+    or the trace holds no kernel: it never records nothing silently."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError("--profile: this torch build cannot trace the "
+                               "CUDA device (no CUPTI)")
+        activities.append(ProfilerActivity.CUDA)
+    directory.mkdir(parents=True, exist_ok=True)
+    trace = directory / "trace.json"
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(trace))
+    if device.type == "cuda" and _kernel_events(trace) == 0:
+        raise RuntimeError(f"--profile: {trace} records no device kernel")
+    print(f"The profile trace is written to the file: {trace}")
+
+
+def _run_config(args, device: torch.device, i: int, config_path: Path) -> None:
+    """One config: its sweep, checkpointed per combination, into one CSV."""
+    cfg = parse_config_data(config_path)
+    print(_color("96", format_config_info(cfg, config_path.name, i + 1)))
+    matrix_dir = args.matrices / cfg.matrix_format.directory_name
+    matrix_paths = get_file_paths_in_directory(matrix_dir, args.matrix_ext)
+    if not matrix_paths:
+        raise FileNotFoundError(
+            f"No *{args.matrix_ext} matrices found in {matrix_dir}"
+        )
+    sim_inputs = prepare_sim_inputs(matrix_paths, cfg)
+
+    start = time.monotonic()
+    args.results.mkdir(parents=True, exist_ok=True)
+    checkpoint = args.results / f".{config_path.stem}.checkpoint.json"
+    results = qkd_ldpc_batch_simulation(
+        sim_inputs, cfg, device, progress=_progress_printer(args.quiet),
+        checkpoint_path=checkpoint,
+    )
+    duration = format_duration(time.monotonic() - start)
+    result_path = write_file(results, cfg, duration, args.results)
+    # Only drop the checkpoint once the CSV has safely landed.
+    checkpoint.unlink(missing_ok=True)
+    print(_color("92", f"The results are written to the file: {result_path}")
+          + "\n")
 
 
 def main(argv=None) -> int:
@@ -176,25 +261,9 @@ def main(argv=None) -> int:
         if not config_paths:
             print(f"No *.json configs found in {args.configs}", file=sys.stderr)
             return 1
-        for i, config_path in enumerate(config_paths):
-            cfg = parse_config_data(config_path)
-            print(_color("96", format_config_info(cfg, config_path.name, i + 1)))
-            matrix_dir = args.matrices / cfg.matrix_format.directory_name
-            matrix_paths = get_file_paths_in_directory(matrix_dir, args.matrix_ext)
-            if not matrix_paths:
-                raise FileNotFoundError(
-                    f"No *{args.matrix_ext} matrices found in {matrix_dir}"
-                )
-            sim_inputs = prepare_sim_inputs(matrix_paths, cfg)
-
-            start = time.monotonic()
-            results = qkd_ldpc_batch_simulation(
-                sim_inputs, cfg, device, progress=_progress_printer(args.quiet),
-            )
-            duration = format_duration(time.monotonic() - start)
-            result_path = write_file(results, cfg, duration, args.results)
-            print(_color("92", f"The results are written to the file: {result_path}")
-                  + "\n")
+        with _profiled(args.profile, device):
+            for i, config_path in enumerate(config_paths):
+                _run_config(args, device, i, config_path)
     except Exception as e:  # noqa: BLE001 — the reference's catch-all
         print(_color("91", f"ERROR: {type(e).__name__}: {e}"), file=sys.stderr)
         return 1

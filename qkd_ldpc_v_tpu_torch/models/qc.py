@@ -313,9 +313,20 @@ def generate_qc_peg(
     return QCMatrix(shifts=shifts, lifting=z)
 
 
+def write_qc_matrix(qc: QCMatrix, path) -> None:
+    """Write the base-graph shift table: header "mb nb Z", then mb rows of
+    nb shifts (-1 = absent block). The reference has no QC format; these
+    files live under sparse_matrices/matrices_qc/."""
+    from pathlib import Path
+
+    lines = [f"{qc.base_checks} {qc.base_bits} {qc.lifting}"]
+    for r in range(qc.base_checks):
+        lines.append(" ".join(str(int(s)) for s in qc.shifts[r]))
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
 def read_qc_matrix(path) -> QCMatrix:
-    """Read a .mtrx file in the QC base-graph format: header "mb nb Z", then
-    mb rows of nb shifts (-1 = absent block)."""
+    """Read a .mtrx file in the QC base-graph format (see write_qc_matrix)."""
     from pathlib import Path
 
     path = Path(path)

@@ -29,10 +29,16 @@ one):
 The kernels' trials launch their CUDA kernels for tensors on a CUDA device
 and run their plain torch versions for tensors on the CPU; the ``xla``
 engine runs on the requested device. Every engine runs all six
-algorithms; the traced decode path is not ported yet. ``tpu.schedule =
-layered`` is honoured by the QC engines with a min-sum algorithm;
-elsewhere, the SPA pair on a QC engine included, it warns and floods, as
-in the JAX package.
+algorithms. ``tpu.schedule = layered`` is honoured by the QC engines with
+a min-sum algorithm; elsewhere, the SPA pair on a QC engine included, it
+warns and floods, as in the JAX package.
+
+Traced runs (any ``trace_*`` flag) decode every trial on the host through
+the float64 oracle with console dumps (``tracing.traced_decode``), on the
+frames the ``xla`` engine's float64 run would decode: the same keys and the
+same ``build_frames``. A traced run therefore equals the untraced float64
+run; against an engine that draws its keys in the kernel (the mc modes)
+its channel realizations differ, as the JAX package's do.
 
 Rate-adaptive runs build each chunk's frames and LLRs in torch
 (``channel.build_frames``) and decode them as the JAX sweep does
@@ -40,6 +46,10 @@ Rate-adaptive runs build each chunk's frames and LLRs in torch
 forms Alice's syndrome and compares keys in the kernel; the streamed
 kernels and the ``xla`` engine take Alice's syndrome in torch, run their
 decode mode and compare keys over the whole frame.
+
+``qkd_ldpc_batch_simulation`` with a ``checkpoint_path`` saves each
+finished combination and resumes a matching campaign mid-sweep
+(``save_checkpoint``, ``load_checkpoint``, ``_campaign_fingerprint``).
 
 Random numbers: each decode chunk has its seed,
 ``channel.chunk_seed(seed, sim_number, chunk_index)``. Fixed-rate runs on
@@ -59,6 +69,9 @@ cross-package tests.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 import logging
 import time
 from dataclasses import dataclass, field
@@ -116,6 +129,7 @@ from qkd_ldpc_v_tpu_torch.ops.qc_stream import (
     make_qc_stream_trial,
     qc_stream_feasible,
 )
+from qkd_ldpc_v_tpu_torch.oracle import calculate_syndrome as oracle_syndrome
 from qkd_ldpc_v_tpu_torch.privacy import bits_positions_to_remove
 from qkd_ldpc_v_tpu_torch.rate_adapt import (
     HMatrixParams,
@@ -123,6 +137,7 @@ from qkd_ldpc_v_tpu_torch.rate_adapt import (
     finalize_bits_to_remove,
     get_punctured_bits_untainted,
 )
+from qkd_ldpc_v_tpu_torch.tracing import traced_decode
 
 logger = logging.getLogger(__name__)
 
@@ -455,22 +470,6 @@ def select_engine(matrix: HMatrix, cfg: Config) -> str:
     return "xla"
 
 
-def check_engine(matrix: HMatrix, cfg: Config) -> str:
-    """The engine ``run_combination`` will run (see ``select_engine``), or
-    ``NotImplementedError`` naming what is not ported yet and its ROADMAP
-    item."""
-    reasons = []
-    if cfg.trace_qkd_ldpc or cfg.trace_decoding_alg or cfg.trace_decoding_alg_llr:
-        reasons.append("the traced f64 decode path (ROADMAP.md, queue 1: "
-                       "tracing.py)")
-    engine = select_engine(matrix, cfg)
-    if reasons:
-        raise NotImplementedError(
-            "not ported to qkd_ldpc_v_tpu_torch yet: " + "; ".join(reasons)
-        )
-    return engine
-
-
 def qc_kernel(qc: QCMatrix, engine: str, layered: bool) -> str:
     """The kernel a QC engine runs on this code and schedule: "fused_qc" |
     "qc_stream".
@@ -640,6 +639,51 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _run_trials_traced(matrix: HMatrix, comb: SimCombination, cfg: Config,
+                       frames: Callable, batch: int):
+    """Host-side trial loop through the f64 oracle with console tracing
+    (the reference emits its traces from inside the per-trial decoders,
+    src/qkd_ldpc_algorithm.cpp:88-99, :1094-1116). ``frames(chunk_index)``
+    gives a chunk's ``(alice_frame [B,N] int8, llr [B,N] float64)``, the
+    frames the untraced float64 run decodes; a short last chunk keeps its
+    first frames. Returns per-trial (syndromes_match, keys_match,
+    iterations)."""
+    trials = cfg.trials_number
+    alice_parts, llr_parts = [], []
+    done = 0
+    chunk_index = 0
+    while done < trials:
+        take = min(batch, trials - done)
+        alice, llr = frames(chunk_index)
+        alice_parts.append(alice[:take].cpu().numpy())
+        llr_parts.append(llr[:take].cpu().numpy())
+        done += take
+        chunk_index += 1
+    alice_frames = np.concatenate(alice_parts)
+    llr_frames = np.concatenate(llr_parts)
+
+    syn = np.zeros(trials, dtype=bool)
+    keys = np.zeros(trials, dtype=bool)
+    iters = np.zeros(trials, dtype=np.int32)
+    for t in range(trials):
+        syndrome = oracle_syndrome(matrix.check_nodes, alice_frames[t])
+        decision, ok, it, _ = traced_decode(
+            matrix,
+            llr_frames[t],
+            syndrome,
+            cfg,
+            comb.scaling_factors.primary,
+            comb.scaling_factors.secondary,
+        )
+        syn[t] = ok
+        keys[t] = bool(np.array_equal(decision, alice_frames[t]))
+        iters[t] = it
+        if cfg.trace_qkd_ldpc:
+            print(f"Trial {t}: iterations={it} syndromes_match={ok} "
+                  f"keys_match={keys[t]}")
+    return syn, keys, iters
+
+
 def run_combination(
     matrix: HMatrix,
     comb: SimCombination,
@@ -658,20 +702,24 @@ def run_combination(
     kernel (32-bit sort keys, as the JAX mc kernels). Otherwise each chunk
     draws a full batch of keys from ``key_source`` (or the default
     generator), injects exactly ``floor(N * QBER)`` errors with 64-bit sort
-    keys, and runs the engine's trial (see ``check_engine``). A short last
-    chunk keeps its first ``take`` frames. A rate-adaptive run builds the chunk's frames from
-    those keys and Alice's punctured draw (``channel.build_frames``, the
-    combination's ``make_frame_plan``) and decodes them through
-    ``frame_engine_trial``. With
-    throughput measurement on, chunk 0 is run once untimed first, so the
-    kernel build and first-call costs stay out of the timings; each chunk's
-    timed region starts after a device synchronize and ends when its
-    results are on the host.
+    keys, and runs the engine's trial (see ``select_engine``). A short last
+    chunk keeps its first ``take`` frames. A rate-adaptive run builds the
+    chunk's frames from those keys and Alice's punctured draw
+    (``channel.build_frames``, the combination's ``make_frame_plan``) and
+    decodes them through ``frame_engine_trial``. A traced run (any
+    ``trace_*`` flag) builds the same keys and frames in float64 on
+    ``device`` and decodes them on the host through the oracle, with
+    tracing (``_run_trials_traced``); its per-trial runtime is the whole
+    loop's wall time over the trials. With throughput measurement on, chunk
+    0 of an untraced run is run once untimed first, so the kernel build and
+    first-call costs stay out of the timings; each chunk's timed region
+    starts after a device synchronize and ends when its results are on the
+    host.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is available")
-    engine = check_engine(matrix, cfg)
+    engine = select_engine(matrix, cfg)
     n_bits = matrix.num_bit_nodes
     num_errors = exact_error_count(n_bits, comb.config_qber)
     if num_errors == 0:
@@ -681,7 +729,9 @@ def run_combination(
     trials = cfg.trials_number
     batch = cfg.batch_size if cfg.batch_size > 0 else trials
     batch = min(batch, trials)
-    dtype = _DTYPES[cfg.dtype]
+    traced = (cfg.trace_qkd_ldpc or cfg.trace_decoding_alg
+              or cfg.trace_decoding_alg_llr)
+    dtype = torch.float64 if traced else _DTYPES[cfg.dtype]
     log_p = log_ratio(accurate_qber, dtype)
     scalars = (
         comb.scaling_factors.primary,
@@ -691,67 +741,87 @@ def run_combination(
     source = key_source or default_key_source(cfg.simulation_seed, device)
     rate_adaptive = cfg.enable_code_rate_adaptation
     mc = None
-    if not rate_adaptive and key_source is None:
+    if not rate_adaptive and key_source is None and not traced:
         mc = montecarlo_trial(engine, matrix, cfg)
     if rate_adaptive:
-        trial = frame_engine_trial(engine, matrix, cfg)
         pos_class, payload_gather = make_frame_plan(n_bits, comb.matrix_params)
         plan = (
             torch.as_tensor(pos_class == _CLASS_PAYLOAD, device=device),
             torch.as_tensor(pos_class == _CLASS_PUNCTURED, device=device),
             torch.as_tensor(payload_gather.astype(np.int64), device=device),
         )
-    elif mc is None:
+    if rate_adaptive and not traced:
+        trial = frame_engine_trial(engine, matrix, cfg)
+    elif mc is None and not traced:
         trial = _make_trial(engine, matrix, cfg)
+
+    def chunk_keys(chunk_index):
+        """(alice, bob, Alice's punctured draw or None) of one chunk."""
+        keys = source(sim_number, chunk_index, batch, n_bits,
+                      **({"punctured": True} if rate_adaptive else {}))
+        alice = _as_tensor(keys[0], torch.int8, device)
+        bob = inject_errors(_as_tensor(keys[1], torch.int64, device), alice,
+                            num_errors, wide=True)
+        punct = _as_tensor(keys[2], torch.int8, device) if rate_adaptive else None
+        return alice, bob, punct
+
+    def chunk_frames(chunk_index):
+        """(alice_frame, llr in ``dtype``) of one chunk."""
+        alice, bob, punct = chunk_keys(chunk_index)
+        if rate_adaptive:
+            return build_frames(alice, bob, punct, *plan, log_p, dtype)
+        lp = torch.tensor(log_p, dtype=dtype, device=device)
+        return alice, torch.where(bob == 1, -lp, lp)
 
     def run_chunk(chunk_index):
         if mc is not None:
             conv, keys, iters = mc(
                 chunk_seed(cfg.simulation_seed, sim_number, chunk_index), 0,
                 batch, num_errors, log_p, *scalars, device=device)
-            return conv.cpu().numpy(), keys.cpu().numpy(), iters.cpu().numpy()
-        if rate_adaptive:
-            alice, bits, punct = source(sim_number, chunk_index, batch,
-                                        n_bits, punctured=True)
+        elif rate_adaptive:
+            conv, keys, iters = trial(*chunk_frames(chunk_index), *scalars)
         else:
-            alice, bits = source(sim_number, chunk_index, batch, n_bits)
-        alice = _as_tensor(alice, torch.int8, device)
-        bob = inject_errors(_as_tensor(bits, torch.int64, device), alice,
-                            num_errors, wide=True)
-        if rate_adaptive:
-            alice_frame, llr = build_frames(
-                alice, bob, _as_tensor(punct, torch.int8, device), *plan,
-                log_p, dtype)
-            conv, keys, iters = trial(alice_frame, llr, *scalars)
-        else:
+            alice, bob, _ = chunk_keys(chunk_index)
             conv, keys, iters = trial(alice, bob, log_p, *scalars)
         return conv.cpu().numpy(), keys.cpu().numpy(), iters.cpu().numpy()
 
-    if cfg.enable_throughput_measurement:
-        run_chunk(0)
-
-    syn_parts: List[np.ndarray] = []
-    key_parts: List[np.ndarray] = []
-    iter_parts: List[np.ndarray] = []
-    runtime_parts: List[np.ndarray] = []
-    done = 0
-    chunk_index = 0
-    while done < trials:
-        take = min(batch, trials - done)
-        _synchronize(device)
+    if traced:
         t0 = time.perf_counter()
-        syn, keys, iters = run_chunk(chunk_index)
+        syn_all, keys_all, iters_all = _run_trials_traced(
+            matrix, comb, cfg, chunk_frames, batch)
         elapsed_us = (time.perf_counter() - t0) * 1e6
-        # Per-trial runtime = batch wall time / batch size, as in the JAX
-        # package: the batch is the unit of device work.
-        runtime_parts.append(np.full(take, elapsed_us / batch))
-        syn_parts.append(syn[:take])
-        key_parts.append(keys[:take])
-        iter_parts.append(iters[:take])
-        done += take
-        chunk_index += 1
+        runtimes = np.full(trials, elapsed_us / trials)
         if progress is not None:
-            progress(take)
+            progress(trials)
+    else:
+        if cfg.enable_throughput_measurement:
+            run_chunk(0)
+        syn_parts: List[np.ndarray] = []
+        key_parts: List[np.ndarray] = []
+        iter_parts: List[np.ndarray] = []
+        runtime_parts: List[np.ndarray] = []
+        done = 0
+        chunk_index = 0
+        while done < trials:
+            take = min(batch, trials - done)
+            _synchronize(device)
+            t0 = time.perf_counter()
+            syn, keys, iters = run_chunk(chunk_index)
+            elapsed_us = (time.perf_counter() - t0) * 1e6
+            # Per-trial runtime = batch wall time / batch size, as in the
+            # JAX package: the batch is the unit of device work.
+            runtime_parts.append(np.full(take, elapsed_us / batch))
+            syn_parts.append(syn[:take])
+            key_parts.append(keys[:take])
+            iter_parts.append(iters[:take])
+            done += take
+            chunk_index += 1
+            if progress is not None:
+                progress(take)
+        syn_all = np.concatenate(syn_parts)
+        keys_all = np.concatenate(key_parts)
+        iters_all = np.concatenate(iter_parts)
+        runtimes = np.concatenate(runtime_parts)
 
     result = SimResult(
         sim_number=sim_number,
@@ -773,15 +843,104 @@ def run_combination(
     else:
         out_key_length = n_bits
     process_trials_results(
-        cfg,
-        np.concatenate(syn_parts),
-        np.concatenate(key_parts),
-        np.concatenate(iter_parts),
-        np.concatenate(runtime_parts) if cfg.enable_throughput_measurement else None,
-        out_key_length,
-        result,
+        cfg, syn_all, keys_all, iters_all,
+        runtimes if cfg.enable_throughput_measurement else None,
+        out_key_length, result,
     )
     return result
+
+
+def _campaign_fingerprint(sim_inputs: Sequence[SimInput], cfg: Config) -> str:
+    """Stable id of a sweep campaign for checkpoint/resume: config fields
+    that affect results plus the matrix file list. The JAX package's tuple
+    plus ``tpu.force_engine``: here the engine decides whether a chunk's
+    keys come from the kernel's Philox stream or from the torch generator,
+    so a resumed checkpoint must not mix engines."""
+    parts = [
+        repr(
+            (
+                cfg.trials_number,
+                cfg.simulation_seed,
+                int(cfg.decoding_algorithm),
+                cfg.decoding_alg_max_iterations,
+                cfg.enable_privacy_maintenance,
+                cfg.enable_code_rate_adaptation,
+                cfg.enable_untainted_puncturing,
+                cfg.enable_msg_llr_threshold,
+                cfg.msg_llr_threshold,
+                cfg.dtype,
+                # batch_size, use_pallas and the engine change trial
+                # realizations (chunk seeds, the mc kernels' in-kernel
+                # draw against torch keys).
+                cfg.batch_size,
+                cfg.use_pallas,
+                cfg.schedule,
+                cfg.force_engine,
+            )
+        )
+    ]
+    for s in sim_inputs:
+        parts.append(str(s.matrix_path))
+        for c in s.combinations:
+            mp = c.matrix_params
+            parts.append(
+                repr(
+                    (
+                        c.config_qber,
+                        c.scaling_factors.primary,
+                        c.scaling_factors.secondary,
+                        mp.delta,
+                        mp.efficiency,
+                        mp.punctured_bits.tobytes(),
+                        mp.shortened_bits.tobytes(),
+                        mp.bits_to_remove.tobytes(),
+                    )
+                )
+            )
+    return hashlib.sha256("\n".join(parts).encode()).hexdigest()[:16]
+
+
+def _json_value(value):
+    """A ``SimResult`` field as a Python scalar (NumPy scalars do not
+    serialise); floats round-trip through JSON exactly."""
+    if isinstance(value, dict):
+        return {k: _json_value(v) for k, v in value.items()}
+    if isinstance(value, np.generic):
+        return value.item()
+    return value
+
+
+def save_checkpoint(path, fingerprint: str, results: Sequence[SimResult]) -> None:
+    """JSON checkpoint of the completed combinations, replaced atomically.
+    The reference writes results only at campaign end and loses everything
+    on a crash (reference: src/main.cpp:185); this checkpoints each finished
+    combination and resumes mid-sweep."""
+    payload = {
+        "fingerprint": fingerprint,
+        "results": [_json_value(dataclasses.asdict(r)) for r in results],
+    }
+    tmp = Path(str(path) + ".tmp")
+    tmp.write_text(json.dumps(payload))
+    tmp.replace(path)
+
+
+def load_checkpoint(path, fingerprint: str) -> List[SimResult]:
+    """Load a matching checkpoint's completed results ([] when absent or
+    from a different campaign)."""
+    path = Path(path)
+    if not path.exists():
+        return []
+    try:
+        payload = json.loads(path.read_text())
+    except (OSError, ValueError):
+        return []
+    if payload.get("fingerprint") != fingerprint:
+        return []
+    out = []
+    for d in payload.get("results", []):
+        sf = d.pop("scaling_factors", {})
+        out.append(SimResult(**d, scaling_factors=ScalingFactors(**sf)))
+    return out
 
 
 def qkd_ldpc_batch_simulation(
@@ -790,16 +949,35 @@ def qkd_ldpc_batch_simulation(
     device,
     progress: Optional[Callable[[int, int], None]] = None,
     key_source: Optional[KeySource] = None,
+    checkpoint_path=None,
 ) -> List[SimResult]:
     """Run the full sweep (reference: src/simulation.cpp:693-768).
-    ``progress(trials_done_increment, trials_total)`` ticks per chunk."""
+
+    ``progress(trials_done_increment, trials_total)`` ticks per chunk. When
+    ``checkpoint_path`` is given, each finished combination is checkpointed
+    and a matching prior checkpoint resumes the sweep mid-way, its trials
+    credited to ``progress`` first. The checkpoint stays on disk; the caller
+    removes it once the results have landed (``cli.py`` deletes it after
+    ``write_file``).
+    """
     sim_total = sum(len(s.combinations) for s in sim_inputs)
     trials_total = sim_total * cfg.trials_number
+
+    fingerprint = ""
     results: List[SimResult] = []
+    if checkpoint_path is not None:
+        fingerprint = _campaign_fingerprint(sim_inputs, cfg)
+        results = load_checkpoint(checkpoint_path, fingerprint)
+        if results and progress:
+            progress(len(results) * cfg.trials_number, trials_total)
+
     sim_number = 0
     cb = (lambda inc: progress(inc, trials_total)) if progress else None
     for sim_in in sim_inputs:
         for comb in sim_in.combinations:
+            if sim_number < len(results):
+                sim_number += 1  # already completed in a prior run
+                continue
             res = run_combination(
                 sim_in.matrix, comb, cfg, sim_number, device,
                 progress=cb, key_source=key_source,
@@ -807,6 +985,8 @@ def qkd_ldpc_batch_simulation(
             res.matrix_filename = sim_in.matrix_path.name
             results.append(res)
             sim_number += 1
+            if checkpoint_path is not None:
+                save_checkpoint(checkpoint_path, fingerprint, results)
     return results
 
 

@@ -373,7 +373,7 @@ def test_stream_engine_run_matches_jax_xla(tmp_path):
                                                         use_pallas=True)))
     assert jsim.pallas_engine(jm, _jax_cfg(qber=qber, use_pallas=True)) \
         == "stream"
-    assert tsim.check_engine(tm, tcfg) == "stream"
+    assert tsim.select_engine(tm, tcfg) == "stream"
     want, got = _run_both(jm, tm, jcfg, tcfg, qber, tmp_path)
     assert got.ratio_trials_success_ldpc > 0.0
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -409,7 +409,7 @@ def test_forced_stream_run_matches_jax_stream(irregular, monkeypatch,
     jcfg = _jax_cfg(qber=qber, use_pallas=True)
     tcfg = config_from_dict(dataclasses.asdict(jcfg))
     assert jsim.pallas_engine(jm, jcfg) == "stream"
-    assert tsim.check_engine(irregular, tcfg) == "stream"
+    assert tsim.select_engine(irregular, tcfg) == "stream"
     want, got = _run_both(jm, irregular, jcfg, tcfg, qber, tmp_path)
     assert called and made
     assert 0.0 < got.ratio_trials_success_ldpc < 1.0
@@ -432,7 +432,7 @@ def test_forced_stream_on_the_10k_alist_code_and_spa(irregular):
     spa = config_from_dict(dataclasses.asdict(
         Config(use_pallas=True, decoding_algorithm=DecodingAlgorithm.SPA,
                force_engine="stream")))
-    assert tsim.check_engine(alist, spa) == "stream"
+    assert tsim.select_engine(alist, spa) == "stream"
     with pytest.raises(ValueError, match="force_engine"):
         tsim.select_engine(irregular, forced)
 

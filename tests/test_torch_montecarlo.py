@@ -336,7 +336,7 @@ def _codes():
 def test_run_combination_routes_mc(engine, fed):
     matrix, fmt, kw, module = _codes()[engine]
     cfg = _cfg(fmt, **kw)
-    assert tsim.check_engine(matrix, cfg) == engine
+    assert tsim.select_engine(matrix, cfg) == engine
     comb = tsim.SimCombination(0.05, TParams(), tsim.ScalingFactors(0.8))
     source = tsim.default_key_source(cfg.simulation_seed, "cpu") if fed else None
     module.reset_counts()

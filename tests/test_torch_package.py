@@ -52,12 +52,14 @@ def _imported_roots(path):
 def test_static_scan_finds_no_jax_import():
     mods = _port_modules()
     assert len(mods) >= 12
-    # The modules of the rate-adaptive and mc slices, and the card smoke
-    # script.
+    # The modules of the rate-adaptive, mc and library slices, the card
+    # smoke script and the library example.
     names = {str(p.relative_to(PORT)) for p in mods}
     assert {"rate_adapt.py", "privacy.py", "simulation.py",
-            "ops/channel.py", "ops/philox.py"} <= names
-    for path in mods + [REPO / "chip_smoke.py"]:
+            "ops/channel.py", "ops/philox.py", "protocol.py", "tracing.py",
+            "oracle.py"} <= names
+    for path in mods + [REPO / "chip_smoke.py",
+                        REPO / "examples" / "qkd_ldpc_example_torch.py"]:
         roots = _imported_roots(path)
         assert "jax" not in roots, path
         assert "jaxlib" not in roots, path
@@ -112,6 +114,21 @@ def test_generate_qc_peg_headline_identical():
     assert t.lifting == j.lifting == 512
     # ... and it is the committed headline asset.
     np.testing.assert_array_equal(tqc.read_qc_matrix(HEADLINE).shifts, t.shifts)
+
+
+@pytest.mark.parametrize("path", [HEADLINE, QC1K], ids=["headline", "qc1k"])
+def test_write_qc_matrix_writes_the_jax_bytes(path, tmp_path):
+    """The port's writer writes the JAX package's bytes (the committed
+    asset's), and the file reads back identically through both readers."""
+    qc = tqc.read_qc_matrix(path)
+    tqc.write_qc_matrix(qc, tmp_path / "torch.mtrx")
+    jqc.write_qc_matrix(jqc.read_qc_matrix(path), tmp_path / "jax.mtrx")
+    data = (tmp_path / "torch.mtrx").read_bytes()
+    assert data == (tmp_path / "jax.mtrx").read_bytes() == path.read_bytes()
+    for reader in (tqc.read_qc_matrix, jqc.read_qc_matrix):
+        back = reader(tmp_path / "torch.mtrx")
+        np.testing.assert_array_equal(back.shifts, qc.shifts)
+        assert back.lifting == qc.lifting
 
 
 def test_generate_qc_ldpc_identical():

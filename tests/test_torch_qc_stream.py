@@ -352,7 +352,7 @@ def test_run_combination_forced_qc_stream_matches_jax(tmp_path, caplog):
                   force_engine="qc_stream")
     tcfg = config_from_dict(dataclasses.asdict(jcfg))
     assert jsim.pallas_engine(jm, jcfg) == "qc_stream"
-    assert tsim.check_engine(tm, tcfg) == "qc_stream"
+    assert tsim.select_engine(tm, tcfg) == "qc_stream"
     want = jsim.run_combination(
         jm, jsim.SimCombination(QBER, JParams(), jsim.ScalingFactors(0.8)),
         jcfg, sim_number=1)

@@ -164,21 +164,23 @@ def _stream_sized_code():
     ("stream-sized", "stream engine"),
     (dict(trace_decoding_alg=True), "traced"),
 ])
-def test_unported_engines_raise(matrices, change, match, tmp_path):
-    """What is not ported raises, naming its ROADMAP item. Three cases raised
-    until their slice came and now run: the stream-sized case through the
-    ``stream`` engine (8 frames of the N=22000 code on the CPU), rate
-    adaptation through the ``qc`` engine's frame trial (a real adaptation
-    point of the 1k QC code), and SPA through the ``qc`` engine, held to
-    JAX's run (its fused Pallas trial in interpret mode, on JAX's keys):
+def test_unported_engines_raise(matrices, change, match, tmp_path, capsys):
+    """What was not ported raised, naming its ROADMAP item. The four cases
+    raised until their slice came and now run: the stream-sized case
+    through the ``stream`` engine (8 frames of the N=22000 code on the
+    CPU), rate adaptation through the ``qc`` engine's frame trial (a real
+    adaptation point of the 1k QC code), SPA through the ``qc`` engine, held
+    to JAX's run (its fused Pallas trial in interpret mode, on JAX's keys):
     every field of the result equal, the success ratios and the iteration
-    statistics included, and the same CSV name and columns."""
+    statistics included, and the same CSV name and columns; and a traced
+    run, which prints its iterations and equals the untraced float64 run
+    in every field."""
     jm, tm = matrices
     comb = tsim.SimCombination(QBER, TParams(), tsim.ScalingFactors(0.8))
     if match == "SPA":
         jcfg = _jax_cfg("flooding", **change)
         tcfg = config_from_dict(dataclasses.asdict(jcfg))
-        assert tsim.check_engine(tm, tcfg) == jsim.pallas_engine(jm, jcfg) == "qc"
+        assert tsim.select_engine(tm, tcfg) == jsim.pallas_engine(jm, jcfg) == "qc"
         want = jsim.run_combination(
             jm, jsim.SimCombination(QBER, JParams(), jsim.ScalingFactors(0.8)),
             jcfg, sim_number=1)
@@ -202,7 +204,7 @@ def test_unported_engines_raise(matrices, change, match, tmp_path):
                                      0.1, 1.3)
         tra.finalize_bits_to_remove(tm, params, False)
         comb = tsim.SimCombination(RA_QBER, params, tsim.ScalingFactors(0.8))
-        assert tsim.check_engine(tm, tcfg) == "qc"
+        assert tsim.select_engine(tm, tcfg) == "qc"
         fused_qc.reset_counts()
         got = tsim.run_combination(tm, comb, tcfg, 0, "cpu")
         assert fused_qc.counts() == (0, 0)
@@ -213,16 +215,20 @@ def test_unported_engines_raise(matrices, change, match, tmp_path):
         tcfg = config_from_dict(dataclasses.asdict(
             _jax_cfg("flooding", trials_number=8, batch_size=8)))
         code = _stream_sized_code()
-        assert tsim.check_engine(code, tcfg) == match.split()[0]
+        assert tsim.select_engine(code, tcfg) == match.split()[0]
         generic_stream.reset_counts()
         got = tsim.run_combination(code, comb, tcfg, 0, "cpu")
         assert generic_stream.counts() == (0, 0)
         assert 0.0 < got.ratio_trials_success_decoding <= 1.0
         return
-    tcfg = config_from_dict(dataclasses.asdict(_jax_cfg("flooding", **change)))
-    with pytest.raises(NotImplementedError, match=match) as raised:
-        tsim.run_combination(tm, comb, tcfg, 0, "cpu")
-    assert "ROADMAP.md" in str(raised.value)
+    assert match == "traced"
+    tcfg = config_from_dict(dataclasses.asdict(_jax_cfg(
+        "flooding", trials_number=4, batch_size=4, dtype="float64", **change)))
+    traced = tsim.run_combination(tm, comb, tcfg, 0, "cpu")
+    assert "--- iteration 1 ---" in capsys.readouterr().out
+    untraced = tsim.run_combination(
+        tm, comb, dataclasses.replace(tcfg, trace_decoding_alg=False), 0, "cpu")
+    assert _asdict(traced) == _asdict(untraced)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +290,7 @@ def test_rate_adaptive_qc_matches_jax_frame_kernel(matrices, schedule,
     jm, tm = matrices
     jcfg = _jax_cfg(schedule, enable_code_rate_adaptation=True)
     tcfg = config_from_dict(dataclasses.asdict(jcfg))
-    assert jsim.pallas_engine(jm, jcfg) == tsim.check_engine(tm, tcfg) == "qc"
+    assert jsim.pallas_engine(jm, jcfg) == tsim.select_engine(tm, tcfg) == "qc"
     combs = _adapted(jm, tm, RA_QBER, 0.1, 1.3, False, (0.8,))
     fused_qc.reset_counts()
     _, got = _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch)
@@ -316,7 +322,7 @@ def test_rate_adaptive_alist_matches_jax_xla(alist_1k, engine, dtype, alg,
     jcfg = _alist_cfg(**kw)
     tcfg = config_from_dict(dataclasses.asdict(
         _alist_cfg(use_pallas=engine == "generic", **kw)))
-    assert tsim.check_engine(tm, tcfg) == engine
+    assert tsim.select_engine(tm, tcfg) == engine
     assert jsim.pallas_engine(jm, jcfg) == "xla"
     scaling = (0.8,) if alg == DecodingAlgorithm.NMSA else (0.3, 0.6)
     combs = _adapted(jm, tm, RA_ALIST_QBER, 0.1, 1.4, privacy, scaling,
@@ -336,7 +342,7 @@ def test_rate_adaptive_pinned_qc_stream_matches_jax(matrices, tmp_path,
     jcfg = _jax_cfg("layered", enable_code_rate_adaptation=True,
                     force_engine="qc_stream")
     tcfg = config_from_dict(dataclasses.asdict(jcfg))
-    assert jsim.pallas_engine(jm, jcfg) == tsim.check_engine(tm, tcfg) \
+    assert jsim.pallas_engine(jm, jcfg) == tsim.select_engine(tm, tcfg) \
         == "qc_stream"
     combs = _adapted(jm, tm, RA_QBER, 0.1, 1.3, False, (0.8,))
     qc_stream.reset_counts()
@@ -358,7 +364,7 @@ def test_rate_adaptive_pinned_stream_matches_jax_xla(tmp_path, monkeypatch):
     jcfg = _alist_cfg(**kw)
     tcfg = config_from_dict(dataclasses.asdict(
         _alist_cfg(use_pallas=True, force_engine="stream", **kw)))
-    assert tsim.check_engine(tm, tcfg) == "stream"
+    assert tsim.select_engine(tm, tcfg) == "stream"
     combs = _adapted(jm, tm, 0.03, 0.1, 1.5, False, (0.8,))
     generic_stream.reset_counts()
     _, got = _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch)
@@ -449,7 +455,7 @@ def test_cascade_on_the_headline_codes():
         ALIST_DIR / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx", TFormat.ALIST)
     assert [tsim.select_engine(m, cfg) for m in (headline, alist_10k, alist_100k)] \
         == ["qc", "generic", "stream"]
-    assert tsim.check_engine(alist_100k, cfg) == "stream"
+    assert tsim.select_engine(alist_100k, cfg) == "stream"
 
 
 _ASSETS = sorted(
@@ -555,9 +561,10 @@ def test_cli_end_to_end_on_cpu(workspace, capsys):
 
 
 def test_cli_reports_unported_config(workspace, capsys):
-    """A rate-adaptive config, which this test once expected to be
-    reported as unported, now runs and writes the adaptation columns; a
-    trace flag is still reported."""
+    """A rate-adaptive config and a trace flag, which this test once
+    expected to be reported as unported, now run: the first writes the
+    adaptation columns, the second prints its iterations and writes its
+    CSV."""
     def run():
         return tcli.main([
             "--configs", str(workspace / "configs"),
@@ -583,9 +590,9 @@ def test_cli_reports_unported_config(workspace, capsys):
     assert lines[1].split(";")[15:17] == ["0,100", "1,300"]
     (workspace / "configs" / "run.json").write_text(
         json.dumps(_cli_config(trace_decoding_algorithm=True)))
-    assert run() == 1
-    err = capsys.readouterr().err
-    assert "NotImplementedError" in err and "traced" in err
+    assert run() == 0, capsys.readouterr().err
+    assert "--- iteration 1 ---" in capsys.readouterr().out
+    assert len(list((workspace / "results").glob("*.csv"))) == 2
 
 
 def test_cli_help_config(capsys):

@@ -17,7 +17,7 @@ package and against itself.
     order of ``qkd_ldpc_v_tpu/oracle.py``).
   * The SPA-lin tables and the atanh guard at NaN, +-0, +-inf and every
     segment bound; ``ops/spa.py``'s CPU route.
-  * Routing: ``select_engine`` / ``check_engine`` name JAX's
+  * Routing: ``select_engine`` names JAX's
     ``pallas_engine`` for SPA configs on every committed asset; the layered
     schedule floods with a warning in the sweep and raises ``ValueError``
     in the QC decoders; ``montecarlo_trial`` on an SPA config runs
@@ -321,7 +321,7 @@ _ASSETS = sorted(
 def test_engine_for_spa_configs_equals_jax_on_every_asset(path, fmt,
                                                           monkeypatch):
     """SPA configs, layered asked for or not, reach the engine JAX's
-    ``pallas_engine`` names, and ``check_engine`` no longer refuses them."""
+    ``pallas_engine`` names, and ``select_engine`` does not refuse them."""
     from qkd_ldpc_v_tpu.ops import pallas_generic
 
     monkeypatch.setattr(pallas_generic, "build_permute_plan", lambda g: None)
@@ -332,4 +332,4 @@ def test_engine_for_spa_configs_equals_jax_on_every_asset(path, fmt,
             jcfg = Config(use_pallas=True, decoding_algorithm=alg,
                           schedule=schedule)
             tcfg = config_from_dict(dataclasses.asdict(jcfg))
-            assert tsim.check_engine(tm, tcfg) == jsim.pallas_engine(jm, jcfg)
+            assert tsim.select_engine(tm, tcfg) == jsim.pallas_engine(jm, jcfg)
