@@ -212,7 +212,35 @@ Phases (each raises on failure, and the script then exits non-zero):
    Chrome trace must name the fused QC mc kernel; prints the device's busy
    share of the traced window. (4f) examples/qkd_ldpc_example_torch.py
    --device cuda: the float64 decode on the card equals the oracle.
-5. Result: one JSON line of kernel figures, then the last line
+5. Distribution: two ranks, spawned (the spawn start method) after this
+   process has built the kernel library, which they only load, join a gloo
+   group through ``parallel.initialize_distributed`` (a localhost TCP
+   coordinator) and both decode on cuda:0. Through
+   ``qkd_ldpc_batch_simulation(step_factory=mesh_step_factory(...))`` they
+   run cell 1's config (phase 3's layered copy: 65536 trials in 16384-frame
+   chunks, the fused QC mc mode, 8192 frames a rank) gathered and reduced,
+   one chunk of cell 4 (the 10k alist code, 16384 frames, the fused
+   generic mc mode) and of cell 5 (the flagship, layered, 4096 frames, the
+   streamed QC mc mode), each gathered and reduced, and one rate-adaptive
+   chunk of cell 9's config (configs/campaign_adaptive_aomsa.json in
+   format 1 over the 10k alist code, delta 0.1, efficiency 1.5, 4096
+   frames, the fused generic frame mode, each rank's keys from its
+   ``rank_chunk_seed`` generator). Each rank's kernel counts are set to 0
+   just before each run and read just after: the expected kernel's mc (or
+   frame) mode must have launched, and no other kernel or mode, with no
+   plain version on the card. Gathered, rank 0's and rank 1's CSV rows
+   must equal the single-rank rows apart from the throughput columns:
+   phase 3's for cell 1, a single-rank run of the same config made here
+   for cells 4 and 5, and for cell 9 a single-process run fed the ranks'
+   draws in rank order through ``key_source``. Reduced, the counts, minima
+   and maxima must be equal and the iteration mean and std within rtol
+   1e-12. Then ``edge_sharded_decoder`` over the two ranks on the 10k
+   alist code (256 frames, NMSA alpha 0.7, cap 100, QBER 0.025) must equal
+   the generic torch decoder on the card in decisions, convergence and
+   iterations. It prints, per rank, each run's decode and collective ms
+   per chunk and its frames/s on two ranks, beside the single-rank
+   chunk-timer frames/s.
+6. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
    (the least time the card could take for the same work) are those of one
    main-path chunk of phase 3, 3b, 3c, 3d or 3e (``frames`` frames, layered
@@ -3014,6 +3042,363 @@ def phase_example(torch, card):
     print(f"4f example on the card: {tail} (card={card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Distribution (phase 5)
+# ---------------------------------------------------------------------------
+
+# Phase 5: two ranks (gloo, both on the one card), the trials and chunk
+# frames of each config, the edge-sharded decoder's frames and cap, and the
+# seconds the ranks may take.
+PHASE5_RANKS = 2
+PHASE5_DEVICE = "cuda:0"
+PHASE5_TRIALS = {"cell1": (65536, 16384), "cell4": (16384, 16384),
+                 "cell5": (4096, 4096), "cell9": (4096, 4096)}
+PHASE5_EDGE = {"frames": 256, "qber": 0.025, "alpha": 0.7, "cap": 100}
+PHASE5_TIMEOUT_S = 300
+THROUGHPUT_COLUMNS = ("THROUGHPUT_MEAN", "THROUGHPUT_STD", "THROUGHPUT_MIN",
+                      "THROUGHPUT_MAX")
+
+
+def parallel_configs(work: Path):
+    """Phase 5's config copies, each over a copy of its matrix directory:
+    name -> (config path, matrix path, kernel, mode, reduce mode too)."""
+    def write(name, cfg, matrix, subdir):
+        d = work / name
+        matrices = d / "sparse_matrices" / subdir
+        matrices.mkdir(parents=True)
+        (matrices / matrix.name).symlink_to(matrix)
+        untp = matrix.with_suffix(".untp")
+        if untp.exists():
+            shutil.copy(untp, matrices / untp.name)
+        trials, batch = PHASE5_TRIALS[name]
+        cfg["trials_number"] = trials
+        cfg.setdefault("tpu", {})["batch_size"] = batch
+        (d / "run.json").write_text(json.dumps(cfg, indent=2))
+        return d / "run.json", matrices / matrix.name
+
+    def load(name):
+        return json.loads((REPO / "configs" / name).read_text())
+
+    cell1 = load("example_qc_layered.json")
+    cell1["tpu"]["schedule"] = "layered"
+    cell4 = load("campaign_fer_1k_alist.json")
+    for bracket in cell4["code_rate_QBER_ranges"]:
+        if bracket["code_rate"] == 0.78:
+            bracket["QBER"] = {"begin": 0.025, "end": 0.025, "step": 0.0028}
+    cell5 = load("campaign_fer_sweep_100k.json")
+    cell5["tpu"]["schedule"] = "layered"
+    for bracket in cell5["code_rate_QBER_ranges"]:
+        if bracket["code_rate"] == 0.71:
+            bracket["QBER"] = {"begin": 0.03, "end": 0.03, "step": 0.004}
+    for amap in cell5["min_sum_normalized_parameters"]["code_rate_alpha_maps"]:
+        if amap["code_rate"] == 0.71:
+            amap["alpha"] = 0.8
+    cell9 = narrowed("campaign_adaptive_aomsa.json", 0.7226, 1, 4096, 1.5)
+    return {
+        "cell1": (*write("cell1", cell1, HEADLINE, "matrices_qc"),
+                  "fused_qc", "mc", True),
+        "cell4": (*write("cell4", cell4, ALIST10K, "matrices_alist"),
+                  "fused_generic", "mc", True),
+        "cell5": (*write("cell5", cell5, FLAGSHIP, "matrices_qc"),
+                  "qc_stream", "mc", True),
+        "cell9": (*write("cell9", cell9, ALIST10K, "matrices_alist"),
+                  "fused_generic", "frame", False),
+    }
+
+
+def edge_case_inputs(torch, matrix, edge, device):
+    """The edge-sharded case's inputs on ``device``: (layout, llr [B,N]
+    float32, Alice's syndrome [B,M]), keys and errors from a NumPy seed."""
+    import numpy as np
+    from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+    from qkd_ldpc_v_tpu_torch.ops.channel import calculate_syndrome, log_ratio
+
+    layout = layout_for(matrix)
+    rng = np.random.default_rng(5)
+    shape = (edge["frames"], matrix.num_bit_nodes)
+    alice = torch.from_numpy(rng.integers(0, 2, shape).astype(np.int8))
+    flips = torch.from_numpy((rng.random(shape) < edge["qber"])
+                             .astype(np.int8))
+    alice, bob = alice.to(device), (alice ^ flips).to(device)
+    lp = torch.tensor(log_ratio(edge["qber"]), device=device)
+    llr = torch.where(bob == 1, -lp, lp)
+    return layout, llr, calculate_syndrome(layout, alice)
+
+
+def kernel_counts():
+    """{kernel: (trial/frame/decode launches, mc launches, plain calls on
+    the card)} of the four kernels."""
+    return {name: (mod.COUNTS.launches, mod.COUNTS.mc_launches,
+                   mod.COUNTS.plain_on_cuda)
+            for name, mod in kernel_modules().items()}
+
+
+def phase5_rank(rank, world, address, work, runs, device, edge):
+    """One rank of phase 5, in a process of its own (the spawn start
+    method): it joins a gloo group through ``initialize_distributed``, runs
+    each config through ``qkd_ldpc_batch_simulation`` with
+    ``mesh_step_factory`` (gathered, then reduced where asked), the kernel
+    counts set to 0 just before each run and read just after, then the
+    edge-sharded decoder on ``edge``'s case, and writes its results to
+    ``work/rank{rank}.pkl``. It only loads the kernel library the parent
+    built."""
+    import dataclasses
+    import pickle
+
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+    from qkd_ldpc_v_tpu_torch import kernels
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm, parse_config_data
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.parallel import (
+        edge_sharded_decoder, initialize_distributed, make_data_mesh,
+        mesh_step_factory)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        prepare_sim_inputs, qkd_ldpc_batch_simulation)
+
+    if torch.device(device).type == "cuda":
+        check(kernels.library_path().exists(),
+              "the parent did not build the kernel library")
+        kernels.library()
+    initialize_distributed(address, world, rank, backend="gloo",
+                           timeout_s=PHASE5_TIMEOUT_S)
+    mesh = make_data_mesh(device)
+    out = {"device": str(mesh.device), "world": mesh.world_size}
+    for name, (cfg_path, matrix_path, _, _, reduce) in runs.items():
+        cfg = parse_config_data(cfg_path)
+        sim_inputs = prepare_sim_inputs([matrix_path], cfg)
+        for reduce_stats in ((False, True) if reduce else (False,)):
+            factory = mesh_step_factory(mesh, reduce_stats=reduce_stats)
+            for mod in kernel_modules().values():
+                mod.reset_counts()
+            results = qkd_ldpc_batch_simulation(sim_inputs, cfg, mesh.device,
+                                                step_factory=factory)
+            counts = kernel_counts()
+            step = factory(sim_inputs[0].matrix, cfg, cfg.batch_size)
+            # The first call warms up (throughput measurement is on).
+            out[name, reduce_stats] = (
+                [dataclasses.asdict(r) for r in results], counts,
+                step.times[1:])
+    matrix = read_sparse_matrix_alist(ALIST10K)
+    layout, llr, syndrome = edge_case_inputs(torch, matrix, edge, mesh.device)
+    decode = edge_sharded_decoder(layout, DecodingAlgorithm.NMSA, edge["cap"],
+                                  mesh)
+    t0 = time.perf_counter()
+    res = [t.cpu() for t in decode(llr, syndrome, edge["alpha"])]
+    out["edge"] = (res, (time.perf_counter() - t0) * 1e3)
+    with open(Path(work) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(work: Path, runs, device):
+    """Spawn phase 5's ranks and wait for them; every rank still running at
+    the time limit is killed. Returns each rank's results."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    address = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=phase5_rank,
+                         args=(rank, PHASE5_RANKS, address, str(work), runs,
+                               device, PHASE5_EDGE))
+             for rank in range(PHASE5_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PHASE5_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * PHASE5_RANKS, f"phase 5: ranks exited with {codes}")
+    out = []
+    for rank in range(PHASE5_RANKS):
+        with open(work / f"rank{rank}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def csv_rows(results, cfg, directory: Path):
+    """The CSV rows ``write_file`` writes for ``results`` (dicts of
+    ``SimResult`` fields), without the throughput columns."""
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        ScalingFactors, SimResult, write_file)
+
+    objs = []
+    for d in results:
+        d = dict(d)
+        sf = d.pop("scaling_factors")
+        objs.append(SimResult(**d, scaling_factors=ScalingFactors(**sf)))
+    write_file(objs, cfg, "00h-00m-00s", directory)
+    return strip_throughput(read_rows(directory)[2])
+
+
+def strip_throughput(rows):
+    return [{k: v for k, v in row.items() if k not in THROUGHPUT_COLUMNS}
+            for row in rows]
+
+
+def frames_per_s(result, out_len, cfg):
+    """Decoded frames/s of a result's chunk timers (its throughput counts
+    ``out_len`` output key bits a frame), RTT removed."""
+    rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+    return 1e6 / (out_len * 1e6 / result["throughput_mean"] - rtt_us)
+
+
+def check_rank_counts(label, counts, kernel, mode):
+    """A rank's run launched ``kernel``'s ``mode`` ("mc", or "frame" among
+    the other modes), no other kernel or mode, and no plain version on the
+    card. Returns the launches."""
+    launched = counts[kernel][1 if mode == "mc" else 0]
+    check(launched > 0, f"{label}: {kernel} {mode} did not launch")
+    others = (sum(sum(c[:2]) for k, c in counts.items() if k != kernel)
+              + counts[kernel][0 if mode == "mc" else 1])
+    check(others == 0, f"{label}: another kernel or mode launched")
+    check(all(c[2] == 0 for c in counts.values()),
+          f"{label}: a plain version ran on the card")
+    return launched
+
+
+def phase_parallel(torch, card):
+    """Phase 5: the main paths split over two ranks (see the module
+    docstring). The single-rank references run in this process before the
+    ranks start: phase 3's CSV rows for cell 1, a run of each one-chunk
+    config, cell 9 fed the ranks' draws in rank order, and the generic
+    torch decoder for the edge-sharded case."""
+    import dataclasses
+    import math
+
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm, parse_config_data
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu_torch.ops.decoders import make_decoder
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        default_key_source, prepare_sim_inputs, qkd_ldpc_batch_simulation)
+
+    work = REPO / "build" / "chip_smoke_parallel"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    runs = parallel_configs(work)
+    dev = torch.device(PHASE5_DEVICE)
+    cfgs = {name: parse_config_data(run[0]) for name, run in runs.items()}
+    sims = {name: prepare_sim_inputs([run[1]], cfgs[name])
+            for name, run in runs.items()}
+    out_lens = {}
+    for name, sim_inputs in sims.items():
+        cfg, comb = cfgs[name], sim_inputs[0].combinations[0]
+        check(len(sim_inputs[0].combinations) == 1,
+              f"phase 5 {name}: one combination expected")
+        removed = (len(comb.matrix_params.bits_to_remove)
+                   if cfg.enable_code_rate_adaptation
+                   or cfg.enable_privacy_maintenance else 0)
+        out_lens[name] = sim_inputs[0].matrix.num_bit_nodes - removed
+
+    # Single-rank references.
+    phase3 = read_rows(REPO / "build" / "chip_smoke" / "results_layered")[2]
+    ref_rows = {"cell1": strip_throughput(phase3)}
+    ref_results = {"cell1": [{"throughput_mean":
+                              float(phase3[0]["THROUGHPUT_MEAN"])}]}
+    for name in ("cell4", "cell5", "cell9"):
+        cfg = cfgs[name]
+        source = None
+        if name == "cell9":
+            local = math.ceil(cfg.batch_size / PHASE5_RANKS)
+            sources = [default_key_source(cfg.simulation_seed, dev, rank)
+                       for rank in range(PHASE5_RANKS)]
+
+            def source(sim_number, chunk, batch, n, _s=sources, _l=local,
+                       **kw):
+                draws = [s(sim_number, chunk, _l, n, **kw) for s in _s]
+                return tuple(torch.cat(p)[:batch] for p in zip(*draws))
+
+        results = qkd_ldpc_batch_simulation(sims[name], cfg, dev,
+                                            key_source=source)
+        ref_results[name] = [dataclasses.asdict(r) for r in results]
+        ref_rows[name] = csv_rows(ref_results[name], cfg,
+                                  work / f"single_{name}")
+    matrix = read_sparse_matrix_alist(ALIST10K)
+    layout, llr, syndrome = edge_case_inputs(torch, matrix, PHASE5_EDGE, dev)
+    plain = make_decoder(layout, DecodingAlgorithm.NMSA, PHASE5_EDGE["cap"],
+                         False)
+    t0 = time.perf_counter()
+    want_edge = [t.cpu() for t in plain(llr, syndrome, PHASE5_EDGE["alpha"])]
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del llr, syndrome
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(work, runs, PHASE5_DEVICE)
+    print(f"phase 5: {PHASE5_RANKS} ranks (gloo, spawn) on "
+          f"{[r['device'] for r in ranks]} ran in "
+          f"{time.perf_counter() - t0:.1f} s (card={card})", flush=True)
+
+    for name, (_, _, kernel, mode, reduce) in runs.items():
+        cfg = cfgs[name]
+        for rank, out in enumerate(ranks):
+            for reduce_stats in ((False, True) if reduce else (False,)):
+                label = (f"phase 5 {name} {'reduced' if reduce_stats else 'gathered'}"
+                         f" rank {rank}")
+                results, counts, times = out[name, reduce_stats]
+                launched = check_rank_counts(label, counts, kernel, mode)
+                decode_ms = sum(t[0] for t in times) * 1e3 / len(times)
+                coll_ms = sum(t[1] for t in times) * 1e3 / len(times)
+                frames = cfg.trials_number / sum(sum(t) for t in times)
+                print(f"{label}: {kernel} {mode} launches={launched}, "
+                      f"{len(times)} chunks of {cfg.batch_size} frames "
+                      f"({math.ceil(cfg.batch_size / PHASE5_RANKS)} a rank): "
+                      f"decode {decode_ms:.2f} ms + collective {coll_ms:.2f} "
+                      f"ms a chunk; {frames:.0f} frames/s on {PHASE5_RANKS} "
+                      f"ranks (card={card})", flush=True)
+                if not reduce_stats:
+                    rows = csv_rows(results, cfg,
+                                    work / f"rank{rank}_{name}")
+                    check(rows == ref_rows[name],
+                          f"{label}: CSV rows differ from the single-rank "
+                          f"run's:\n{rows}\n{ref_rows[name]}")
+                    continue
+                gathered = out[name, False][0]
+                for got, want in zip(results, gathered):
+                    for key in ("ratio_trials_success_decoding",
+                                "ratio_trials_success_ldpc",
+                                "iter_success_min", "iter_success_max"):
+                        check(got[key] == want[key], f"{label}: {key}")
+                    for key in ("iter_success_mean", "iter_success_std"):
+                        check(abs(got[key] - want[key])
+                              <= 1e-12 * abs(want[key]), f"{label}: {key}")
+        two = frames_per_s(ranks[0][name, False][0][0], out_lens[name], cfg)
+        one = frames_per_s(ref_results[name][0], out_lens[name], cfg)
+        against = "phase 3" if name == "cell1" else "phase 5's single rank"
+        print(f"phase 5 {name}: chunk-timer frames/s, {PHASE5_RANKS} ranks "
+              f"{two:.0f} against 1 rank {one:.0f} ({against}); rank 0's rows "
+              f"equal {against}'s apart from throughput (card={card})",
+              flush=True)
+
+    for rank, out in enumerate(ranks):
+        got, ms = out["edge"]
+        for g, w in zip(got, want_edge):
+            check(torch.equal(g, w), f"phase 5 edge rank {rank}: the "
+                  "edge-sharded decoder differs from the generic decoder")
+        print(f"phase 5 edge rank {rank}: edge-sharded NMSA on the 10k alist "
+              f"code, {PHASE5_EDGE['frames']} frames, mean iterations "
+              f"{got[2].float().mean().item():.2f}: {ms:.1f} ms against the "
+              f"generic torch decoder's {plain_ms:.1f} ms on one rank; "
+              f"decisions and iterations equal (card={card})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3083,6 +3468,8 @@ def main() -> int:
     elapsed("4e")
     phase_example(torch, card)
     elapsed("4f")
+    phase_parallel(torch, card)
+    elapsed("5")
     check("jax" not in sys.modules, "jax was imported")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s "
           f"({card})", flush=True)

@@ -16,7 +16,11 @@ such as the N=102400 alist code (``csrc/generic_stream.cu``, flooding).
 The library rounds decode with the two generic kernels, as the JAX
 package's rounds take its generic decoder. The generic torch decoder
 (``ops/decoders.py``) runs in float32, float64 or bfloat16 when
-``tpu.use_pallas`` is false. Traced runs decode on the host through the
+``tpu.use_pallas`` is false. A sweep splits over the ranks of a
+``torch.distributed`` group, one rank per device (``parallel``:
+``mesh_step_factory`` as the sweep's ``step_factory``, statistics gathered
+per frame or reduced on the device, and the edge-sharded generic decoder).
+Traced runs decode on the host through the
 float64 oracle (``oracle.py``, ``tracing.py``). CPU tensors run the
 kernels' plain torch versions. The JAX package ``qkd_ldpc_v_tpu`` is the
 reference this package is tested against; this package never imports it

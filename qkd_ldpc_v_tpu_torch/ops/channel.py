@@ -23,7 +23,8 @@ with the 32-bit sort-key rule of the JAX mc kernels
 ``simulation.run_combination`` seeds each decode chunk with ``chunk_seed``
 (the port's replacement for JAX's threefry ``trial_keys``) and runs the mc
 mode on it where the engine has one, else draws keys and bits from one
-``torch.Generator`` per chunk. The two packages therefore agree
+``torch.Generator`` per chunk (a sharded run seeds each rank's with
+``rank_chunk_seed``). The two packages therefore agree
 statistically, and exactly only when given the same keys.
 """
 
@@ -84,6 +85,25 @@ def chunk_seed(simulation_seed: int, sim_number: int, chunk_index: int) -> int:
     """
     ss = np.random.SeedSequence([int(simulation_seed), int(sim_number),
                                  int(chunk_index)])
+    return int(ss.generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
+
+
+def rank_chunk_seed(simulation_seed: int, sim_number: int, chunk_index: int,
+                    rank: int) -> int:
+    """Seed of rank ``rank``'s generator for one decode chunk of a sharded
+    run (``parallel/driver.py``), the counterpart of JAX's ``fold_in`` of
+    the device index into the chunk's keys.
+
+    Rule: the first 64-bit word of ``SeedSequence([seed, sim_number,
+    chunk_index, rank])``, masked to 63 bits. Rank 0 takes ``chunk_seed``
+    itself (the same entropy without the trailing 0, which NumPy pads with
+    zeros anyway wherever the values fit its four-word pool), so a world of
+    one rank draws the single-rank run's keys.
+    """
+    if rank == 0:
+        return chunk_seed(simulation_seed, sim_number, chunk_index)
+    ss = np.random.SeedSequence([int(simulation_seed), int(sim_number),
+                                 int(chunk_index), int(rank)])
     return int(ss.generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
 
 

@@ -41,7 +41,8 @@ to.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -129,12 +130,40 @@ def _minsum_values(msgs: torch.Tensor, syn_sign: torch.Tensor, f,
     return row_sign[:, None, :] * excl_sign * torch.clamp(eabs - f, min=0.0)
 
 
+def check_row_edges(layout: EdgeLayout, lo: int, hi: int) -> Tuple[int, int]:
+    """The check-major edge range ``[e0, e1)`` of the internal checks
+    ``lo .. hi - 1``."""
+    def first_edge(c):
+        for g in layout.check_groups:
+            if c < g.node_start + g.count:
+                return g.edge_offset + (c - g.node_start) * g.degree
+        return layout.num_edges
+    return first_edge(lo), first_edge(hi)
+
+
+def _row_groups(layout: EdgeLayout, lo: int, hi: int):
+    """The check groups cut to the internal checks ``lo .. hi - 1``, their
+    ``edge_offset`` counted from the range's first edge."""
+    e0 = check_row_edges(layout, lo, hi)[0]
+    out = []
+    for g in layout.check_groups:
+        a = max(lo, g.node_start)
+        b = min(hi, g.node_start + g.count)
+        if a < b:
+            out.append(dataclasses.replace(
+                g, node_start=a, count=b - a,
+                edge_offset=g.edge_offset + (a - g.node_start) * g.degree - e0))
+    return tuple(out)
+
+
 def make_decoder(
     layout: EdgeLayout,
     algorithm: DecodingAlgorithm,
     max_iterations: int,
     use_threshold: bool,
     dtype: torch.dtype = torch.float32,
+    rows: Optional[Tuple[int, int]] = None,
+    gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Callable[..., DecodeResult]:
     """Build a batched decoder for one matrix layout.
 
@@ -142,7 +171,16 @@ def make_decoder(
     threshold) -> DecodeResult`` runs on the device of ``llr_ext``;
     primary/secondary are the algorithm's scaling factors (ignored by the
     SPA pair) and threshold the message clamp (used when
-    ``use_threshold``)."""
+    ``use_threshold``).
+
+    ``rows = (lo, hi)`` and ``gather`` make one rank's decoder of the
+    edge-sharded decoder (``parallel.edge_sharded_decoder``): it keeps the
+    message rows of the internal checks ``lo .. hi - 1`` alone, runs the
+    check pass on them, and ``gather`` turns its check->bit rows into every
+    rank's, all ``[E, B]`` in check-major order; the bit pass then runs as
+    here, and the rank keeps the new bit->check messages of its rows. Each
+    message is the same expression of the same values, so the decode
+    equals this one bit for bit."""
     if dtype not in DTYPES:
         raise ValueError(f"generic decoder: unsupported dtype {dtype}")
     adaptive = algorithm.is_adaptive
@@ -151,6 +189,11 @@ def make_decoder(
     normalized = algorithm in (DecodingAlgorithm.NMSA, DecodingAlgorithm.ANMSA)
     check_groups = layout.check_groups
     bit_groups = layout.bit_groups
+    if rows is not None:
+        own_groups = _row_groups(layout, *rows)
+        own_edges = slice(*check_row_edges(layout, *rows))
+    else:
+        own_groups, own_edges = check_groups, None
     if algorithm == DecodingAlgorithm.SPA:
         tanh_fn, atanh_fn = torch.tanh, torch.atanh
     else:
@@ -177,6 +220,10 @@ def make_decoder(
         check_edge_bit = table("check_edge_bit")
         to_bit_major = table("to_bit_major")
         to_check_major = table("to_check_major")
+        own_edge_bit = check_edge_bit
+        if own_edges is not None:
+            own_edge_bit = check_edge_bit[own_edges]
+            to_check_major = to_check_major[own_edges]
 
         def clamp(x):
             if use_threshold:
@@ -193,7 +240,7 @@ def make_decoder(
         def check_pass(mbc, factor):
             """factor: None (use primary) or [M, B] per-check factors."""
             parts = []
-            for g, msgs in _group_views(mbc, check_groups):
+            for g, msgs in _group_views(mbc, own_groups):
                 ss = syn_sign[g.node_start:g.node_start + g.count]
                 if spa:
                     t = tanh_fn(msgs * half)
@@ -209,10 +256,13 @@ def make_decoder(
                         f = factor[g.node_start:g.node_start + g.count][:, None, :]
                     e = _minsum_values(msgs, ss, f, normalized, big, one)
                 parts.append(e.reshape(-1, batch))
-            return torch.cat(parts, dim=0)
+            return torch.cat(parts, dim=0) if parts else mbc[:0]
 
         def bit_pass(ecb_cm):
-            """-> (decision [N,B] int8, new bit-to-check messages [E,B])."""
+            """-> (decision [N,B] int8, new bit-to-check messages [E,B],
+            the rank's rows where the decoder is sharded)."""
+            if gather is not None:
+                ecb_cm = gather(ecb_cm)
             ecb_bm = ecb_cm.index_select(0, to_bit_major)
             totals, new_parts = [], []
             for g, e in _group_views(ecb_bm, bit_groups):
@@ -231,7 +281,7 @@ def make_decoder(
 
         # Initial bit-to-check messages: the channel LLR of the edge's bit
         # (reference :21-29).
-        mbc = llr_int.index_select(0, check_edge_bit)
+        mbc = llr_int.index_select(0, own_edge_bit)
         decision = (llr_int <= 0).to(torch.int8)
         converged = torch.zeros(batch, dtype=torch.bool, device=dev)
         iters = torch.full((batch,), max_iterations, dtype=torch.int32, device=dev)

@@ -51,6 +51,12 @@ decode mode and compare keys over the whole frame.
 finished combination and resumes a matching campaign mid-sweep
 (``save_checkpoint``, ``load_checkpoint``, ``_campaign_fingerprint``).
 
+Each chunk is one call of a chunk step: ``ChunkStep`` in one process, or a
+``step_factory``'s step, such as ``parallel.mesh_step_factory``'s, which
+splits every chunk over the ranks of a ``torch.distributed`` group and
+gathers the per-frame outcomes or reduces them on the device to six
+statistics (``_run_chunks_reduced``).
+
 Random numbers: each decode chunk has its seed,
 ``channel.chunk_seed(seed, sim_number, chunk_index)``. Fixed-rate runs on
 the ``qc``, ``qc_stream`` and ``generic`` engines draw their keys in the
@@ -60,7 +66,8 @@ the engine's mc mode (``make_fused_qc_montecarlo``,
 Philox stream (``ops/philox.py``) gives the same keys on the CPU, where its
 plain version runs, as on the card. Everywhere else (the ``stream`` and
 ``xla`` engines, rate-adaptive runs, and any run given a ``key_source``) one
-``torch.Generator`` per chunk, seeded by the chunk seed, draws Alice's keys,
+``torch.Generator`` per chunk, seeded by the chunk seed (on rank r of a
+sharded run by ``channel.rank_chunk_seed``), draws Alice's keys,
 then the error-position bits and, in rate-adaptive runs, Alice's punctured
 bits, and the engine's trial decodes them. ``key_source`` replaces that
 generator, e.g. with the JAX package's threefry streams in the
@@ -103,6 +110,7 @@ from qkd_ldpc_v_tpu_torch.ops.channel import (
     log_ratio,
     qc_syndrome,
     random_bits,
+    rank_chunk_seed,
 )
 from qkd_ldpc_v_tpu_torch.ops.decoders import frame_trial, get_decoder, make_trial
 from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
@@ -584,8 +592,9 @@ def frame_engine_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
     return frame_trial(decode, lambda a: calculate_syndrome(layout, a))
 
 
-def default_key_source(seed: int, device) -> KeySource:
-    """Keys from one torch generator per chunk (see ``chunk_seed``): Alice's
+def default_key_source(seed: int, device, rank: int = 0) -> KeySource:
+    """Keys from one torch generator per chunk (see ``chunk_seed``; rank
+    ``rank`` of a sharded run seeds it with ``rank_chunk_seed``): Alice's
     key bits first, then the error-position bits and, with
     ``punctured=True``, Alice's punctured bits (a fair draw over all N
     positions). Fixed-rate runs draw exactly the first two."""
@@ -593,7 +602,7 @@ def default_key_source(seed: int, device) -> KeySource:
 
     def source(sim_number, chunk_index, batch, num_bits, punctured=False):
         gen = torch.Generator(device=device)
-        gen.manual_seed(chunk_seed(seed, sim_number, chunk_index))
+        gen.manual_seed(rank_chunk_seed(seed, sim_number, chunk_index, rank))
         alice = generate_keys(gen, batch, num_bits, device)
         bits = random_bits(gen, batch, num_bits, device)
         if not punctured:
@@ -684,6 +693,138 @@ def _run_trials_traced(matrix: HMatrix, comb: SimCombination, cfg: Config,
     return syn, keys, iters
 
 
+@dataclass(frozen=True)
+class ChunkArgs:
+    """One combination's inputs to a chunk step, the counterpart of the JAX
+    step's scalar arguments: the combination's number, the exact error
+    count, the channel-LLR magnitude in the run's dtype, the scaling
+    factors and the clamp (primary, secondary, threshold) and, in
+    rate-adaptive runs, the frame plan as tensors on the step's device
+    (is_payload [N] bool, is_punctured [N] bool, payload_gather [N] int64;
+    ``make_frame_plan``)."""
+
+    sim_number: int
+    num_errors: int
+    log_p: float
+    scalars: Tuple[float, float, float]
+    plan: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+
+
+class ChunkStep:
+    """One rank's decode of every chunk: ``frames`` frames of it, from the
+    chunk's frame ``frame0`` on, through the engine ``select_engine`` picks.
+
+    ``step(args, chunk_index, take)`` returns the per-frame
+    ``(syndromes_match, keys_match, iterations)`` of those frames as NumPy
+    arrays (``take``, the chunk's frames that count, is for steps that
+    reduce on the device; this one returns all ``frames``); ``decode`` the
+    same as tensors on ``device``.
+
+    How a chunk's keys are drawn:
+      * a fixed-rate run on an engine with an mc mode (``montecarlo_trial``)
+        and no ``key_source`` makes one call of it with the chunk's own seed
+        (``chunk_seed``) and first frame ``frame0``: the keys are a function
+        of the frame's index in the chunk, so ranks that split a chunk by
+        frame offset decode the frames of the single-rank run;
+      * every other run (the ``stream`` and ``xla`` engines, rate-adaptive
+        runs) draws ``frames`` frames of keys from ``key_source``, or from a
+        generator seeded by ``rank_chunk_seed(seed, sim_number,
+        chunk_index, rank)``, which is ``chunk_seed`` at rank 0. A short
+        last chunk keeps its first ``take`` frames in the caller.
+
+    ``traced=True`` builds no engine: the traced path only asks for the
+    chunk's frames (``chunk_frames``) in float64.
+    """
+
+    reduces = False
+
+    def __init__(self, matrix: HMatrix, cfg: Config, device, frames: int,
+                 frame0: int = 0, rank: int = 0,
+                 key_source: Optional[KeySource] = None,
+                 traced: bool = False) -> None:
+        self.device = torch.device(device)
+        self.frames = frames
+        self.frame0 = frame0
+        self.seed = cfg.simulation_seed
+        self.n_bits = matrix.num_bit_nodes
+        self.rate_adaptive = cfg.enable_code_rate_adaptation
+        self.dtype = torch.float64 if traced else _DTYPES[cfg.dtype]
+        self.source = key_source or default_key_source(cfg.simulation_seed,
+                                                       self.device, rank)
+        self.mc = None
+        self.trial = None
+        engine = select_engine(matrix, cfg)
+        if traced:
+            return
+        if not self.rate_adaptive and key_source is None:
+            self.mc = montecarlo_trial(engine, matrix, cfg)
+        if self.rate_adaptive:
+            self.trial = frame_engine_trial(engine, matrix, cfg)
+        elif self.mc is None:
+            self.trial = _make_trial(engine, matrix, cfg)
+
+    def chunk_keys(self, args: ChunkArgs, chunk_index: int):
+        """(alice, bob, Alice's punctured draw or None) of one chunk."""
+        keys = self.source(args.sim_number, chunk_index, self.frames,
+                           self.n_bits,
+                           **({"punctured": True} if self.rate_adaptive else {}))
+        alice = _as_tensor(keys[0], torch.int8, self.device)
+        bob = inject_errors(_as_tensor(keys[1], torch.int64, self.device),
+                            alice, args.num_errors, wide=True)
+        punct = (_as_tensor(keys[2], torch.int8, self.device)
+                 if self.rate_adaptive else None)
+        return alice, bob, punct
+
+    def chunk_frames(self, args: ChunkArgs, chunk_index: int):
+        """(alice_frame, llr in the step's dtype) of one chunk."""
+        alice, bob, punct = self.chunk_keys(args, chunk_index)
+        if self.rate_adaptive:
+            return build_frames(alice, bob, punct, *args.plan, args.log_p,
+                                self.dtype)
+        lp = torch.tensor(args.log_p, dtype=self.dtype, device=self.device)
+        return alice, torch.where(bob == 1, -lp, lp)
+
+    def decode(self, args: ChunkArgs, chunk_index: int):
+        if self.mc is not None:
+            return self.mc(
+                chunk_seed(self.seed, args.sim_number, chunk_index),
+                self.frame0, self.frames, args.num_errors, args.log_p,
+                *args.scalars, device=self.device)
+        if self.rate_adaptive:
+            return self.trial(*self.chunk_frames(args, chunk_index),
+                              *args.scalars)
+        alice, bob, _ = self.chunk_keys(args, chunk_index)
+        return self.trial(alice, bob, args.log_p, *args.scalars)
+
+    def __call__(self, args: ChunkArgs, chunk_index: int, take: int):
+        conv, keys, iters = self.decode(args, chunk_index)
+        return conv.cpu().numpy(), keys.cpu().numpy(), iters.cpu().numpy()
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def _new_result(matrix: HMatrix, comb: SimCombination, sim_number: int,
+                accurate_qber: float) -> SimResult:
+    return SimResult(
+        sim_number=sim_number,
+        matrix_filename=Path(matrix.source_path).name if matrix.source_path else "",
+        is_regular=matrix.is_regular,
+        num_bit_nodes=matrix.num_bit_nodes,
+        num_check_nodes=matrix.num_check_nodes,
+        config_qber=comb.config_qber,
+        accurate_qber=accurate_qber,
+        delta=comb.matrix_params.delta,
+        efficiency=comb.matrix_params.efficiency,
+        punctured_fraction=comb.matrix_params.punctured_fraction,
+        shortened_fraction=comb.matrix_params.shortened_fraction,
+        adapted_code_rate=comb.matrix_params.adapted_code_rate,
+        scaling_factors=comb.scaling_factors,
+    )
+
+
 def run_combination(
     matrix: HMatrix,
     comb: SimCombination,
@@ -692,34 +833,44 @@ def run_combination(
     device,
     progress: Optional[Callable[[int], None]] = None,
     key_source: Optional[KeySource] = None,
+    step_factory: Optional[Callable[[HMatrix, Config, int], Callable]] = None,
 ) -> SimResult:
     """Execute all trials of one combination as device batches of
     ``tpu.batch_size`` frames (all trials when 0).
 
-    A fixed-rate run on an engine with an mc mode (``montecarlo_trial``)
-    and no ``key_source`` makes one call of it per chunk, with the chunk's
-    seed: the keys and exactly ``floor(N * QBER)`` errors are drawn in the
-    kernel (32-bit sort keys, as the JAX mc kernels). Otherwise each chunk
-    draws a full batch of keys from ``key_source`` (or the default
-    generator), injects exactly ``floor(N * QBER)`` errors with 64-bit sort
-    keys, and runs the engine's trial (see ``select_engine``). A short last
-    chunk keeps its first ``take`` frames. A rate-adaptive run builds the
-    chunk's frames from those keys and Alice's punctured draw
+    Each chunk is one call of a chunk step (``ChunkStep``): one call of the
+    engine's mc mode with the chunk's seed (the keys and exactly
+    ``floor(N * QBER)`` errors drawn in the kernel, with 32-bit sort keys,
+    as the JAX mc kernels), or a full batch of keys from ``key_source`` (or
+    the default generator) with exactly ``floor(N * QBER)`` errors injected
+    by 64-bit sort keys and the engine's trial (see ``select_engine``). A
+    short last chunk keeps its first ``take`` frames. A rate-adaptive run
+    builds the chunk's frames from those keys and Alice's punctured draw
     (``channel.build_frames``, the combination's ``make_frame_plan``) and
     decodes them through ``frame_engine_trial``. A traced run (any
-    ``trace_*`` flag) builds the same keys and frames in float64 on
-    ``device`` and decodes them on the host through the oracle, with
-    tracing (``_run_trials_traced``); its per-trial runtime is the whole
-    loop's wall time over the trials. With throughput measurement on, chunk
-    0 of an untraced run is run once untimed first, so the kernel build and
-    first-call costs stay out of the timings; each chunk's timed region
-    starts after a device synchronize and ends when its results are on the
-    host.
+    ``trace_*`` flag) builds the
+    same keys and frames in float64 on ``device`` and decodes them on the
+    host through the oracle, with tracing (``_run_trials_traced``); its
+    per-trial runtime is the whole loop's wall time over the trials. With
+    throughput measurement on, chunk 0 of an untraced run is run once
+    untimed first, so the kernel build and first-call costs stay out of the
+    timings; each chunk's timed region starts after a device synchronize
+    and ends when its results are on the host.
+
+    ``step_factory(matrix, cfg, batch)`` replaces the chunk step, e.g.
+    ``parallel.mesh_step_factory``'s, which splits each chunk over ranks;
+    its step runs on ``device``. A step with ``reduces = True`` returns the
+    six reduced statistics per chunk, which ``_run_chunks_reduced``
+    combines. Traced runs ignore it, as the JAX package's do. A
+    ``key_source`` feeds one process's chunks and cannot be combined with
+    it.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is available")
-    engine = select_engine(matrix, cfg)
+    if key_source is not None and step_factory is not None:
+        raise ValueError("a key_source feeds the chunks of one process; it "
+                         "cannot be combined with a step_factory")
     n_bits = matrix.num_bit_nodes
     num_errors = exact_error_count(n_bits, comb.config_qber)
     if num_errors == 0:
@@ -732,70 +883,50 @@ def run_combination(
     traced = (cfg.trace_qkd_ldpc or cfg.trace_decoding_alg
               or cfg.trace_decoding_alg_llr)
     dtype = torch.float64 if traced else _DTYPES[cfg.dtype]
-    log_p = log_ratio(accurate_qber, dtype)
-    scalars = (
-        comb.scaling_factors.primary,
-        comb.scaling_factors.secondary,
-        cfg.msg_llr_threshold,
-    )
-    source = key_source or default_key_source(cfg.simulation_seed, device)
-    rate_adaptive = cfg.enable_code_rate_adaptation
-    mc = None
-    if not rate_adaptive and key_source is None and not traced:
-        mc = montecarlo_trial(engine, matrix, cfg)
-    if rate_adaptive:
+    plan = None
+    if cfg.enable_code_rate_adaptation:
         pos_class, payload_gather = make_frame_plan(n_bits, comb.matrix_params)
         plan = (
             torch.as_tensor(pos_class == _CLASS_PAYLOAD, device=device),
             torch.as_tensor(pos_class == _CLASS_PUNCTURED, device=device),
             torch.as_tensor(payload_gather.astype(np.int64), device=device),
         )
-    if rate_adaptive and not traced:
-        trial = frame_engine_trial(engine, matrix, cfg)
-    elif mc is None and not traced:
-        trial = _make_trial(engine, matrix, cfg)
-
-    def chunk_keys(chunk_index):
-        """(alice, bob, Alice's punctured draw or None) of one chunk."""
-        keys = source(sim_number, chunk_index, batch, n_bits,
-                      **({"punctured": True} if rate_adaptive else {}))
-        alice = _as_tensor(keys[0], torch.int8, device)
-        bob = inject_errors(_as_tensor(keys[1], torch.int64, device), alice,
-                            num_errors, wide=True)
-        punct = _as_tensor(keys[2], torch.int8, device) if rate_adaptive else None
-        return alice, bob, punct
-
-    def chunk_frames(chunk_index):
-        """(alice_frame, llr in ``dtype``) of one chunk."""
-        alice, bob, punct = chunk_keys(chunk_index)
-        if rate_adaptive:
-            return build_frames(alice, bob, punct, *plan, log_p, dtype)
-        lp = torch.tensor(log_p, dtype=dtype, device=device)
-        return alice, torch.where(bob == 1, -lp, lp)
-
-    def run_chunk(chunk_index):
-        if mc is not None:
-            conv, keys, iters = mc(
-                chunk_seed(cfg.simulation_seed, sim_number, chunk_index), 0,
-                batch, num_errors, log_p, *scalars, device=device)
-        elif rate_adaptive:
-            conv, keys, iters = trial(*chunk_frames(chunk_index), *scalars)
-        else:
-            alice, bob, _ = chunk_keys(chunk_index)
-            conv, keys, iters = trial(alice, bob, log_p, *scalars)
-        return conv.cpu().numpy(), keys.cpu().numpy(), iters.cpu().numpy()
+    args = ChunkArgs(
+        sim_number, num_errors, log_ratio(accurate_qber, dtype),
+        (comb.scaling_factors.primary, comb.scaling_factors.secondary,
+         cfg.msg_llr_threshold),
+        plan)
+    if cfg.enable_code_rate_adaptation or cfg.enable_privacy_maintenance:
+        out_key_length = n_bits - len(comb.matrix_params.bits_to_remove)
+    else:
+        out_key_length = n_bits
 
     if traced:
+        chunks = ChunkStep(matrix, cfg, device, batch, key_source=key_source,
+                           traced=True)
         t0 = time.perf_counter()
         syn_all, keys_all, iters_all = _run_trials_traced(
-            matrix, comb, cfg, chunk_frames, batch)
+            matrix, comb, cfg, lambda c: chunks.chunk_frames(args, c), batch)
         elapsed_us = (time.perf_counter() - t0) * 1e6
         runtimes = np.full(trials, elapsed_us / trials)
         if progress is not None:
             progress(trials)
     else:
+        if step_factory is None:
+            step = ChunkStep(matrix, cfg, device, batch, key_source=key_source)
+        else:
+            step = step_factory(matrix, cfg, batch)
+            step_device = getattr(step, "device", device)
+            if not _same_device(step_device, device):
+                raise ValueError(f"the step runs on {step_device}, the "
+                                 f"combination on {device}")
         if cfg.enable_throughput_measurement:
-            run_chunk(0)
+            step(args, 0, batch)
+        if getattr(step, "reduces", False):
+            return _run_chunks_reduced(
+                matrix, comb, cfg, sim_number, accurate_qber, step,
+                lambda chunk_index, take: (args, chunk_index, take),
+                batch, trials, out_key_length, progress)
         syn_parts: List[np.ndarray] = []
         key_parts: List[np.ndarray] = []
         iter_parts: List[np.ndarray] = []
@@ -806,7 +937,7 @@ def run_combination(
             take = min(batch, trials - done)
             _synchronize(device)
             t0 = time.perf_counter()
-            syn, keys, iters = run_chunk(chunk_index)
+            syn, keys, iters = step(args, chunk_index, take)
             elapsed_us = (time.perf_counter() - t0) * 1e6
             # Per-trial runtime = batch wall time / batch size, as in the
             # JAX package: the batch is the unit of device work.
@@ -823,30 +954,93 @@ def run_combination(
         iters_all = np.concatenate(iter_parts)
         runtimes = np.concatenate(runtime_parts)
 
-    result = SimResult(
-        sim_number=sim_number,
-        matrix_filename=Path(matrix.source_path).name if matrix.source_path else "",
-        is_regular=matrix.is_regular,
-        num_bit_nodes=matrix.num_bit_nodes,
-        num_check_nodes=matrix.num_check_nodes,
-        config_qber=comb.config_qber,
-        accurate_qber=accurate_qber,
-        delta=comb.matrix_params.delta,
-        efficiency=comb.matrix_params.efficiency,
-        punctured_fraction=comb.matrix_params.punctured_fraction,
-        shortened_fraction=comb.matrix_params.shortened_fraction,
-        adapted_code_rate=comb.matrix_params.adapted_code_rate,
-        scaling_factors=comb.scaling_factors,
-    )
-    if cfg.enable_code_rate_adaptation or cfg.enable_privacy_maintenance:
-        out_key_length = n_bits - len(comb.matrix_params.bits_to_remove)
-    else:
-        out_key_length = n_bits
+    result = _new_result(matrix, comb, sim_number, accurate_qber)
     process_trials_results(
         cfg, syn_all, keys_all, iters_all,
         runtimes if cfg.enable_throughput_measurement else None,
         out_key_length, result,
     )
+    return result
+
+
+def _run_chunks_reduced(
+    matrix: HMatrix,
+    comb: SimCombination,
+    cfg: Config,
+    sim_number: int,
+    accurate_qber: float,
+    step: Callable,
+    step_args: Callable,
+    batch: int,
+    trials: int,
+    out_key_length: int,
+    progress,
+) -> SimResult:
+    """Chunk loop for steps that reduce on the device (the JAX package's
+    ``_run_chunks_reduced``, the same contract): ``step(*step_args(
+    chunk_index, take))`` returns a chunk's six statistics (``n_dec,
+    n_ldpc, it_sum, it_m2, it_min, it_max``; ``parallel.psum_stats``), and
+    the reference's statistics (iteration stats over syndrome-successful
+    trials, population std-dev, src/simulation.cpp:580-690) are rebuilt
+    from them. Variance combines the chunks' M2 sums (deviations about each
+    chunk's mean) with Chan's pairwise update in float64 on the host.
+    Throughput, where measured, is per chunk, weighted by its trials."""
+    n_dec = 0.0
+    n_ldpc = 0.0
+    it_sum = 0.0
+    it_m2 = 0.0
+    it_min: Optional[float] = None
+    it_max: Optional[float] = None
+    tp_chunks: List[Tuple[int, float]] = []  # (trials in chunk, us/trial)
+    done = 0
+    chunk_index = 0
+    while done < trials:
+        take = min(batch, trials - done)
+        t0 = time.perf_counter()
+        d, l, s, m2, mn, mx = step(*step_args(chunk_index, take))
+        elapsed_us = (time.perf_counter() - t0) * 1e6
+        d = float(d)
+        if d > 0:
+            # Chan's parallel-variance combination of (n, sum, M2) pairs.
+            delta = float(s) / d - (it_sum / n_dec if n_dec > 0 else 0.0)
+            it_m2 += float(m2) + (
+                delta * delta * n_dec * d / (n_dec + d) if n_dec > 0 else 0.0
+            )
+        n_dec += d
+        n_ldpc += float(l)
+        it_sum += float(s)
+        if d > 0:
+            it_min = float(mn) if it_min is None else min(it_min, float(mn))
+            it_max = float(mx) if it_max is None else max(it_max, float(mx))
+        if cfg.enable_throughput_measurement:
+            tp_chunks.append((take, elapsed_us / batch))
+        done += take
+        chunk_index += 1
+        if progress is not None:
+            progress(take)
+
+    result = _new_result(matrix, comb, sim_number, accurate_qber)
+    if n_dec > 0:
+        mean = it_sum / n_dec
+        var = max(it_m2 / n_dec, 0.0)
+        result.iter_success_mean = mean
+        result.iter_success_std = var**0.5
+        result.iter_success_min = int(it_min)
+        result.iter_success_max = int(it_max)
+    if cfg.enable_throughput_measurement and tp_chunks:
+        rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
+        tps = np.array(
+            [out_key_length * 1e6 / (rt + rtt_us) for _, rt in tp_chunks]
+        )
+        w = np.array([t for t, _ in tp_chunks], dtype=np.float64)
+        mean = float((tps * w).sum() / w.sum())
+        var = max(float((tps * tps * w).sum() / w.sum() - mean * mean), 0.0)
+        result.throughput_mean = int(mean)
+        result.throughput_std = int(var**0.5)
+        result.throughput_min = int(tps.min())
+        result.throughput_max = int(tps.max())
+    result.ratio_trials_success_decoding = n_dec / trials
+    result.ratio_trials_success_ldpc = n_ldpc / trials
     return result
 
 
@@ -950,6 +1144,7 @@ def qkd_ldpc_batch_simulation(
     progress: Optional[Callable[[int, int], None]] = None,
     key_source: Optional[KeySource] = None,
     checkpoint_path=None,
+    step_factory: Optional[Callable[[HMatrix, Config, int], Callable]] = None,
 ) -> List[SimResult]:
     """Run the full sweep (reference: src/simulation.cpp:693-768).
 
@@ -959,6 +1154,13 @@ def qkd_ldpc_batch_simulation(
     credited to ``progress`` first. The checkpoint stays on disk; the caller
     removes it once the results have landed (``cli.py`` deletes it after
     ``write_file``).
+
+    ``step_factory`` goes to every ``run_combination`` (e.g.
+    ``parallel.mesh_step_factory(mesh)``: each rank calls this function and
+    returns the same results, throughput apart). Every rank reads the
+    checkpoint; only the factory's rank 0 (its ``rank`` attribute, 0 where
+    it has none) writes it, where the JAX package has every process write
+    the same file.
     """
     sim_total = sum(len(s.combinations) for s in sim_inputs)
     trials_total = sim_total * cfg.trials_number
@@ -971,6 +1173,7 @@ def qkd_ldpc_batch_simulation(
         if results and progress:
             progress(len(results) * cfg.trials_number, trials_total)
 
+    writes_checkpoint = getattr(step_factory, "rank", 0) == 0
     sim_number = 0
     cb = (lambda inc: progress(inc, trials_total)) if progress else None
     for sim_in in sim_inputs:
@@ -980,12 +1183,12 @@ def qkd_ldpc_batch_simulation(
                 continue
             res = run_combination(
                 sim_in.matrix, comb, cfg, sim_number, device,
-                progress=cb, key_source=key_source,
+                progress=cb, key_source=key_source, step_factory=step_factory,
             )
             res.matrix_filename = sim_in.matrix_path.name
             results.append(res)
             sim_number += 1
-            if checkpoint_path is not None:
+            if checkpoint_path is not None and writes_checkpoint:
                 save_checkpoint(checkpoint_path, fingerprint, results)
     return results
 

@@ -52,14 +52,17 @@ def _imported_roots(path):
 def test_static_scan_finds_no_jax_import():
     mods = _port_modules()
     assert len(mods) >= 12
-    # The modules of the rate-adaptive, mc and library slices, the card
-    # smoke script and the library example.
+    # The modules of the rate-adaptive, mc, library and multi-device
+    # slices, the card smoke script, the two examples and the ranks' worker
+    # of the distribution tests.
     names = {str(p.relative_to(PORT)) for p in mods}
     assert {"rate_adapt.py", "privacy.py", "simulation.py",
             "ops/channel.py", "ops/philox.py", "protocol.py", "tracing.py",
-            "oracle.py"} <= names
+            "oracle.py", "parallel/driver.py", "parallel/__init__.py"} <= names
     for path in mods + [REPO / "chip_smoke.py",
-                        REPO / "examples" / "qkd_ldpc_example_torch.py"]:
+                        REPO / "examples" / "qkd_ldpc_example_torch.py",
+                        REPO / "examples" / "sharded_sweep_torch.py",
+                        REPO / "tests" / "torch_parallel_worker.py"]:
         roots = _imported_roots(path)
         assert "jax" not in roots, path
         assert "jaxlib" not in roots, path
@@ -71,6 +74,8 @@ def test_import_in_subprocess_loads_no_jax():
         "qkd_ldpc_v_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in _port_modules() if p.name not in ("__init__.py", "__main__.py")
     ]
+    assert "qkd_ldpc_v_tpu_torch.parallel.driver" in names
+    names.append("qkd_ldpc_v_tpu_torch.parallel")
     code = (
         "import importlib, sys\n"
         "import qkd_ldpc_v_tpu_torch\n"
