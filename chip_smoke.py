@@ -240,7 +240,38 @@ Phases (each raises on failure, and the script then exits non-zero):
    iterations. It prints, per rank, each run's decode and collective ms
    per chunk and its frames/s on two ranks, beside the single-rank
    chunk-timer frames/s.
-6. Result: one JSON line of kernel figures, then the last line
+6. Campaigns: the entry points of scripts/fer_campaign_torch.py and
+   scripts/tune_factors_torch.py on the card. (6a) The 1k, 10k and 100k
+   suites, 4096 trials a point (the fused generic kernel's mc mode on the
+   1k alist codes, the fused QC kernel's on the 10k QC codes, the streamed
+   QC kernel's on the N=102400 QC codes, all flooding, and the streamed
+   generic kernel's trial mode on the N=102400 alist code); each point's
+   kernel counts are set to 0 just before it and read just after: its
+   kernel's mode must have launched and no other, with no plain version on
+   the card. Each of the 40 points must agree with the JAX package's table
+   of its suite (docs/FER_CURVES.md, docs/FER_CURVES_1K.md,
+   docs/FER_CURVES_100K.md, whose alist 100k rows give way to
+   docs/FER_CURVES_100K_ALIST_JAX_CPU.md, see ``fer_campaign_torch.
+   JAX_TABLES``; 4096 trials each): FER within ``fer_campaign_torch.
+   fer_margin`` (4 standard errors of the difference at the pooled rate,
+   plus 2 frames) and, where both sides have at least 200 converged
+   frames, the mean iterations within ``iters_margin`` (5 standard errors
+   of the difference from the port's standard deviation), each plus half
+   the table's last digit.
+   It prints every point beside the table's and the margins. After a
+   suite's points, outside their counts, each of its codes that no phase-2
+   case decodes (the two 1k alist codes, the R=0.725 QC-PEG code, the
+   R=0.84 and R=0.50 N=102400 QC codes) runs the mode its points ran
+   against the plain version at the suite's alpha and one QBER in its
+   waterfall, where some frames converge and some fail, 509 frames (128 at
+   N=102400): conv, keys and iterations exactly equal.
+   (6b) The four tuning grids on the headline QC code at QBER 0.03, 8192
+   trials a point, each point through the fused QC kernel's mc mode alone;
+   it prints the table and each algorithm's best point. (6c) The host's
+   read of the N=102400 alist code and the untainted greedy on it, timed by
+   scripts/time_host_readers.py's ``port_host_times``, the greedy equal to
+   the committed .untp.
+7. Result: one JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` and ``bound_ms``
    (the least time the card could take for the same work) are those of one
    main-path chunk of phase 3, 3b, 3c, 3d or 3e (``frames`` frames, layered
@@ -3260,9 +3291,10 @@ def frames_per_s(result, out_len, cfg):
 
 
 def check_rank_counts(label, counts, kernel, mode):
-    """A rank's run launched ``kernel``'s ``mode`` ("mc", or "frame" among
-    the other modes), no other kernel or mode, and no plain version on the
-    card. Returns the launches."""
+    """A run (a rank's, or a campaign point's) launched ``kernel``'s
+    ``mode`` ("mc", or "frame" or "trial" among the other modes), no other
+    kernel or mode, and no plain version on the card. Returns the
+    launches."""
     launched = counts[kernel][1 if mode == "mc" else 0]
     check(launched > 0, f"{label}: {kernel} {mode} did not launch")
     others = (sum(sum(c[:2]) for k, c in counts.items() if k != kernel)
@@ -3399,6 +3431,192 @@ def phase_parallel(torch, card):
               f"decisions and iterations equal (card={card})", flush=True)
 
 
+CAMPAIGN_TRIALS = 4096
+TUNE_TRIALS = 8192
+# The kernel and mode each campaign code's points must launch.
+CAMPAIGN_KERNELS = {
+    "alist 1k R=0.72 CW=4 (committed)": ("fused_generic", "mc"),
+    "alist 1k R=0.62 CW=3 (committed)": ("fused_generic", "mc"),
+    "QC-PEG R=0.70 Z=512 CW=4 (headline)": ("fused_qc", "mc"),
+    "QC-PEG R=0.725 Z=256 CW=4": ("fused_qc", "mc"),
+    "QC 100k R=0.70 Z=2048 CW=3 (streamed QC)": ("qc_stream", "mc"),
+    "QC 100k R=0.84 Z=2048 CW=3 (streamed QC)": ("qc_stream", "mc"),
+    "QC 100k R=0.50 Z=2048 CW=3 (streamed QC)": ("qc_stream", "mc"),
+    "alist 100k R=0.69 CW=3 (streaming)": ("generic_stream", "trial"),
+}
+CAMPAIGN_POINTS = 40
+MIN_CONVERGED = 200
+# The campaign's codes that no phase-2 case decodes: (QBER in the
+# waterfall, where some frames converge and some fail; frames) of each one's
+# exact check against the plain version.
+CAMPAIGN_EXACT = {
+    "alist 1k R=0.72 CW=4 (committed)": (0.03, MC_FRAMES),
+    "alist 1k R=0.62 CW=3 (committed)": (0.05, MC_FRAMES),
+    "QC-PEG R=0.725 Z=256 CW=4": (0.0315, MC_FRAMES),
+    "QC 100k R=0.84 Z=2048 CW=3 (streamed QC)": (0.014, 128),
+    "QC 100k R=0.50 Z=2048 CW=3 (streamed QC)": (0.0825, 128),
+}
+
+
+def load_script(name):
+    """scripts/{name}.py as a module (scripts/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def counted_points(rows, label, expected):
+    """Run a generator of campaign points one ``next`` at a time, the kernel
+    counts set to 0 just before each point and read just after; each point
+    must launch ``expected(row)``'s (kernel, mode) alone, with no plain
+    version on the card. Yields (row, launches)."""
+    mods = kernel_modules().values()
+    while True:
+        for mod in mods:
+            mod.reset_counts()
+        row = next(rows, None)
+        if row is None:
+            return
+        kernel, mode = expected(row)
+        yield row, check_rank_counts(label(row), kernel_counts(), kernel, mode)
+
+
+def campaign_code_vs_plain(torch, card, fc, code, index):
+    """One campaign code's mode, built by ``simulation`` from the campaign's
+    Config as its points build it, against its plain version on the card at
+    ``CAMPAIGN_EXACT``'s QBER and frames: conv, keys and iterations equal."""
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        chunk_seed, exact_error_count, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import (
+        montecarlo_trial, select_engine)
+
+    qber, frames = CAMPAIGN_EXACT[code.name]
+    cfg = fc.point_config(qber, frames, frames)
+    mc = montecarlo_trial(select_engine(code.matrix, cfg), code.matrix, cfg)
+    n = code.matrix.num_bit_nodes
+    ne = exact_error_count(n, qber)
+    args = (chunk_seed(fc.SEED, 0, index), MC_FRAME0, frames, ne,
+            log_ratio(ne / n), code.alpha, 0.0, 0.0)
+    label = f"phase 6a exact {code.name} q={qber}"
+    for mod in kernel_modules().values():
+        mod.reset_counts()
+    got = mc(*args, device="cuda")
+    check_rank_counts(label, kernel_counts(), *CAMPAIGN_KERNELS[code.name])
+    # The plain version's first call, its tables' copy to the card included.
+    want, plain_ms = timed(lambda: mc.plain(*args, device="cuda"), torch)
+    diff = max_abs_diff(tuple(got), tuple(want), torch)
+    n_fail = int((~got[0]).sum().item())
+    print(f"{label}: {CAMPAIGN_KERNELS[code.name][0]} mc frames {MC_FRAME0}-"
+          f"{MC_FRAME0 + frames - 1}: unconverged={n_fail}/{frames} mean "
+          f"iterations {got[2].float().mean().item():.2f} plain_ms="
+          f"{plain_ms:.1f} max_abs_err={diff} (card={card})", flush=True)
+    check(diff == 0, f"{label}: the mc kernel != plain")
+    check(0 < n_fail < frames, f"{label}: not in the waterfall")
+
+
+def phase_campaigns(torch, card):
+    """Phase 6: the campaign entry points (see the module docstring)."""
+    import collections
+
+    fc = load_script("fer_campaign_torch")
+    tf = load_script("tune_factors_torch")
+    launches = collections.Counter()
+    failed = []
+    compared = exact = 0
+    for suite in ("1k", "10k", "100k"):
+        t0 = time.perf_counter()
+        codes = fc.suite_codes(suite, REPO)
+        read_s = time.perf_counter() - t0
+        want = fc.jax_rows(suite, REPO)
+        rows = []
+        t0 = time.perf_counter()
+        points = counted_points(
+            fc.campaign_rows(codes, CAMPAIGN_TRIALS, "cuda"),
+            lambda r: f"phase 6a {r.name} q={r.qber}",
+            lambda r: CAMPAIGN_KERNELS[r.name])
+        for row, n in points:
+            kernel, mode = CAMPAIGN_KERNELS[row.name]
+            launches[kernel, mode] += n
+            rows.append(row)
+            key = (row.name, row.qber)
+            check(key in want, f"phase 6a: {key} is in no table of "
+                  f"{fc.JAX_TABLES[suite]}")
+            alpha, fer, iters = want[key]
+            check(alpha == row.alpha, f"phase 6a {key}: alpha {row.alpha} "
+                  f"against the table's {alpha}")
+            res = row.result
+            fer_m = fc.fer_margin(row.fer, fer, CAMPAIGN_TRIALS)
+            ok = abs(row.fer - fer) <= fer_m
+            conv = round(res.ratio_trials_success_decoding * CAMPAIGN_TRIALS)
+            conv_j = round((1 - fer) * CAMPAIGN_TRIALS)
+            it_text = "iterations not compared"
+            if min(conv, conv_j) >= MIN_CONVERGED:
+                it_m = fc.iters_margin(res.iter_success_std, conv, conv_j)
+                it_ok = abs(res.iter_success_mean - iters) <= it_m
+                ok = ok and it_ok
+                it_text = (f"|diff| {abs(res.iter_success_mean - iters):.3f} "
+                           f"margin {it_m:.3f}")
+            compared += 1
+            if not ok:
+                failed.append(key)
+            print(f"phase 6a {row.name} q={row.qber}: FER port {row.fer:.5f} "
+                  f"JAX {fer:.5f} (|diff| {abs(row.fer - fer):.5f} margin "
+                  f"{fer_m:.5f}); mean iterations port "
+                  f"{res.iter_success_mean:.2f} (std {res.iter_success_std:.2f},"
+                  f" {conv} converged) JAX {iters:.1f}: {it_text}; "
+                  f"{kernel} {mode} launches={n}; {row.seconds:.3f} s "
+                  f"{'ok' if ok else 'DISAGREES'} (card={card})", flush=True)
+        print(f"phase 6a suite {suite}: {len(rows)} points in "
+              f"{time.perf_counter() - t0:.2f} s, matrices built or read in "
+              f"{read_s:.2f} s (card={card})", flush=True)
+        for code in codes:
+            if code.name in CAMPAIGN_EXACT:
+                campaign_code_vs_plain(torch, card, fc, code, exact)
+                exact += 1
+    check(compared == CAMPAIGN_POINTS,
+          f"phase 6a: {compared} points compared, not {CAMPAIGN_POINTS}")
+    check(exact == len(CAMPAIGN_EXACT),
+          f"phase 6a: {exact} codes checked exactly, not {len(CAMPAIGN_EXACT)}")
+    check(not failed, f"phase 6a: points disagree with the JAX tables: {failed}")
+    print(f"phase 6a: {compared} points within the rule, {exact} codes "
+          f"exactly equal to the plain version; launches: "
+          + ", ".join(f"{k} {m} {n}" for (k, m), n in launches.items())
+          + f" (card={card})", flush=True)
+
+    matrix = tf.headline_code()
+    rows = []
+    t0 = time.perf_counter()
+    for row, n in counted_points(
+            tf.tune_rows(matrix, list(tf.GRIDS), TUNE_TRIALS, 0.03, "cuda"),
+            lambda r: f"phase 6b {r.alg} {r.primary}/{r.secondary}",
+            lambda r: ("fused_qc", "mc")):
+        rows.append(row)
+        print(f"phase 6b {row.line()} fused_qc mc launches={n} "
+              f"{row.seconds:.3f} s", flush=True)
+    check(len(rows) == sum(len(g) for g in tf.GRIDS.values()),
+          "phase 6b: a point is missing")
+    for name, row in tf.best(rows).items():
+        print(f"phase 6b best {name}: primary={row.primary} "
+              f"secondary={row.secondary} FER={row.fer:.5f} mean iterations "
+              f"{row.result.iter_success_mean:.2f}", flush=True)
+    print(f"phase 6b: {len(rows)} points, {TUNE_TRIALS} trials each, in "
+          f"{time.perf_counter() - t0:.2f} s (card={card})", flush=True)
+
+    read_s, greedy_s, pos = load_script("time_host_readers").port_host_times(
+        ALIST100K, 2067)
+    cached = ALIST100K.with_suffix(".untp").read_text()
+    check(" ".join(str(int(p)) for p in pos) + " " == cached,
+          "phase 6c: the greedy differs from the committed .untp")
+    print(f"phase 6c: 100k alist read {read_s:.2f} s, untainted greedy "
+          f"{greedy_s:.2f} s ({len(pos)} positions, equal to the committed "
+          f".untp) on the card host's CPU", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3470,6 +3688,8 @@ def main() -> int:
     elapsed("4f")
     phase_parallel(torch, card)
     elapsed("5")
+    phase_campaigns(torch, card)
+    elapsed("6")
     check("jax" not in sys.modules, "jax was imported")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s "
           f"({card})", flush=True)

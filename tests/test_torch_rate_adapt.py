@@ -11,9 +11,14 @@ package, on the CPU. Every comparison is exact.
   * ``prepare_sim_inputs`` gives JAX's combinations on CPU-sized variants
     of configs/example_rate_adapt.json, configs/campaign_fec_measurement.json
     and configs/campaign_adaptive_aomsa.json (their 1k matrices).
+  * The committed ``.untp`` caches: each that scripts/make_assets.py drew
+    regenerates byte for byte from its seed; each of the seven that hold
+    another draw is a maximal untainted set, and from the same seed the JAX
+    package's greedy gives the port's positions, not the cache.
 """
 
 import dataclasses
+import functools
 import json
 import shutil
 from pathlib import Path
@@ -214,3 +219,91 @@ def test_prepare_sim_inputs_equals_jax(name, untainted, tmp_path):
             assert_params_equal(gc.matrix_params, wc.matrix_params)
         total += len(g.combinations)
     assert total > 0
+
+
+# scripts/make_assets.py seeds each matrix's untainted cache with
+# default_rng(base + the SEED of its file name): 1000 for QC codes, 2000 for
+# alist, 3000 and 4000 for formats 1 and 2; 5001 and 5071 for the dense
+# toys. The cache is written only where none exists, and seven committed
+# caches hold another draw: the two 1k alist originals' caches predate the
+# script's cache step, and the five Z=1024 N=102400 QC codes' caches do not
+# regenerate from their seed with the JAX package's native greedy either.
+ASSET_FORMATS = {"matrices_qc": TFormat.QC, "matrices_alist": TFormat.ALIST,
+                 "matrices_1": TFormat.SPARSE_1, "matrices_2": TFormat.SPARSE_2,
+                 "matrices_uncompressed": TFormat.UNCOMPRESSED}
+SEED_BASE = {"matrices_qc": 1000, "matrices_alist": 2000, "matrices_1": 3000,
+             "matrices_2": 4000}
+ANOTHER_DRAW = {
+    "matrices_alist/(N=1024,M=283,R=0.72,CW=4,SEED=6).mtrx",
+    "matrices_alist/(N=1024,M=512,R=0.50,CW=3,SEED=5).mtrx",
+    *(f"matrices_qc/(N=102400,{rest},Z=1024,SEED={seed}).mtrx"
+      for rest, seed in (("M=65536,R=0.36,CW=4", 51), ("M=51200,R=0.50,CW=4", 52),
+                         ("M=30720,R=0.70,CW=4", 53), ("M=15360,R=0.85,CW=4", 54),
+                         ("M=8192,R=0.92,CW=4", 55))),
+}
+ASSETS = sorted(str(p.relative_to(MATRICES))
+                for p in MATRICES.glob("*/*.mtrx"))
+
+
+def _make_assets_seed(rel):
+    folder, name = rel.split("/")
+    if folder == "matrices_uncompressed":
+        return 5071 if "SEED=71" in name else 5001
+    return SEED_BASE[folder] + int(name.split("SEED=")[1].split(")")[0])
+
+
+def _asset(rel):
+    path = MATRICES / rel
+    return path, tread_matrix(path, ASSET_FORMATS[rel.split("/")[0]])
+
+
+@functools.lru_cache(maxsize=None)
+def _port_draw(rel):
+    """The port's untainted greedy on an asset from make_assets' seed."""
+    _, matrix = _asset(rel)
+    return tra.select_punctured_bits_untainted(
+        np.random.default_rng(_make_assets_seed(rel)), matrix)
+
+
+def test_every_committed_matrix_has_a_cache():
+    assert len(ASSETS) == 40 and ANOTHER_DRAW <= set(ASSETS)
+    assert all((MATRICES / rel).with_suffix(".untp").exists() for rel in ASSETS)
+
+
+@pytest.mark.parametrize("rel", [a for a in ASSETS if a not in ANOTHER_DRAW])
+def test_make_assets_untp_regenerates(rel):
+    path, matrix = _asset(rel)
+    got = tra.select_punctured_bits_untainted(
+        np.random.default_rng(_make_assets_seed(rel)), matrix)
+    text = " ".join(str(int(p)) for p in got) + " "
+    assert text.encode() == path.with_suffix(".untp").read_bytes()
+
+
+@pytest.mark.parametrize("rel", sorted(ANOTHER_DRAW))
+def test_untp_of_another_draw_is_a_maximal_untainted_set(rel):
+    path, matrix = _asset(rel)
+    cached = np.array(path.with_suffix(".untp").read_text().split(), np.int64)
+    flat, offsets = tra.second_order_csr(matrix)
+    chosen = np.zeros(matrix.num_bit_nodes, bool)
+    chosen[cached] = True
+    covered = chosen.copy()
+    for v in cached:
+        row = flat[offsets[v]:offsets[v + 1]]
+        assert not chosen[row].any(), f"bits {v} and a neighbour both chosen"
+        covered[row] = True
+    assert covered.all()
+    assert not np.array_equal(_port_draw(rel), cached)
+
+
+@pytest.mark.parametrize("rel", sorted(ANOTHER_DRAW))
+def test_untp_of_another_draw_is_not_the_jax_greedy_either(rel):
+    # From make_assets' seed the JAX package's greedy gives the port's
+    # positions, and not the committed cache: the cache holds another draw.
+    path = MATRICES / rel
+    fmt = ASSET_FORMATS[rel.split("/")[0]]
+    want = jra.select_punctured_bits_untainted(
+        np.random.default_rng(_make_assets_seed(rel)),
+        jread_matrix(path, JFormat(int(fmt))))
+    np.testing.assert_array_equal(_port_draw(rel), want)
+    cached = np.array(path.with_suffix(".untp").read_text().split(), np.int64)
+    assert not np.array_equal(want, cached)
