@@ -13,7 +13,10 @@ campaign resumes after them, and the checkpoint is deleted once the CSV
 has landed. ``--profile DIR`` records the whole run with
 ``torch.profiler`` (the CPU, and the CUDA device's kernels and copies on
 ``--device cuda``) into the Chrome trace ``DIR/trace.json``; on the card it
-raises where the trace holds no kernel.
+raises where the trace holds no kernel. The trace also holds the program's
+stage spans (``user_annotation`` events named ``sim.*``, ``channel.*``,
+``kernel.*`` and, in a sharded run, ``parallel.*``; ``utils.span``) on the
+clock of the kernels.
 
     python -m qkd_ldpc_v_tpu_torch --configs D --matrices D --results D \\
         [--device cuda|cpu] [--profile DIR]
@@ -139,7 +142,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", type=Path, default=None, metavar="DIR",
                    help="record the whole run with torch.profiler into the "
                         "Chrome trace DIR/trace.json (view in Perfetto or "
-                        "chrome://tracing)")
+                        "chrome://tracing); besides the kernels and copies "
+                        "it holds the program's stage spans (sim.*, "
+                        "channel.*, kernel.*), which PERF.md section 3 "
+                        "lists")
     return p
 
 

@@ -26,6 +26,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
+from qkd_ldpc_v_tpu_torch.utils import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "qkd_ldpc_v_tpu_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
@@ -109,10 +111,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _LIBRARY, build_seconds
     if _LIBRARY is None:
-        target = library_path()
-        if target.exists():
-            build_seconds = 0.0
-        else:
-            _build(target)
-        _LIBRARY = ctypes.CDLL(str(target))
+        with span("kernel.library"):
+            target = library_path()
+            if target.exists():
+                build_seconds = 0.0
+            else:
+                _build(target)
+            _LIBRARY = ctypes.CDLL(str(target))
     return _LIBRARY

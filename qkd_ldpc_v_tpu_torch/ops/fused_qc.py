@@ -70,7 +70,7 @@ from qkd_ldpc_v_tpu_torch.ops.qc_decoder import (
     decode_flooding,
     decode_layered,
 )
-from qkd_ldpc_v_tpu_torch.utils import PlanCache
+from qkd_ldpc_v_tpu_torch.utils import PlanCache, span
 
 
 class KernelCounts:
@@ -115,6 +115,19 @@ class KernelCounts:
 COUNTS = KernelCounts()
 reset_counts = COUNTS.reset
 counts = COUNTS.get
+
+# The trace names of the kernel families, by the name the wrappers give
+# their kernel: each launch and each plain-version call that a
+# ``KernelCounts`` counts is the span ``kernel.<family>.<mode>``.
+SPAN_FAMILIES = {"fused QC": "fused_qc", "streamed QC": "qc_stream",
+                 "fused generic": "fused_generic",
+                 "streamed generic": "generic_stream"}
+
+
+def kernel_span(kernel: str, mode: str) -> str:
+    """The span name of ``kernel``'s launches and plain calls in ``mode``."""
+    return f"kernel.{SPAN_FAMILIES[kernel]}.{mode}"
+
 
 # Shared memory one block may use on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
@@ -381,7 +394,8 @@ def cached_plans(make: Callable) -> Callable:
         key = (flags, str(device))
         plan = plans.get(code, extra=key)
         if plan is None:
-            plan = make(code, flags, device)
+            with span("kernel.plan"):
+                plan = make(code, flags, device)
             plans.put(code, plan, extra=key)
         return plan
 
@@ -485,19 +499,21 @@ def raise_on_error(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def _launch_stats(kernel: str, what: str, counts: KernelCounts,
+def _launch_stats(kernel: str, what: str, name: str, counts: KernelCounts,
                   device: torch.device, batch: int, launch: Callable):
     """Per-frame statistics ``(conv, keys, iters)`` of ``batch`` frames from
     one launch of a kernel's mode ``what``: ``launch(outs)`` fills ``outs =
     (conv int8, keys int8, iters int32)`` on ``device`` and returns the CUDA
-    error code, which raises; the launch is counted."""
+    error code, which raises; the launch is counted, and recorded as the
+    span ``name``."""
     conv = torch.empty(batch, dtype=torch.int8, device=device)
     keys = torch.empty(batch, dtype=torch.int8, device=device)
     iters = torch.empty(batch, dtype=torch.int32, device=device)
     if batch == 0:
         return conv.bool(), keys.bool(), iters
-    raise_on_error(launch((conv, keys, iters)), f"{kernel} {what}")
-    counts.count_launch(what)
+    with span(name):
+        raise_on_error(launch((conv, keys, iters)), f"{kernel} {what}")
+        counts.count_launch(what)
     return conv.bool(), keys.bool(), iters
 
 
@@ -517,11 +533,14 @@ def _stats_wrapper(kernel: str, what: str, counts: KernelCounts,
     other, scalars)`` takes Alice's keys or frame [B, n] int8, the second
     input ``second = (name, dtype)`` [B, n] and the call's float scalars,
     and launches the plan's method ``what``; ``counted_plain(alice, other,
-    *scalars)`` runs ``plain`` and counts it."""
+    *scalars)`` runs ``plain`` and counts it. Both record the span
+    ``kernel_span(kernel, what)``."""
+    name = kernel_span(kernel, what)
 
     def counted_plain(alice, other, *scalars):
-        counts.count_plain(alice.device, what)
-        return plain(alice, other, *scalars)
+        with span(name):
+            counts.count_plain(alice.device, what)
+            return plain(alice, other, *scalars)
 
     def call(alice, other, scalars):
         b = alice.shape[0]
@@ -536,7 +555,7 @@ def _stats_wrapper(kernel: str, what: str, counts: KernelCounts,
         launch_scalars = _launch_scalars(flags, use_threshold,
                                          max_iterations, *scalars)
         return _launch_stats(
-            kernel, what, counts, alice.device, b,
+            kernel, what, name, counts, alice.device, b,
             lambda outs: getattr(plan, what)(alice, other, launch_scalars,
                                              outs))
 
@@ -579,7 +598,8 @@ def kernel_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
     num_errors, batch)`` and the trial's ``scalars``. ``mc.plain`` is
     ``channel.mc_channel`` followed by ``plain``, the plain trial; a CPU
     ``device`` runs it, CUDA launches the kernel, and any other device
-    raises."""
+    raises. Both record the span ``kernel_span(kernel, "mc")``."""
+    name = kernel_span(kernel, "mc")
 
     def check(seed, frame0, batch, num_errors):
         key_of(seed)
@@ -593,9 +613,11 @@ def kernel_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
                       secondary=1.0, threshold=0.0, device="cpu"):
         device = torch.device(device)
         check(seed, frame0, batch, num_errors)
-        counts.count_plain(device, "mc")
-        alice, bob = mc_channel(seed, frame0, batch, n, num_errors, device)
-        return plain(alice, bob, log_p, primary, secondary, threshold)
+        with span(name):
+            counts.count_plain(device, "mc")
+            alice, bob = mc_channel(seed, frame0, batch, n, num_errors,
+                                    device)
+            return plain(alice, bob, log_p, primary, secondary, threshold)
 
     def mc(seed, frame0, batch, num_errors, log_p, primary=1.0,
            secondary=1.0, threshold=0.0, device="cuda"):
@@ -613,7 +635,7 @@ def kernel_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
         draw = (*key_of(seed), int(frame0), int(num_errors), int(batch))
         scalars = _launch_scalars(flags, use_threshold, max_iterations,
                                   log_p, primary, secondary, threshold)
-        return _launch_stats(kernel, "mc", counts, device, batch,
+        return _launch_stats(kernel, "mc", name, counts, device, batch,
                              lambda outs: plan.mc(draw, scalars, outs))
 
     mc.plain = counted_plain
@@ -646,12 +668,15 @@ def kernel_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
     ``decode(llr, syndrome, scalars, outs)`` takes ``scalars = (flags,
     use_threshold, max_iterations, primary, secondary, threshold)`` and
     ``outs = (decisions, conv, iters)``; ``plain(llr, syndrome, primary,
-    secondary, threshold)`` returns a ``DecodeResult``."""
+    secondary, threshold)`` returns a ``DecodeResult``. Both record the
+    span ``kernel_span(kernel, "decode")``."""
+    name = kernel_span(kernel, "decode")
 
     def counted_plain(llr, syndrome, primary=1.0, secondary=1.0,
                       threshold=0.0):
-        counts.count_plain(llr.device, "decode")
-        return plain(llr, syndrome, primary, secondary, threshold)
+        with span(name):
+            counts.count_plain(llr.device, "decode")
+            return plain(llr, syndrome, primary, secondary, threshold)
 
     def decode(llr, syndrome, primary=1.0, secondary=1.0, threshold=0.0):
         b = llr.shape[0]
@@ -670,9 +695,10 @@ def kernel_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
             return DecodeResult(dec, conv.bool(), iters)
         scalars = _launch_scalars(flags, use_threshold, max_iterations,
                                   primary, secondary, threshold)
-        raise_on_error(plan.decode(llr, syndrome, scalars, (dec, conv, iters)),
-                       f"{kernel} decode")
-        counts.count_launch("decode")
+        with span(name):
+            raise_on_error(plan.decode(llr, syndrome, scalars,
+                                       (dec, conv, iters)), f"{kernel} decode")
+            counts.count_launch("decode")
         return DecodeResult(dec, conv.bool(), iters)
 
     decode.plain = counted_plain

@@ -31,8 +31,11 @@ from qkd_ldpc_v_tpu_torch.ops.linapprox import (
     guard_atanh_ratio,
     tanh_lin_approx,
 )
+from qkd_ldpc_v_tpu_torch.utils import span
 
 STEPS = ("tanh", "atanh", "tanh_lin", "atanh_lin")
+# The span of each step's launches and plain calls.
+SPANS = {step: f"kernel.spa.{step}" for step in STEPS}
 
 COUNTS = KernelCounts()
 
@@ -75,15 +78,18 @@ def spa_step(x: torch.Tensor, step: str) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("spa_step takes a contiguous float32 tensor")
     if x.device.type == "cpu":
-        COUNTS.count_plain(x.device, step)
-        return plain_step(x, step)
+        with span(SPANS[step]):
+            COUNTS.count_plain(x.device, step)
+            return plain_step(x, step)
     if x.device.type != "cuda":
         raise NotImplementedError(f"spa_step: no kernel for device {x.device}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    raise_on_error(_lib().spa_steps(x.data_ptr(), out.data_ptr(), x.numel(),
-                                    STEPS.index(step), stream_of(x)),
-                   f"spa_steps {step}")
-    COUNTS.count_launch(step)
+    with span(SPANS[step]):
+        raise_on_error(_lib().spa_steps(x.data_ptr(), out.data_ptr(),
+                                        x.numel(), STEPS.index(step),
+                                        stream_of(x)),
+                       f"spa_steps {step}")
+        COUNTS.count_launch(step)
     return out

@@ -32,6 +32,12 @@ Design:
 No fallback: a mesh on ``cuda`` without a card raises, no rank catches
 another's failure, and ``initialize_distributed`` bounds the group's
 timeout, so a rank that dies makes the others fail rather than hang.
+
+Spans (``utils.span``): a step call is ``parallel.step``; inside it the
+device synchronize after the rank's decode is ``parallel.sync`` and the
+statistics' collective ``parallel.reduce`` (``psum_stats`` or
+``_gather_frames``), whose blocking waits and host reads are each
+``parallel.wait``.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ from qkd_ldpc_v_tpu_torch.config import Config, DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.ops.decoders import check_row_edges, make_decoder
 from qkd_ldpc_v_tpu_torch.simulation import ChunkStep, _synchronize
-from qkd_ldpc_v_tpu_torch.utils import PlanCache
+from qkd_ldpc_v_tpu_torch.utils import PlanCache, span
 
 # Seconds a collective of a group made by ``initialize_distributed`` waits
 # for a rank before it fails.
@@ -170,7 +176,8 @@ def _all_reduce(t: torch.Tensor, op, mesh: DataMesh):
 
 def _wait(work) -> None:
     if work is not None:
-        work.wait()
+        with span("parallel.wait"):
+            work.wait()
 
 
 def psum_stats(syndromes_match: torch.Tensor, keys_match: torch.Tensor,
@@ -207,8 +214,10 @@ def psum_stats(syndromes_match: torch.Tensor, keys_match: torch.Tensor,
     m2 = torch.where(ok, deviation * deviation, zero).sum().reshape(1)
     _wait(_all_reduce(m2, dist.ReduceOp.SUM, mesh))
     _wait(extremes)
-    n_dec, n_ldpc, it_sum = sums.tolist()
-    return (n_dec, n_ldpc, it_sum, float(m2), -float(ends[0]), float(ends[1]))
+    with span("parallel.wait"):
+        n_dec, n_ldpc, it_sum = sums.tolist()
+        return (n_dec, n_ldpc, it_sum, float(m2), -float(ends[0]),
+                float(ends[1]))
 
 
 def _gather_frames(syndromes_match: torch.Tensor, keys_match: torch.Tensor,
@@ -224,7 +233,8 @@ def _gather_frames(syndromes_match: torch.Tensor, keys_match: torch.Tensor,
         parts = [torch.empty_like(packed) for _ in range(mesh.world_size)]
         dist.all_gather(parts, packed, group=mesh.group)
         packed = torch.cat(parts, dim=1)
-    host = packed.cpu().numpy()
+    with span("parallel.wait"):
+        host = packed.cpu().numpy()
     return host[0].astype(bool), host[1].astype(bool), host[2]
 
 
@@ -259,17 +269,22 @@ def sharded_step(
     times = []
 
     def step(args, chunk_index, take):
-        t0 = time.perf_counter()
-        conv, keys, iters = chunk.decode(args, chunk_index)
-        _synchronize(mesh.device)
-        t1 = time.perf_counter()
-        if reduce_stats:
-            index = torch.arange(first, first + local, device=conv.device)
-            out = psum_stats(conv & (index < take), keys, iters, mesh)
-        else:
-            out = _gather_frames(conv, keys, iters, mesh)
-        times.append((t1 - t0, time.perf_counter() - t1))
-        return out
+        with span("parallel.step"):
+            t0 = time.perf_counter()
+            conv, keys, iters = chunk.decode(args, chunk_index)
+            with span("parallel.sync"):
+                _synchronize(mesh.device)
+            with span("parallel.reduce"):
+                t1 = time.perf_counter()
+                if reduce_stats:
+                    index = torch.arange(first, first + local,
+                                         device=conv.device)
+                    out = psum_stats(conv & (index < take), keys, iters,
+                                     mesh)
+                else:
+                    out = _gather_frames(conv, keys, iters, mesh)
+                times.append((t1 - t0, time.perf_counter() - t1))
+            return out
 
     step.reduces = reduce_stats
     step.device = mesh.device

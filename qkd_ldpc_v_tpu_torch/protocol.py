@@ -27,6 +27,12 @@ torch decoder. QC codes take the generic kernels too, as JAX's protocol
 takes its generic decoder on them. The kernels' wrappers run their plain
 version (the float32 generic torch decoder) on CPU tensors and launch the
 kernel on CUDA tensors, so a CPU round equals the JAX package's round.
+
+A round is the span ``protocol.round`` (``utils.span``); its stages are
+``protocol.positions`` (each index array of the spec put on the keys'
+device), ``protocol.frame`` (the frame and its LLRs), ``protocol.syndrome``,
+``protocol.decode`` (the decoder's choice and its call), ``protocol.compare``
+(the key match) and ``protocol.remove`` (the bit-removal gathers).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from qkd_ldpc_v_tpu_torch.rate_adapt import (
     HMatrixParams,
     finalize_bits_to_remove,
 )
+from qkd_ldpc_v_tpu_torch.utils import span
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -189,18 +196,33 @@ def round_decoder(spec: ProtocolSpec) -> Callable[..., DecodeResult]:
     return get_decoder(spec.layout, *args, dtype)
 
 
+def _positions(positions: np.ndarray, device) -> torch.Tensor:
+    """One index array of a spec as int64 on ``device``."""
+    with span("protocol.positions"):
+        return torch.as_tensor(positions.astype(np.int64), device=device)
+
+
 def _run_decode(spec, llr, alice_frame, primary, secondary, threshold):
     """Shared tail: Alice syndrome -> decode -> key match -> bit removal."""
-    syndrome = calculate_syndrome(spec.layout, alice_frame)
-    res = round_decoder(spec)(llr, syndrome, primary, secondary, threshold)
-    keys_match = (res.decision == alice_frame).all(dim=1)
-    keep = torch.as_tensor(spec.keep.astype(np.int64), device=alice_frame.device)
+    with span("protocol.syndrome"):
+        syndrome = calculate_syndrome(spec.layout, alice_frame)
+    with span("protocol.decode"):
+        res = round_decoder(spec)(llr, syndrome, primary, secondary,
+                                  threshold)
+    with span("protocol.compare"):
+        keys_match = (res.decision == alice_frame).all(dim=1)
+    with span("protocol.positions"):
+        keep = torch.as_tensor(spec.keep.astype(np.int64),
+                               device=alice_frame.device)
+    with span("protocol.remove"):
+        alice_out = alice_frame.index_select(1, keep)
+        bob_out = res.decision.index_select(1, keep)
     return ProtocolResult(
         syndromes_match=res.syndromes_match,
         keys_match=keys_match,
         iterations=res.iterations,
-        alice_out=alice_frame.index_select(1, keep),
-        bob_out=res.decision.index_select(1, keep),
+        alice_out=alice_out,
+        bob_out=bob_out,
     )
 
 
@@ -226,10 +248,12 @@ def qkd_ldpc(
     alice/bob: [B, N] int8 keys, tensors (the round runs on their device)
     or arrays (placed on the card); qber: the accurate QBER of the batch.
     """
-    alice = _keys(alice, None)
-    bob = _keys(bob, alice.device)
-    llr = llr_from_bits(bob, qber, _DTYPES[spec.dtype])
-    return _run_decode(spec, llr, alice, primary, secondary, threshold)
+    with span("protocol.round"):
+        with span("protocol.frame"):
+            alice = _keys(alice, None)
+            bob = _keys(bob, alice.device)
+            llr = llr_from_bits(bob, qber, _DTYPES[spec.dtype])
+        return _run_decode(spec, llr, alice, primary, secondary, threshold)
 
 
 def qkd_ldpc_rate_adapt(
@@ -253,32 +277,37 @@ def qkd_ldpc_rate_adapt(
     against Alice's extended frame; the reference consumes Bob's draw
     solely for trace printing (:1153-1154, 1230-1231).
     """
-    dtype = _DTYPES[spec.dtype]
-    alice_key = _keys(alice_key, None)
-    dev = alice_key.device
-    bob_key = _keys(bob_key, dev)
-    batch = alice_key.shape[0]
-    payload, punct, short = (
-        torch.as_tensor(p.astype(np.int64), device=dev)
-        for p in (spec.payload_positions, spec.punctured_positions,
-                  spec.shortened_positions))
-    if alice_punct is None:
-        if punct_generator is None:
-            raise ValueError("qkd_ldpc_rate_adapt needs punct_generator or "
-                             "alice_punct")
-        alice_punct = torch.randint(0, 2, (batch, len(punct)),
-                                    generator=punct_generator,
-                                    dtype=torch.int8, device=dev)
-    alice_punct = _keys(alice_punct, dev)
+    with span("protocol.round"):
+        dtype = _DTYPES[spec.dtype]
+        alice_key = _keys(alice_key, None)
+        dev = alice_key.device
+        bob_key = _keys(bob_key, dev)
+        batch = alice_key.shape[0]
+        payload, punct, short = (
+            _positions(p, dev)
+            for p in (spec.payload_positions, spec.punctured_positions,
+                      spec.shortened_positions))
+        with span("protocol.frame"):
+            if alice_punct is None:
+                if punct_generator is None:
+                    raise ValueError("qkd_ldpc_rate_adapt needs "
+                                     "punct_generator or alice_punct")
+                alice_punct = torch.randint(0, 2, (batch, len(punct)),
+                                            generator=punct_generator,
+                                            dtype=torch.int8, device=dev)
+            alice_punct = _keys(alice_punct, dev)
 
-    n_frame = spec.num_frame_bits
-    alice_ext = torch.zeros((batch, n_frame), dtype=torch.int8, device=dev)
-    alice_ext[:, payload] = alice_key
-    alice_ext[:, punct] = alice_punct
-    # shortened positions stay 0 on both sides (reference: :1158-1165)
+            n_frame = spec.num_frame_bits
+            alice_ext = torch.zeros((batch, n_frame), dtype=torch.int8,
+                                    device=dev)
+            alice_ext[:, payload] = alice_key
+            alice_ext[:, punct] = alice_punct
+            # shortened positions stay 0 on both sides (reference:
+            # :1158-1165)
 
-    llr = torch.zeros((batch, n_frame), dtype=dtype, device=dev)
-    llr[:, payload] = llr_from_bits(bob_key, qber, dtype)
-    llr[:, punct] = ALMOST_ZERO
-    llr[:, short] = torch.finfo(dtype).max
-    return _run_decode(spec, llr, alice_ext, primary, secondary, threshold)
+            llr = torch.zeros((batch, n_frame), dtype=dtype, device=dev)
+            llr[:, payload] = llr_from_bits(bob_key, qber, dtype)
+            llr[:, punct] = ALMOST_ZERO
+            llr[:, short] = torch.finfo(dtype).max
+        return _run_decode(spec, llr, alice_ext, primary, secondary,
+                           threshold)

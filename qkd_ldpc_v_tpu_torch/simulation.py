@@ -146,6 +146,7 @@ from qkd_ldpc_v_tpu_torch.rate_adapt import (
     get_punctured_bits_untainted,
 )
 from qkd_ldpc_v_tpu_torch.tracing import traced_decode
+from qkd_ldpc_v_tpu_torch.utils import span
 
 logger = logging.getLogger(__name__)
 
@@ -765,40 +766,51 @@ class ChunkStep:
 
     def chunk_keys(self, args: ChunkArgs, chunk_index: int):
         """(alice, bob, Alice's punctured draw or None) of one chunk."""
-        keys = self.source(args.sim_number, chunk_index, self.frames,
-                           self.n_bits,
-                           **({"punctured": True} if self.rate_adaptive else {}))
-        alice = _as_tensor(keys[0], torch.int8, self.device)
-        bob = inject_errors(_as_tensor(keys[1], torch.int64, self.device),
-                            alice, args.num_errors, wide=True)
-        punct = (_as_tensor(keys[2], torch.int8, self.device)
-                 if self.rate_adaptive else None)
+        with span("sim.keys"):
+            with span("channel.keys"):
+                keys = self.source(
+                    args.sim_number, chunk_index, self.frames, self.n_bits,
+                    **({"punctured": True} if self.rate_adaptive else {}))
+                alice = _as_tensor(keys[0], torch.int8, self.device)
+                punct = (_as_tensor(keys[2], torch.int8, self.device)
+                         if self.rate_adaptive else None)
+            with span("channel.inject"):
+                bob = inject_errors(
+                    _as_tensor(keys[1], torch.int64, self.device), alice,
+                    args.num_errors, wide=True)
         return alice, bob, punct
 
     def chunk_frames(self, args: ChunkArgs, chunk_index: int):
         """(alice_frame, llr in the step's dtype) of one chunk."""
-        alice, bob, punct = self.chunk_keys(args, chunk_index)
-        if self.rate_adaptive:
-            return build_frames(alice, bob, punct, *args.plan, args.log_p,
-                                self.dtype)
-        lp = torch.tensor(args.log_p, dtype=self.dtype, device=self.device)
-        return alice, torch.where(bob == 1, -lp, lp)
+        with span("sim.frames"):
+            alice, bob, punct = self.chunk_keys(args, chunk_index)
+            if self.rate_adaptive:
+                return build_frames(alice, bob, punct, *args.plan,
+                                    args.log_p, self.dtype)
+            lp = torch.tensor(args.log_p, dtype=self.dtype,
+                              device=self.device)
+            return alice, torch.where(bob == 1, -lp, lp)
 
     def decode(self, args: ChunkArgs, chunk_index: int):
         if self.mc is not None:
-            return self.mc(
-                chunk_seed(self.seed, args.sim_number, chunk_index),
-                self.frame0, self.frames, args.num_errors, args.log_p,
-                *args.scalars, device=self.device)
+            with span("sim.decode"):
+                return self.mc(
+                    chunk_seed(self.seed, args.sim_number, chunk_index),
+                    self.frame0, self.frames, args.num_errors, args.log_p,
+                    *args.scalars, device=self.device)
         if self.rate_adaptive:
-            return self.trial(*self.chunk_frames(args, chunk_index),
-                              *args.scalars)
+            frames = self.chunk_frames(args, chunk_index)
+            with span("sim.decode"):
+                return self.trial(*frames, *args.scalars)
         alice, bob, _ = self.chunk_keys(args, chunk_index)
-        return self.trial(alice, bob, args.log_p, *args.scalars)
+        with span("sim.decode"):
+            return self.trial(alice, bob, args.log_p, *args.scalars)
 
     def __call__(self, args: ChunkArgs, chunk_index: int, take: int):
         conv, keys, iters = self.decode(args, chunk_index)
-        return conv.cpu().numpy(), keys.cpu().numpy(), iters.cpu().numpy()
+        with span("sim.fetch"):
+            return (conv.cpu().numpy(), keys.cpu().numpy(),
+                    iters.cpu().numpy())
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -864,7 +876,19 @@ def run_combination(
     combines. Traced runs ignore it, as the JAX package's do. A
     ``key_source`` feeds one process's chunks and cannot be combined with
     it.
+
+    The call is the span ``sim.combination``; inside it, building the step
+    is ``sim.step``, each call of the step ``sim.chunk`` and the statistics
+    ``sim.stats`` (``utils.span``).
     """
+    with span("sim.combination"):
+        return _combination(matrix, comb, cfg, sim_number, device, progress,
+                            key_source, step_factory)
+
+
+def _combination(matrix, comb, cfg, sim_number, device, progress,
+                 key_source, step_factory) -> SimResult:
+    """The body of ``run_combination``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is available")
@@ -902,8 +926,9 @@ def run_combination(
         out_key_length = n_bits
 
     if traced:
-        chunks = ChunkStep(matrix, cfg, device, batch, key_source=key_source,
-                           traced=True)
+        with span("sim.step"):
+            chunks = ChunkStep(matrix, cfg, device, batch,
+                               key_source=key_source, traced=True)
         t0 = time.perf_counter()
         syn_all, keys_all, iters_all = _run_trials_traced(
             matrix, comb, cfg, lambda c: chunks.chunk_frames(args, c), batch)
@@ -912,16 +937,21 @@ def run_combination(
         if progress is not None:
             progress(trials)
     else:
-        if step_factory is None:
-            step = ChunkStep(matrix, cfg, device, batch, key_source=key_source)
-        else:
-            step = step_factory(matrix, cfg, batch)
+        with span("sim.step"):
+            if step_factory is None:
+                step = ChunkStep(matrix, cfg, device, batch,
+                                 key_source=key_source)
+            else:
+                step = step_factory(matrix, cfg, batch)
+        if step_factory is not None:
             step_device = getattr(step, "device", device)
             if not _same_device(step_device, device):
                 raise ValueError(f"the step runs on {step_device}, the "
                                  f"combination on {device}")
-        if cfg.enable_throughput_measurement:
-            step(args, 0, batch)
+        timed = cfg.enable_throughput_measurement
+        if timed:
+            with span("sim.chunk"):
+                step(args, 0, batch)
         if getattr(step, "reduces", False):
             return _run_chunks_reduced(
                 matrix, comb, cfg, sim_number, accurate_qber, step,
@@ -935,13 +965,16 @@ def run_combination(
         chunk_index = 0
         while done < trials:
             take = min(batch, trials - done)
-            _synchronize(device)
-            t0 = time.perf_counter()
-            syn, keys, iters = step(args, chunk_index, take)
-            elapsed_us = (time.perf_counter() - t0) * 1e6
-            # Per-trial runtime = batch wall time / batch size, as in the
-            # JAX package: the batch is the unit of device work.
-            runtime_parts.append(np.full(take, elapsed_us / batch))
+            if timed:
+                _synchronize(device)
+                t0 = time.perf_counter()
+            with span("sim.chunk"):
+                syn, keys, iters = step(args, chunk_index, take)
+            if timed:
+                # Per-trial runtime = batch wall time / batch size, as in
+                # the JAX package: the batch is the unit of device work.
+                elapsed_us = (time.perf_counter() - t0) * 1e6
+                runtime_parts.append(np.full(take, elapsed_us / batch))
             syn_parts.append(syn[:take])
             key_parts.append(keys[:take])
             iter_parts.append(iters[:take])
@@ -952,14 +985,15 @@ def run_combination(
         syn_all = np.concatenate(syn_parts)
         keys_all = np.concatenate(key_parts)
         iters_all = np.concatenate(iter_parts)
-        runtimes = np.concatenate(runtime_parts)
+        runtimes = np.concatenate(runtime_parts) if timed else None
 
-    result = _new_result(matrix, comb, sim_number, accurate_qber)
-    process_trials_results(
-        cfg, syn_all, keys_all, iters_all,
-        runtimes if cfg.enable_throughput_measurement else None,
-        out_key_length, result,
-    )
+    with span("sim.stats"):
+        result = _new_result(matrix, comb, sim_number, accurate_qber)
+        process_trials_results(
+            cfg, syn_all, keys_all, iters_all,
+            runtimes if cfg.enable_throughput_measurement else None,
+            out_key_length, result,
+        )
     return result
 
 
@@ -984,7 +1018,9 @@ def _run_chunks_reduced(
     trials, population std-dev, src/simulation.cpp:580-690) are rebuilt
     from them. Variance combines the chunks' M2 sums (deviations about each
     chunk's mean) with Chan's pairwise update in float64 on the host.
-    Throughput, where measured, is per chunk, weighted by its trials."""
+    Throughput, where measured, is per chunk, weighted by its trials. Each
+    call of the step is the span ``sim.chunk``, each combine ``sim.stats``."""
+    timed = cfg.enable_throughput_measurement
     n_dec = 0.0
     n_ldpc = 0.0
     it_sum = 0.0
@@ -996,38 +1032,43 @@ def _run_chunks_reduced(
     chunk_index = 0
     while done < trials:
         take = min(batch, trials - done)
-        t0 = time.perf_counter()
-        d, l, s, m2, mn, mx = step(*step_args(chunk_index, take))
-        elapsed_us = (time.perf_counter() - t0) * 1e6
-        d = float(d)
-        if d > 0:
-            # Chan's parallel-variance combination of (n, sum, M2) pairs.
-            delta = float(s) / d - (it_sum / n_dec if n_dec > 0 else 0.0)
-            it_m2 += float(m2) + (
-                delta * delta * n_dec * d / (n_dec + d) if n_dec > 0 else 0.0
-            )
-        n_dec += d
-        n_ldpc += float(l)
-        it_sum += float(s)
-        if d > 0:
-            it_min = float(mn) if it_min is None else min(it_min, float(mn))
-            it_max = float(mx) if it_max is None else max(it_max, float(mx))
-        if cfg.enable_throughput_measurement:
-            tp_chunks.append((take, elapsed_us / batch))
+        if timed:
+            t0 = time.perf_counter()
+        with span("sim.chunk"):
+            d, l, s, m2, mn, mx = step(*step_args(chunk_index, take))
+        if timed:
+            tp_chunks.append((take, (time.perf_counter() - t0) * 1e6 / batch))
+        with span("sim.stats"):
+            d = float(d)
+            if d > 0:
+                # Chan's parallel-variance combination of (n, sum, M2)
+                # pairs.
+                delta = float(s) / d - (it_sum / n_dec if n_dec > 0 else 0.0)
+                it_m2 += float(m2) + (
+                    delta * delta * n_dec * d / (n_dec + d)
+                    if n_dec > 0 else 0.0
+                )
+            n_dec += d
+            n_ldpc += float(l)
+            it_sum += float(s)
+            if d > 0:
+                it_min = float(mn) if it_min is None else min(it_min, float(mn))
+                it_max = float(mx) if it_max is None else max(it_max, float(mx))
         done += take
         chunk_index += 1
         if progress is not None:
             progress(take)
 
-    result = _new_result(matrix, comb, sim_number, accurate_qber)
-    if n_dec > 0:
-        mean = it_sum / n_dec
-        var = max(it_m2 / n_dec, 0.0)
-        result.iter_success_mean = mean
-        result.iter_success_std = var**0.5
-        result.iter_success_min = int(it_min)
-        result.iter_success_max = int(it_max)
-    if cfg.enable_throughput_measurement and tp_chunks:
+    with span("sim.stats"):
+        result = _new_result(matrix, comb, sim_number, accurate_qber)
+        if n_dec > 0:
+            mean = it_sum / n_dec
+            var = max(it_m2 / n_dec, 0.0)
+            result.iter_success_mean = mean
+            result.iter_success_std = var**0.5
+            result.iter_success_min = int(it_min)
+            result.iter_success_max = int(it_max)
+    if timed and tp_chunks:
         rtt_us = cfg.rtt_ms * 1000.0 if cfg.consider_rtt else 0.0
         tps = np.array(
             [out_key_length * 1e6 / (rt + rtt_us) for _, rt in tp_chunks]

@@ -3,13 +3,35 @@
 Copies of ``PlanCache``, ``get_file_paths_in_directory`` and
 ``format_duration`` from ``qkd_ldpc_v_tpu/utils.py`` (importing that package
 imports JAX). The JAX compilation-cache helper has no counterpart here.
+``span`` names a stage of the program in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from pathlib import Path
 from typing import Any, List, Optional
+
+import torch
+from torch.profiler import record_function
+
+# Whether a torch profiler records in this thread: one C call, looked up
+# once.
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the body as the range ``name``
+    (``torch.profiler.record_function``) while a torch profiler records,
+    and does nothing otherwise. In the Chrome trace the range is a
+    ``user_annotation`` event on the clock of the device's kernels and
+    copies, and the ranges open around it are its parents. ``name`` is a
+    fixed string (``layer.stage``), so a trace's times add up by name."""
+    if _profiling():
+        return record_function(name)
+    return _OFF
 
 
 class PlanCache:

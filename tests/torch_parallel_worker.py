@@ -15,7 +15,11 @@ Not a test module. Run as
     reduce-mode ``sharded_step`` (SPA, 16 trials, 13 counted) and the same
     chunk gathered;
   * MODE ``fail``: rank 1 raises after the group is up, rank 0 enters a
-    collective, which must fail within the group's timeout.
+    collective, which must fail within the group's timeout;
+  * MODE ``spans``: the two-process run of test_torch_spans.py, a
+    reduce-mode combination through ``mesh_step_factory`` under
+    ``torch.profiler``: each rank's ``parallel.*`` spans and its step's
+    ``times``.
 
 INIT is ``file:PATH`` (a ``FileStore``, no port to race for) or
 ``tcp:HOST:PORT`` (``initialize_distributed``). Each rank writes its
@@ -307,6 +311,49 @@ def run_reduce():
             "frames": gathered(args, 0, REDUCE_TAKE)}
 
 
+def _span_parent(event):
+    """The innermost ``sim.*`` or ``parallel.*`` span around a profiler
+    event."""
+    parent = event.cpu_parent
+    while parent is not None and not parent.name.startswith(("sim.",
+                                                             "parallel.")):
+        parent = parent.cpu_parent
+    return parent
+
+
+def run_spans():
+    """Each traced step call: the names of the spans directly inside its
+    ``parallel.step``, its ``parallel.reduce``'s microseconds and the names
+    of the spans directly inside that; and the step's ``times``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    matrix, comb, cfg = run_setup("generic")
+    cfg = dataclasses.replace(cfg, enable_throughput_measurement=False)
+    factory = driver.mesh_step_factory(driver.make_data_mesh("cpu"),
+                                       reduce_stats=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sim.run_combination(matrix, comb, cfg, SIM_NUMBER, "cpu",
+                            step_factory=factory)
+    events = sorted((e for e in prof.events()
+                     if e.name.startswith("parallel.")),
+                    key=lambda e: e.time_range.start)
+    steps = []
+    for e in events:
+        if e.name != "parallel.step":
+            continue
+        inner = [c for c in events if _span_parent(c) is e]
+        reduces = [c for c in inner if c.name == "parallel.reduce"]
+        steps.append({
+            "inner": [c.name for c in inner],
+            "outer": None if _span_parent(e) is None else _span_parent(e).name,
+            "reduce_us": [c.time_range.elapsed_us() for c in reduces],
+            "in_reduce": [[w.name for w in events if _span_parent(w) is c]
+                          for c in reduces],
+        })
+    return {"steps": steps, "times": list(factory(matrix, cfg,
+                                                  cfg.batch_size).times)}
+
+
 def run_fail(rank):
     if rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
@@ -334,6 +381,8 @@ def main() -> int:
             results = run_cases(rank, out)
         elif mode == "reduce":
             results = run_reduce()
+        elif mode == "spans":
+            results = run_spans()
         else:
             results = run_fail(rank)
         with open(out / f"rank{rank}.pkl", "wb") as f:
