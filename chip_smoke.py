@@ -141,17 +141,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    the committed N=102400 alist asset, its R=0.71 bracket narrowed to QBER
    0.03 and alpha 0.8 (bench.py's stream-100k leg), cap 100, 16384 trials
    in 4096-frame chunks, flooding, through the streamed generic kernel (the
-   engine is ``stream``). The CSV must carry the JAX package's columns and
-   FER <= 0.01; the streamed generic kernel must have launched, the fused
-   generic kernel not, and no plain version may have run on the card;
-   chunk 0's first 256 frames must equal the plain version. It also prints
-   the kernel's group waste (frames per group times each group's largest
+   engine is ``stream``), whose trials take its cluster kernel. The CSV
+   must carry the JAX package's columns and FER <= 0.01; the streamed
+   generic kernel must have launched, every launch and trial on the
+   cluster kernel, the fused generic kernel not, and no plain version may
+   have run on the card; chunk 0's first 256 frames must equal the plain
+   version. It prints the cluster plan (frames a cluster, CTAs per
+   cluster, threads and shared bytes per CTA, clusters in flight, the L2
+   working set) and chunk 0's time beside its bound, checking that its
+   launch took the cluster kernel with every frame; the batch-minor
+   kernel's group waste (frames per group times each group's largest
    iteration count, over the iterations the frames needed), the bytes its
-   design moves for the chunk and the rate that makes, and the chunk timed
-   at 8 and at 16 frames per group in turns (8, 16, 16, 8), whose outputs
-   must agree, and the same on its first 128 and 1024 frames; and the
-   chunk's staging time (cap 0) and time per iteration of every group
-   (caps 0 and 2) with the rate its messages move at.
+   design moves for the chunk and the rate that makes, its staging time
+   (cap 0) and time per iteration of every group (caps 0 and 2) with the
+   rate its messages move at; the cluster kernel's staging and time per
+   iteration the same way; and the chunk through the cluster kernel and at
+   8 and at 16 frames per group of the batch-minor kernel in turns
+   (cluster, 8, 16, 16, 8, cluster), whose outputs must agree, and the same
+   on its first 128 and 1024 frames.
 3e. Rate-adaptive main path: the CLI on copies of
    configs/campaign_fec_measurement.json narrowed to the headline QC asset
    (its R=0.71 bracket: QBER 0.034, alpha 0.7, delta 0.1, the efficiencies
@@ -264,7 +271,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    R=0.84 and R=0.50 N=102400 QC codes) runs the mode its points ran
    against the plain version at the suite's alpha and one QBER in its
    waterfall, where some frames converge and some fail, 509 frames (128 at
-   N=102400): conv, keys and iterations exactly equal.
+   N=102400): conv, keys and iterations exactly equal. Every trial of the
+   N=102400 alist code's points must take the streamed generic kernel's
+   cluster kernel; after its suite that code prints its cluster plan and
+   one 4096-frame chunk at QBER 0.03 beside its bound, on the cluster
+   kernel with every frame.
    (6b) The four tuning grids on the headline QC code at QBER 0.03, 8192
    trials a point, each point through the fused QC kernel's mc mode alone;
    it prints the table and each algorithm's best point. (6c) The host's
@@ -1437,6 +1448,46 @@ def phase_cli_cpu_vs_card(torch, card):
           f"from the throughput columns ({card})", flush=True)
 
 
+def cluster_route(torch, card, label, matrix, trial, alice, bob, args,
+                  flags):
+    """The streamed generic trial's cluster kernel on one chunk: its plan
+    for ``matrix`` (frames a cluster decodes at once, CTAs per cluster,
+    threads and shared bytes per CTA, clusters in flight, the L2 working
+    set) and the chunk's time beside its bound, checking that the chunk's
+    one launch took the cluster kernel with every frame. Returns (the
+    chunk's statistics, its ms, its bound)."""
+    from qkd_ldpc_v_tpu_torch.ops import generic_stream
+
+    plan = generic_stream.launch_plan(matrix, flags, torch.device("cuda"))
+    cp = plan.cluster
+    check(cp is not None, f"{label}: the trial has no cluster plan")
+    frames = alice.shape[0]
+    clusters = min(-(-frames // cp.frames), plan.clusters)
+    print(f"{label}: cluster kernel plan: {cp.frames} frames a cluster, "
+          f"C={cp.cluster} CTAs of {cp.threads} threads and {cp.shared_bytes} "
+          f"shared bytes, {plan.clusters} clusters in flight, L2 working set "
+          f"{cp.working_set(clusters) / 1e6:.1f} MB (records "
+          f"{cp.record_bytes} bytes a cluster, tables {cp.table_bytes})",
+          flush=True)
+    trial(alice, bob, *args)  # first launch of this configuration, untimed
+    generic_stream.reset_counts()
+    out, ms = timed(lambda: trial(alice, bob, *args), torch)
+    counts = generic_stream.counts()
+    check(counts == (1, 0, 1, frames),
+          f"{label}: the chunk did not take the cluster kernel: counts "
+          f"(launches, plain on the card, cluster launches, cluster frames) "
+          f"{counts}")
+    its = int(out[2].sum().item())
+    chunk_bound = bound(frames, matrix.num_bit_nodes, matrix.num_edges, its,
+                        "flooding")
+    print(f"{label}: cluster kernel, one {frames}-frame chunk {ms:.2f} ms "
+          f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}; "
+          f"{100 * chunk_bound[0] / ms:.2f} % of it), mean iterations "
+          f"{its / frames:.2f}; every frame on the cluster kernel "
+          f"(card={card})", flush=True)
+    return out, ms, chunk_bound
+
+
 def phase_generic_stream_main_path(torch, card):
     from qkd_ldpc_v_tpu_torch import cli
     from qkd_ldpc_v_tpu_torch.config import parse_config_data
@@ -1478,11 +1529,16 @@ def phase_generic_stream_main_path(torch, card):
                    str(work / "results"), "--device", "cuda", "--quiet"])
     wall = time.perf_counter() - t0
     check(rc == 0, f"CLI (alist100k) returned {rc}")
-    launches, plain_on_cuda = generic_stream.counts()
+    launches, plain_on_cuda, cluster_launches, cluster_frames = \
+        generic_stream.counts()
     fused_launches, fused_plain = fused_generic.counts()
     print(f"alist100k main path: streamed generic launches={launches} "
+          f"(cluster kernel {cluster_launches}, {cluster_frames} frames) "
           f"fused generic launches={fused_launches} plain calls on the card="
           f"{plain_on_cuda + fused_plain}")
+    check(cluster_launches == launches and cluster_frames >= cfg[
+        "trials_number"], "the 100k alist main path's streamed trials did "
+          "not all take the cluster kernel")
     check(launches > 0,
           "the 100k alist main path launched no streamed generic kernel")
     check(fused_launches == 0,
@@ -1543,15 +1599,12 @@ def phase_generic_stream_main_path(torch, card):
         run_cfg.decoding_alg_max_iterations, run_cfg.enable_msg_llr_threshold)
     args = (log_ratio(ne / n), comb.scaling_factors.primary,
             comb.scaling_factors.secondary, run_cfg.msg_llr_threshold)
-    full, kernel_ms = timed(lambda: trial(alice, bob, *args), torch)
-    chunk_bound = bound(run_cfg.batch_size, n, e, int(full[2].sum().item()),
-                        "flooding")
+    full, kernel_ms, chunk_bound = cluster_route(
+        torch, card, "alist100k main path", matrix, trial, alice, bob, args,
+        flags)
     print(f"alist100k main path: one {run_cfg.batch_size}-frame chunk: "
-          f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms, "
-          f"generic_stream kernel {kernel_ms:.2f} ms "
-          f"(bound {chunk_bound[0]:.2f} ms, {chunk_bound[1]}), mean "
-          f"iterations {full[2].float().mean().item():.2f} (card={card})",
-          flush=True)
+          f"keys {keys_ms:.2f} ms, error injection {errors_ms:.2f} ms "
+          f"(card={card})", flush=True)
 
     # The group design's own figures, from this chunk's iteration counts.
     # A group iterates to its slowest frame and moves whole sectors, so its
@@ -1574,14 +1627,16 @@ def phase_generic_stream_main_path(torch, card):
               f"at 3.35 TB/s", flush=True)
         if g == group:
             design = (waste, design_bytes)
-    print(f"alist100k group design F={group}: achieved "
-          f"{design[1] / kernel_ms / 1e6:.1f} GB/s "
-          f"({design[1] / kernel_ms * 1e3 / HBM_BYTES_PER_S * 100:.1f} %"
+    minor_ms = timed(lambda: trials[group](alice, bob, *args), torch)[1]
+    print(f"alist100k group design F={group}: the batch-minor chunk "
+          f"{minor_ms:.2f} ms, achieved {design[1] / minor_ms / 1e6:.1f} GB/s "
+          f"({design[1] / minor_ms * 1e3 / HBM_BYTES_PER_S * 100:.1f} %"
           f" of 3.35 TB/s; card={card})", flush=True)
-    # The chunk's time split at the group size it takes: the cap at 0 times
-    # the staging and the key compare alone; from cap 0 to cap 2 every group
-    # makes two iterations (at this QBER no frame converges within two),
-    # whose messages move 16 bytes per edge and frame slot each.
+    # The batch-minor kernel's time split at the group size a chunk takes
+    # there: the cap at 0 times the staging and the key compare alone; from
+    # cap 0 to cap 2 every group makes two iterations (at this QBER no frame
+    # converges within two), whose messages move 16 bytes per edge and frame
+    # slot each.
     capped = {}
     for cap in (0, 2):
         fn = generic_stream.make_generic_stream_trial(
@@ -1596,21 +1651,36 @@ def phase_generic_stream_main_path(torch, card):
           f"{iter_ms:.2f} ms (cap 2 - cap 0, halved), its messages "
           f"{iter_bytes / 1e9:.2f} GB at {iter_bytes / iter_ms / 1e6:.1f} "
           f"GB/s (card={card})", flush=True)
-    # Both group sizes in turns, pinned past the per-launch choice, on the
-    # chunk and on its first 128 and 1024 frames (16 and 128 groups of 8,
-    # under one wave).
+    # The cluster kernel's split, the same way: staging and key compare at
+    # cap 0, then one iteration of every frame.
+    capped = {}
+    for cap in (0, 2):
+        fn = generic_stream.make_generic_stream_trial(
+            matrix, run_cfg.decoding_algorithm, cap,
+            run_cfg.enable_msg_llr_threshold)
+        fn(alice, bob, *args)  # first launch of this cap, untimed
+        capped[cap] = timed(lambda: fn(alice, bob, *args), torch, reps=2)[1]
+    print(f"alist100k cluster kernel: staging and key compare "
+          f"{capped[0]:.2f} ms (cap 0); one iteration of every frame "
+          f"{(capped[2] - capped[0]) / 2:.2f} ms (cap 2 - cap 0, halved; "
+          f"card={card})", flush=True)
+    # The cluster kernel and both batch-minor group sizes in turns, pinned
+    # past the per-launch choice, on the chunk and on its first 128 and 1024
+    # frames (16 and 128 groups of 8, under one wave).
+    trials["cluster"] = trial
     for frames in (128, 1024, run_cfg.batch_size):
         series = []
-        for g in (8, 16, 16, 8):
+        for g in ("cluster", 8, 16, 16, 8, "cluster"):
             out, ms = timed(
                 lambda: trials[g](alice[:frames], bob[:frames], *args), torch)
             check(max_abs_diff(tuple(out), tuple(t[:frames] for t in full),
                                torch) == 0,
-                  f"alist100k: {frames} frames at F={g} != the chunk's")
+                  f"alist100k: {frames} frames at {g} != the chunk's")
             series.append((g, ms))
-        print(f"alist100k group size, {frames} frames in turns: " + ", ".join(
-            f"F={g} {ms:.2f} ms" for g, ms in series) + f" (card={card})",
-            flush=True)
+        print(f"alist100k streamed kernels, {frames} frames in turns: "
+              + ", ".join(f"{'' if g == 'cluster' else 'F='}{g} {ms:.2f} ms"
+                          for g, ms in series) + f" (card={card})",
+              flush=True)
 
     got = [t[:256] for t in full]
     want = trial.plain(alice[:256].contiguous(), bob[:256].contiguous(),
@@ -3523,6 +3593,12 @@ def phase_campaigns(torch, card):
     """Phase 6: the campaign entry points (see the module docstring)."""
     import collections
 
+    from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream
+    from qkd_ldpc_v_tpu_torch.ops.channel import (
+        exact_error_count, inject_errors, log_ratio)
+    from qkd_ldpc_v_tpu_torch.simulation import default_key_source
+
     fc = load_script("fer_campaign_torch")
     tf = load_script("tune_factors_torch")
     launches = collections.Counter()
@@ -3542,6 +3618,12 @@ def phase_campaigns(torch, card):
         for row, n in points:
             kernel, mode = CAMPAIGN_KERNELS[row.name]
             launches[kernel, mode] += n
+            if kernel == "generic_stream":
+                # Every streamed trial of the point on the cluster kernel.
+                counts = generic_stream.counts()
+                check(counts[2] == counts[0] and counts[3] >= CAMPAIGN_TRIALS,
+                      f"phase 6a {row.name} q={row.qber}: not every trial "
+                      f"took the cluster kernel: {counts}")
             rows.append(row)
             key = (row.name, row.qber)
             check(key in want, f"phase 6a: {key} is in no table of "
@@ -3578,6 +3660,23 @@ def phase_campaigns(torch, card):
             if code.name in CAMPAIGN_EXACT:
                 campaign_code_vs_plain(torch, card, fc, code, exact)
                 exact += 1
+            if CAMPAIGN_KERNELS[code.name][0] == "generic_stream":
+                # One chunk of the campaign's mid point, its keys as the
+                # campaign draws them, on the cluster kernel.
+                dev = torch.device("cuda")
+                n = code.matrix.num_bit_nodes
+                ne = exact_error_count(n, 0.03)
+                alice, bits = default_key_source(fc.SEED, dev)(
+                    0, 0, fc.ALIST_100K_BATCH, n)
+                bob = inject_errors(bits, alice, ne, wide=True)
+                del bits
+                algorithm = DecodingAlgorithm.NMSA
+                cluster_route(
+                    torch, card, f"phase 6a {code.name} q=0.03", code.matrix,
+                    generic_stream.make_generic_stream_trial(
+                        code.matrix, algorithm, fc.CAP, False),
+                    alice, bob, (log_ratio(ne / n), code.alpha, 0.0, 0.0),
+                    fused_generic._flags(algorithm))
     check(compared == CAMPAIGN_POINTS,
           f"phase 6a: {compared} points compared, not {CAMPAIGN_POINTS}")
     check(exact == len(CAMPAIGN_EXACT),

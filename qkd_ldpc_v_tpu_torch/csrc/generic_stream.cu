@@ -13,7 +13,11 @@
 //                  decision planes    -> bit_nodes and the group's end
 // in trial and decode modes, for the min-sum family NMSA/OMSA/ANMSA/AOMSA
 // and the SPA pair SPA / SPA-lin-approx (the check update of spa.cuh) on the
-// flooding schedule. The while-loop becomes the block's iteration
+// flooding schedule. Trial mode of the min-sum family goes to the cluster
+// kernel (csrc/generic_cluster.cu) wherever its plan holds the code
+// (ops/generic_stream.py::cluster_plan); this kernel serves decode mode,
+// the SPA pair, the codes that plan refuses and launches that pin its
+// group size. The while-loop becomes the block's iteration
 // loop, which exits per frame. The plain torch version it is held to, bit
 // for bit, is ops/decoders.py::make_decoder in float32 (wrapped by
 // ops/generic_stream.py), as for the fused generic kernel; its per-edge

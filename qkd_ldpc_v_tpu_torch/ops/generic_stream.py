@@ -1,12 +1,13 @@
-"""Streamed generic decoder: wrappers of the hand-written CUDA kernel for
+"""Streamed generic decoder: wrappers of the hand-written CUDA kernels for
 arbitrary sparse codes whose per-frame state does not fit in one block's
 shared memory, and their plain torch versions.
 
 Counterpart of ``qkd_ldpc_v_tpu/ops/pallas_stream.py``
 (``make_pallas_stream_trial`` and ``make_pallas_stream_decoder``; the
-kernel is ``csrc/generic_stream.cu``, which replaces that module's four
-kernels and its while-loop), for the six algorithms (the min-sum family
-NMSA, OMSA, ANMSA and AOMSA, and the SPA pair) on the flooding schedule:
+kernels are ``csrc/generic_cluster.cu`` and ``csrc/generic_stream.cu``,
+which replace that module's four kernels and its while-loop), for the six
+algorithms (the min-sum family NMSA, OMSA, ANMSA and AOMSA, and the SPA
+pair) on the flooding schedule:
 
   * ``make_generic_stream_trial`` — the Monte-Carlo sweep's hot path for
     the N=102400 alist code: Alice's and Bob's keys in, per-frame
@@ -24,9 +25,24 @@ nothing else: CPU tensors go to the plain version, CUDA tensors launch the
 kernel (or raise), and any other device raises. There is no fallback from
 a failed launch.
 
-The kernel decodes a group of F frames per block with batch-minor messages
-(``[E, F]`` f32 per block in a global scratch) and bit-packed node planes
-(one bit per frame), in shared memory where they fit. The library carries
+Two kernels, routed by what a launch decodes and the code's shape alone
+(``cluster_plan``; the plan is built once per code and cached). Trial mode
+of the min-sum family takes the cluster kernel (``csrc/generic_cluster.cu``)
+wherever a cluster of 1-16 CTAs holds a frame's totals and key bits and
+every check has at most ``MAX_DEGREE`` edges: a thread-block cluster
+decodes a group of F frames at a time (8 in 16 CTAs at the N=102400 alist
+code, 4 in one CTA at the 10k one), their totals in distributed shared
+memory, their min-sum checks compressed to one 16-byte record a check and
+frame in an L2-resident slice, groups taken from an atomic counter. Decode
+mode (an f32 LLR plane more), the SPA pair (no two-minimum form), codes
+beyond those limits and launches that pin ``group`` take the batch-minor
+kernel (``csrc/generic_stream.cu``). ``cluster_tables`` builds the cluster
+kernel's tables.
+
+The batch-minor kernel decodes a group of F frames per block with
+batch-minor messages (``[E, F]`` f32 per block in a global scratch) and
+bit-packed node planes (one bit per frame), in shared memory where they
+fit. The library carries
 ``GROUPS`` = (8, 16); a launch takes the wider group where its groups
 still fill the resident grid and the narrower one below that
 (``group_for``; PERF.md has the times that chose the rule), unless the
@@ -45,25 +61,31 @@ engine (``tpu.phase1_iterations``) is not ported: a group iterates to its
 slowest frame, but a frame that has converged makes no more loads or
 stores, and the measured waste does not call for it (PERF.md).
 
-Counters: ``COUNTS.launches`` counts kernel launches;
-``COUNTS.plain_on_cuda`` counts plain-version calls on CUDA tensors, which
-only tests and the card smoke's comparisons make. ``reset_counts`` zeroes
-both and ``counts`` reads them.
+Counters: ``COUNTS.launches`` counts kernel launches of either kernel;
+``COUNTS.cluster_launches`` and ``COUNTS.cluster_frames`` the launches and
+frames that took the cluster kernel; ``COUNTS.plain_on_cuda`` counts
+plain-version calls on CUDA tensors, which only tests and the card smoke's
+comparisons make. ``reset_counts`` zeroes them and ``counts`` reads
+``(launches, plain_on_cuda, cluster_launches, cluster_frames)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
-from qkd_ldpc_v_tpu_torch.models.layout import layout_for
+from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, layout_for
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
 from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
+    _offsets,
+    _slot_major,
     generic_decoder,
     generic_trial,
     launch_tables,
@@ -76,7 +98,24 @@ from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
     stream_of,
 )
 
-COUNTS = KernelCounts()
+
+class StreamCounts(KernelCounts):
+    """``KernelCounts`` and the trial launches and frames that took the
+    cluster kernel."""
+
+    def reset(self) -> None:
+        super().reset()
+        self.cluster_launches = 0
+        self.cluster_frames = 0
+
+    def get(self) -> Tuple[int, int, int, int]:
+        """(kernel launches outside the mc mode, plain-version calls on CUDA
+        tensors, cluster-kernel launches, frames they decoded)."""
+        return (self.launches, self.plain_on_cuda, self.cluster_launches,
+                self.cluster_frames)
+
+
+COUNTS = StreamCounts()
 reset_counts = COUNTS.reset
 counts = COUNTS.get
 
@@ -172,6 +211,129 @@ def check_shared_memory(n: int, m: int, group: int = GROUPS[0]) -> None:
             f"more than a block's {MAX_SHARED_BYTES}")
 
 
+# The cluster kernel (csrc/generic_cluster.cu): its cluster sizes, smallest
+# first, and group sizes (frames a cluster decodes at once); degree groups a
+# side (kMaxGroups) and edges a check (kMaxDegree); the bits of a check
+# edge's table word below its rank (kLocalBits), and of a bit edge's word
+# below its check (kSlotBits). A card test holds the layout to the
+# library's.
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+CLUSTER_FRAMES = (1, 2, 4, 8)
+MAX_GROUPS = 32
+MAX_DEGREE = 32
+_LOCAL_BITS = 24
+_SLOT_BITS = 5
+# Scratch bytes before the clusters' records: the frame counter.
+_COUNTER_BYTES = 256
+# The largest group the plan takes.
+PLAN_FRAMES = 8
+
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    """The cluster kernel's launch shape for one code: frames a cluster
+    decodes at once, CTAs per cluster, threads and shared bytes per CTA,
+    bytes of one cluster's records (its frames' compressed checks), and
+    bytes of the tables every cluster reads (csrc/generic_cluster.cu's
+    ``threads_for``, ``shared_layout`` and ``record_bytes``)."""
+
+    frames: int
+    cluster: int
+    threads: int
+    shared_bytes: int
+    record_bytes: int
+    table_bytes: int
+
+    def working_set(self, clusters: int) -> int:
+        """Bytes the clusters in flight keep in L2: their records and the
+        tables."""
+        return clusters * self.record_bytes + self.table_bytes
+
+
+def _share(count: int, cluster: int) -> int:
+    """One CTA's share of ``count`` nodes: count / C rounded up to 32."""
+    return (-(-count // cluster) + 31) // 32 * 32
+
+
+def cluster_shared_bytes(n: int, m: int, frames: int, cluster: int) -> int:
+    """One CTA's shared bytes: the degree groups of both sides, the cluster
+    votes and the next frames, the syndrome bits of its checks for each
+    frame, then its share of the f32 totals and of Alice's and Bob's packed
+    bits, for each frame."""
+    share = _share(n, cluster) * frames
+    size = _round_up(16 * 2 * MAX_GROUPS + 4 * 2 * 16 + 4, 16)
+    size = _round_up(size + _share(m, cluster) * frames // 8, 16)
+    return size + 4 * share + 2 * (share // 8)
+
+
+def cluster_plan(mode: str, spa: bool, n: int, m: int, e: int,
+                 max_check_degree: int, check_groups: int = 1,
+                 bit_groups: int = 1,
+                 frames: Optional[int] = None) -> Optional[ClusterPlan]:
+    """The cluster kernel's plan for a launch in ``mode`` of the SPA pair
+    (``spa``) or the min-sum family on a code of ``n`` bits, ``m`` checks
+    and ``e`` edges, or None where the batch-minor kernel takes it: decode
+    mode (its f32 LLR plane changes the fit), the SPA pair (no two-minimum
+    form), a check of more than ``MAX_DEGREE`` edges or more than
+    ``MAX_GROUPS`` degree groups a side, or a frame whose per-CTA share fits
+    no cluster. The group (frames a cluster decodes at once; ``frames`` pins
+    it) is the largest up to ``PLAN_FRAMES`` that one CTA holds, which keeps
+    every total local; where one CTA holds no frame, ``PLAN_FRAMES`` frames
+    (fewer where no cluster holds that many) in the smallest cluster whose
+    per-CTA share fits in 227 KB."""
+    if (mode != "trial" or spa or max_check_degree > MAX_DEGREE
+            or max(check_groups, bit_groups) > MAX_GROUPS):
+        return None
+    groups = ([frames] if frames else
+              [f for f in CLUSTER_FRAMES if f <= PLAN_FRAMES][::-1])
+    if not frames:
+        one = [f for f in groups
+               if cluster_shared_bytes(n, m, f, 1) <= MAX_SHARED_BYTES]
+        groups = one[:1] or groups
+    for f in groups:
+        for c in CLUSTER_SIZES:
+            size = cluster_shared_bytes(n, m, f, c)
+            if size <= MAX_SHARED_BYTES:
+                return ClusterPlan(
+                    f, c, min(THREADS, f * max(_share(n, c), _share(m, c))),
+                    size, _round_up(16 * m * f, 256),
+                    4 * (4 * (check_groups + bit_groups) + 2 * e + n))
+    return None
+
+
+def _layout_plan(layout: EdgeLayout, mode: str, spa: bool,
+                 frames: Optional[int] = None) -> Optional[ClusterPlan]:
+    """``cluster_plan`` of a code's layout."""
+    return cluster_plan(mode, spa, layout.num_bits, layout.num_checks,
+                 layout.num_edges, max(g.degree for g in layout.check_groups),
+                 len(layout.check_groups), len(layout.bit_groups), frames)
+
+
+def cluster_tables(layout: EdgeLayout, cluster: int) -> np.ndarray:
+    """The cluster kernel's tables, concatenated as int32: the check and bit
+    degree groups as (node_start, count, degree, edge_offset); each check
+    edge's bit as ``rank << 24 | local`` (its CTA and its index in that
+    CTA's share) and each bit edge's ``check << 5 | slot``, both slot-major
+    within their degree groups; each internal bit's external index."""
+    share = _share(layout.num_bits, cluster)
+    groups = [(g.node_start, g.count, g.degree, g.edge_offset)
+              for g in layout.check_groups + layout.bit_groups]
+    cbit = np.asarray(layout.check_edge_bit, dtype=np.int64)
+    cword = (cbit // share) << _LOCAL_BITS | cbit % share
+    cptr = _offsets(layout.check_groups, layout.num_checks)
+    check_of = np.repeat(np.arange(layout.num_checks), np.diff(cptr))
+    pos = np.asarray(layout.to_bit_major, dtype=np.int64)
+    bword = check_of[pos] << _SLOT_BITS | (pos - cptr[check_of[pos]])
+    parts = [
+        np.asarray(groups, dtype=np.int64).reshape(-1),
+        _slot_major(layout.check_groups, cword),
+        _slot_major(layout.bit_groups, bword),
+        layout.bit_order,
+    ]
+    return np.concatenate([np.asarray(x, dtype=np.int64) for x in parts]
+                          ).astype(np.int32)
+
+
 def _lib() -> ctypes.CDLL:
     global _SIGNATURES_SET
     lib = kernels.library()
@@ -189,6 +351,23 @@ def _lib() -> ctypes.CDLL:
         lib.generic_stream_shared_bytes.restype = ctypes.c_longlong
         lib.generic_stream_scratch_bytes.argtypes = [i, i, i, i, i]
         lib.generic_stream_scratch_bytes.restype = ctypes.c_longlong
+        lib.generic_cluster_trial.argtypes = [
+            p, p, i, p, i, i, i, i, i, i, i, i, f, f, f, f, p, i, i, i, p, p,
+            p, p]
+        lib.generic_cluster_trial.restype = i
+        lib.generic_cluster_resident.argtypes = [i, i, i, i, i]
+        lib.generic_cluster_resident.restype = i
+        lib.generic_cluster_threads.argtypes = [i, i, i, i]
+        lib.generic_cluster_threads.restype = i
+        lib.generic_cluster_shared_bytes.argtypes = [i, i, i, i]
+        lib.generic_cluster_shared_bytes.restype = ctypes.c_longlong
+        lib.generic_cluster_record_bytes.argtypes = [i, i]
+        lib.generic_cluster_record_bytes.restype = ctypes.c_longlong
+        for name in ("generic_cluster_max_groups",
+                     "generic_cluster_max_degree",
+                     "generic_cluster_max_frames"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
         _SIGNATURES_SET = True
     return lib
 
@@ -196,13 +375,16 @@ def _lib() -> ctypes.CDLL:
 class _Launch:
     """Launch plan of one code, algorithm family, device and group size
     (``None``: each launch's own, ``group_for``): the index tables on the
-    device and the resident blocks of each group size whose planes fit.
-    ``trial`` and ``decode`` allocate the grid's scratch, launch the kernel
-    and return its CUDA error code (arguments: see ``fused_qc.kernel_trial``
-    and ``fused_qc.kernel_decoder``)."""
+    device and the resident blocks of each group size whose planes fit;
+    where ``group`` is None and ``cluster_plan`` gives one, the cluster
+    kernel's plan (``cluster``), tables and the clusters that fit at once
+    (``clusters``), which the trial mode takes. ``trial`` and ``decode``
+    allocate the launch's scratch, launch a kernel and return its CUDA error
+    code (arguments: see ``fused_qc.kernel_trial`` and
+    ``fused_qc.kernel_decoder``)."""
 
     def __init__(self, matrix: HMatrix, flags: int, device: torch.device,
-                 group: Optional[int]):
+                 group: Optional[int], frames: Optional[int] = None):
         layout = layout_for(matrix)
         self.n, self.m, self.e = layout.num_bits, layout.num_checks, layout.num_edges
         if group is None:
@@ -226,6 +408,25 @@ class _Launch:
         self.table = torch.tensor(launch_tables(layout), dtype=torch.int32,
                                   device=device)
         self.shape = (self.table.data_ptr(), self.n, self.m, self.e)
+        self.cluster = (None if group is not None else
+                        _layout_plan(layout, "trial", bool(flags >> 2),
+                                     frames))
+        if self.cluster is not None:
+            with torch.cuda.device(device):
+                self.clusters = _lib().generic_cluster_resident(
+                    self.n, self.m, flags, self.cluster.frames,
+                    self.cluster.cluster)
+            if self.clusters <= 0:
+                raise RuntimeError(
+                    f"streamed generic kernel: no cluster of "
+                    f"{self.cluster.cluster} CTAs fits on {device} (CUDA "
+                    f"error {-self.clusters})")
+            self.cluster_table = torch.tensor(
+                cluster_tables(layout, self.cluster.cluster),
+                dtype=torch.int32, device=device)
+            self.cluster_shape = (
+                self.cluster_table.data_ptr(), self.n, self.m, self.e,
+                len(layout.check_groups), len(layout.bit_groups))
 
     def launch_args(self, batch: int, trial: bool, device):
         """(group, scratch, grid) of one launch. The scratch is freed once
@@ -238,12 +439,31 @@ class _Launch:
                                   device=device), grid
 
     def trial(self, alice, bob, scalars, outs) -> int:
+        if self.cluster is not None:
+            return self.cluster_trial(alice, bob, scalars, outs)
         group, scratch, grid = self.launch_args(alice.shape[0], True,
                                                 alice.device)
         return _lib().generic_stream_trial(
             *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
             group, scratch.data_ptr(), grid, THREADS, *pointers(*outs),
             stream_of(alice))
+
+    def cluster_trial(self, alice, bob, scalars, outs) -> int:
+        """A trial launch of the cluster kernel over as many clusters as fit
+        at once (at most one a group of frames), counted in ``COUNTS`` where
+        it launched."""
+        batch, plan = alice.shape[0], self.cluster
+        clusters = min(-(-batch // plan.frames), self.clusters)
+        scratch = torch.empty(_COUNTER_BYTES + clusters * plan.record_bytes,
+                              dtype=torch.uint8, device=alice.device)
+        err = _lib().generic_cluster_trial(
+            *pointers(alice, bob), batch, *self.cluster_shape, *scalars,
+            scratch.data_ptr(), plan.frames, plan.cluster, clusters,
+            *pointers(*outs), stream_of(alice))
+        if err == 0:
+            COUNTS.cluster_launches += 1
+            COUNTS.cluster_frames += batch
+        return err
 
     def decode(self, llr, syndrome, scalars, outs) -> int:
         group, scratch, grid = self.launch_args(llr.shape[0], False,

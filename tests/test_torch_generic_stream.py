@@ -239,7 +239,7 @@ def test_cpu_path_matches_jax_xla_and_pallas_stream(irregular, channel,
         assert np.abs(iters - jiters).max() <= 4
     else:
         np.testing.assert_array_equal(iters, jiters)
-    assert generic_stream.counts() == (0, 0)
+    assert generic_stream.counts() == (0, 0, 0, 0)
 
 
 def test_unconverged_frames_match_jax_xla(irregular):
@@ -352,7 +352,7 @@ def _run_both(jm, tm, jcfg, tcfg, qber, tmp_path):
     got = tsim.run_combination(
         tm, tsim.SimCombination(qber, TParams(), tsim.ScalingFactors(0.8)),
         tcfg, 1, "cpu", key_source=_jax_key_source(jcfg.simulation_seed))
-    assert generic_stream.counts() == (0, 0)
+    assert generic_stream.counts() == (0, 0, 0, 0)
     jpath = jsim.write_file([want], jcfg, "00h-00m-01s", tmp_path / "jax")
     tpath = tsim.write_file([got], tcfg, "00h-00m-01s", tmp_path / "torch")
     assert tpath.name == jpath.name
@@ -480,7 +480,7 @@ def test_non_cpu_tensors_never_take_the_plain_path(irregular):
                                                    False)(
             torch.empty((2, n), device="meta"),
             torch.empty((2, m), dtype=torch.int8, device="meta"))
-    assert generic_stream.counts() == (0, 0)
+    assert generic_stream.counts() == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("n,m,fits", [
@@ -614,6 +614,286 @@ def test_library_name_follows_headers(tmp_path, monkeypatch):
     assert kernels.library_path() not in (before, edited)
     assert [p.name for p in kernels.sources()] == sorted(
         p.name for p in kernels.CSRC.glob("*.cu"))
+
+
+# ---------------------------------------------------------------------------
+# The cluster kernel (csrc/generic_cluster.cu): its plan, its tables, and a
+# plain model of its compressed checks and its schedule.
+# ---------------------------------------------------------------------------
+
+# One CTA's shared bytes at the 100k alist code for F frames in a cluster of
+# 2F CTAs (every CTA holds 51200 / F bits of each of the F frames): the
+# degree groups and votes (1168), the syndrome bits of 15872 / F checks for
+# each frame (1984), the totals (204800), Alice's and Bob's bits (6400
+# each).
+SHARED100K = 1168 + 1984 + 4 * 51200 + 2 * 6400
+
+
+@pytest.mark.parametrize("case", [
+    # (mode, algorithm, n, m, e, max check degree, frames asked,
+    #  (frames, cluster, shared bytes) or None)
+    ("trial", "NMSA", N100K, M100K, E100K, 10, None, (8, 16, SHARED100K)),
+    ("trial", "OMSA", N100K, M100K, E100K, 10, None, (8, 16, SHARED100K)),
+    ("trial", "ANMSA", N100K, M100K, E100K, 10, None, (8, 16, SHARED100K)),
+    ("trial", "AOMSA", N100K, M100K, E100K, 10, None, (8, 16, SHARED100K)),
+    ("trial", "NMSA", N100K, M100K, E100K, 10, 1, (1, 2, SHARED100K)),
+    ("trial", "NMSA", N100K, M100K, E100K, 10, 4, (4, 8, SHARED100K)),
+    ("trial", "SPA", N100K, M100K, E100K, 10, None, None),
+    ("trial", "SPA_APPROX", N100K, M100K, E100K, 10, None, None),
+    ("decode", "NMSA", N100K, M100K, E100K, 10, None, None),
+    ("decode", "AOMSA", N100K, M100K, E100K, 10, None, None),
+    # The 10k alist code forced to the stream engine: one CTA holds a group
+    # of 4 frames; 8 take two.
+    ("trial", "NMSA", 10240, 2841, 40960, 15, None, (4, 1, 176672)),
+    ("trial", "NMSA", 10240, 2841, 40960, 15, 8, (8, 2, 176688)),
+    # N=800k fits 16 CTAs one frame at a time; N=1M fits no cluster.
+    ("trial", "NMSA", 800000, 250000, 2400000, 10, None, (1, 16, 215704)),
+    ("trial", "NMSA", 1000000, 310000, 3000000, 10, None, None),
+    # A check of 33 edges does not fit a record's two words.
+    ("trial", "NMSA", N100K, M100K, E100K, 33, None, None),
+])
+def test_cluster_plan_rule(case):
+    """Which launches take the cluster kernel and its shape, without a card:
+    trial mode of the min-sum family on a code whose per-CTA share fits
+    some cluster takes it, with the largest group of up to PLAN_FRAMES
+    frames that one CTA holds, else PLAN_FRAMES frames (fewer where no
+    cluster holds that many) in the smallest cluster that holds them; every
+    other launch takes the batch-minor kernel."""
+    mode, alg, n, m, e, deg, frames, want = case
+    assert generic_stream.PLAN_FRAMES == 8
+    plan = generic_stream.cluster_plan(mode, alg in ("SPA", "SPA_APPROX"),
+                                       n, m, e, deg, 2, 1, frames)
+    if want is None:
+        assert plan is None
+        return
+    assert (plan.frames, plan.cluster, plan.shared_bytes) == want
+    assert plan.shared_bytes <= fused_qc.MAX_SHARED_BYTES
+    assert plan.threads == 1024
+    assert plan.record_bytes == -(-16 * m * plan.frames // 256) * 256
+    assert plan.table_bytes == 4 * (4 * 3 + 2 * e + n)
+    if n == N100K and plan.frames == 8:
+        # 7 clusters in flight keep 31.3 MB in the 50 MB L2.
+        assert plan.working_set(7) == 7 * 4063232 + 2867248
+
+
+def _decoded_tables(layout, cluster):
+    """The cluster tables read back as the kernel reads them: per check
+    group (start, count, degree, bits [count, degree]) and per bit group
+    (start, count, degree, checks, slots [count, degree]), and bit_ext."""
+    t = generic_stream.cluster_tables(layout, cluster).astype(np.int64)
+    gc, gb = len(layout.check_groups), len(layout.bit_groups)
+    share = generic_stream._share(layout.num_bits, cluster)
+    groups = t[:4 * (gc + gb)].reshape(-1, 4)
+    e = layout.num_edges
+    cword = t[4 * (gc + gb):4 * (gc + gb) + e]
+    bword = t[4 * (gc + gb) + e:4 * (gc + gb) + 2 * e]
+    checks, bits = [], []
+    for start, count, deg, off in groups[:gc]:
+        w = cword[off:off + count * deg].reshape(deg, count).T
+        checks.append((start, count, deg, (w >> 24) * share + (w & 0xffffff)))
+    for start, count, deg, off in groups[gc:]:
+        w = bword[off:off + count * deg].reshape(deg, count).T
+        bits.append((start, count, deg, w >> 5, w & 31))
+    return checks, bits, t[4 * (gc + gb) + 2 * e:]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_cluster_tables_address_every_edge(irregular, cluster):
+    """The cluster tables name each check's bits in the layout's slot order
+    (through the rank and local index of the CTA that holds them), each
+    bit's (check, slot) pairs in its slot order (ascending check index, the
+    plain decoder's bit-total order), and the external bit order."""
+    for matrix in (irregular, stream_sized_code()):
+        layout = layout_for(matrix)
+        checks, bits, bit_ext = _decoded_tables(layout, cluster)
+        for g, (start, count, deg, b) in zip(layout.check_groups, checks):
+            assert (start, count, deg) == (g.node_start, g.count, g.degree)
+            np.testing.assert_array_equal(b, g.neighbor)
+        edge_bit = np.asarray(layout.check_edge_bit)
+        cptr = fused_generic._offsets(layout.check_groups, layout.num_checks)
+        for g, (start, count, deg, c, k) in zip(layout.bit_groups, bits):
+            assert (start, count, deg) == (g.node_start, g.count, g.degree)
+            np.testing.assert_array_equal(c, g.neighbor)
+            np.testing.assert_array_equal(
+                edge_bit[cptr[c] + k],
+                np.repeat(np.arange(start, start + count)[:, None], deg, 1))
+        np.testing.assert_array_equal(bit_ext, layout.bit_order)
+
+
+def _record(msgs, syn, factor, offset, use_thr, thr):
+    """Plain model of the kernel's record of min-sum checks (``new_record``
+    and ``edge_bits``): from the bit->check messages [c, d, B] in slot
+    order, the syndrome bits [c, B] and the factor [c, B], the clamped pair
+    (p1, p2) [c, B] and per edge the bits m > 0 (or every sign bit set where
+    the threshold is negative) and |m| == min1 [c, d, B]. The chain runs in
+    slot order with NaN-keeping min and max; min2 is inf where every |m| of
+    a check of two or more edges is inf."""
+    f32 = torch.float32
+    a = msgs.abs()
+    min1 = a[:, 0]
+    min2 = torch.full_like(min1, float(np.finfo(np.float32).max))
+    neg = torch.zeros_like(syn, dtype=torch.bool)
+    for k in range(msgs.shape[1]):
+        if k:
+            min2 = torch.minimum(min2, torch.maximum(min1, a[:, k]))
+            min1 = torch.minimum(min1, a[:, k])
+        neg = neg ^ (msgs[:, k] < 0)
+    if msgs.shape[1] >= 2:
+        min2 = torch.where(torch.isinf(min1), min1, min2)
+    one = torch.ones((), dtype=f32)
+    rs = torch.where(syn == 1, -one, one) * torch.where(neg, -one, one)
+    bound = torch.tensor(thr if use_thr else float("inf"), dtype=f32)
+
+    def value(eabs):
+        v = (rs * one * torch.maximum(eabs - factor, torch.zeros((), dtype=f32))
+             if offset else factor * rs * one * eabs)
+        return torch.minimum(torch.maximum(v, -bound), bound)
+
+    pos = (msgs > 0) | (use_thr and thr < 0)
+    return value(min1), value(min2), pos, a == min1[:, None]
+
+
+def _rebuild(p1, p2, pos, eq):
+    """The kernel's ``stored_value``: p2 where |m| == min1, else p1, negated
+    where the sign bit is clear."""
+    v = torch.where(eq, p2[:, None], p1[:, None])
+    return torch.where(pos, v, -v)
+
+
+@pytest.mark.parametrize("thr", [None, 2.5, -1.0])
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_compressed_check_model_rebuilds_plain_values(alg, f1, f2, thr):
+    """The record (a value pair and two bits an edge) rebuilds the plain
+    decoder's clamped f32 check->bit values bit for bit: random rows of
+    degrees 2-16, with ties at the minimum, +0 and -0 messages, rows whose
+    every |m| is inf and rows with a NaN; the clamp off, on, and at a
+    negative threshold, where every value is the threshold."""
+    from qkd_ldpc_v_tpu_torch.ops.decoders import _minsum_values
+
+    rng = np.random.default_rng(5)
+    f32 = torch.float32
+    one = torch.ones((), dtype=f32)
+    big = torch.tensor(float(np.finfo(np.float32).max), dtype=f32)
+    offset = alg in ("OMSA", "AOMSA")
+    for deg in (2, 3, 9, 10, 16):
+        msgs = torch.tensor(rng.normal(0, 3, (64, deg, 8)), dtype=f32)
+        msgs[1:8, 1] = msgs[1:8, 0].abs()           # ties at the minimum
+        msgs[8:12, :2] = 0.0
+        msgs[12:16, 0] = -0.0
+        msgs[16:20] = float("inf") * torch.sign(msgs[16:20])
+        msgs[20:24, deg - 1] = float("nan")
+        msgs[24:28] = msgs[24:28].round()           # many ties
+        syn = torch.tensor(rng.integers(0, 2, (64, 8)), dtype=torch.int8)
+        second = torch.tensor(rng.integers(0, 2, (64, 8)), dtype=torch.bool)
+        factor = torch.where(second, torch.tensor(f2, dtype=f32),
+                             torch.tensor(f1, dtype=f32))
+        want = _minsum_values(msgs, torch.where(syn == 1, -one, one),
+                              factor[:, None, :], not offset, big, one)
+        if thr is not None:
+            want = torch.clamp(want, min=-torch.tensor(thr, dtype=f32),
+                               max=torch.tensor(thr, dtype=f32))
+        got = _rebuild(*_record(msgs, syn, factor, offset, thr is not None,
+                                0.0 if thr is None else thr))
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        assert bool(same.all()), (deg, int((~same).sum()))
+        # Bit for bit, signed zeros included (a NaN's sign aside).
+        finite = ~torch.isnan(want)
+        assert torch.equal(got[finite].view(torch.int32),
+                           want[finite].view(torch.int32))
+
+
+def _cluster_model_trial(layout, cluster, alg, cap, use_thr, alice, bob,
+                         log_p, f1, f2, thr):
+    """Plain model of the cluster kernel's trial (``decode_frame``) read
+    from its tables: flooding with the message formed on read as clamp(t -
+    v) from the totals and the stored records (the first sweep unclamped),
+    the decision parity taken in the check pass (the adaptive pair's factor
+    and the convergence test of the sweep before), the bit pass's
+    llr-first totals over the stored values in slot order, one parity-only
+    pass after the last sweep, and each frame's exit at its vote."""
+    checks, bits, bit_ext = _decoded_tables(layout, cluster)
+    f32 = torch.float32
+    adaptive = TAlg[alg].is_adaptive
+    offset = alg in ("OMSA", "AOMSA")
+    ext = torch.tensor(bit_ext)
+    a_int = alice[:, ext].t().to(torch.bool)
+    lp = torch.tensor(log_p, dtype=f32)
+    llr = torch.where(bob[:, ext].t() == 1, -lp, lp)
+    batch = alice.shape[0]
+    tot = llr.clone()
+    syn = [a_int[torch.tensor(b)].sum(dim=1) % 2 for (_, _, _, b) in checks]
+    neg_same = use_thr and thr < 0
+    zero = torch.zeros((), dtype=f32) * (1.0 if neg_same else -1.0)
+    recs = [(zero.expand(count, batch), zero.expand(count, batch),
+             torch.full((count, deg, batch), neg_same),
+             torch.zeros((count, deg, batch), dtype=torch.bool))
+            for (_, count, deg, _) in checks]
+    active = torch.ones(batch, dtype=torch.bool)
+    conv = torch.zeros(batch, dtype=torch.bool)
+    iters = torch.full((batch,), cap, dtype=torch.int32)
+    final = tot.clone()
+    big = torch.tensor(float("inf"), dtype=f32)
+
+    def parity():
+        return torch.stack([
+            ((syn[i] + (tot[torch.tensor(b)] <= 0).sum(dim=1)) % 2 == 1
+             ).any(dim=0) for i, (_, _, _, b) in enumerate(checks)]).any(dim=0)
+
+    for it in range(cap):
+        bound = torch.tensor(thr, dtype=f32) if use_thr and it > 0 else big
+        new, bad = [], torch.zeros(batch, dtype=torch.bool)
+        for i, (_, count, deg, b) in enumerate(checks):
+            t = tot[torch.tensor(b)]
+            par = (syn[i] + (t <= 0).sum(dim=1)) % 2 == 1
+            bad |= par.any(dim=0)
+            m = torch.minimum(torch.maximum(t - _rebuild(*recs[i]), -bound),
+                              bound)
+            factor = torch.where(par & adaptive, torch.tensor(f2, dtype=f32),
+                                 torch.tensor(f1, dtype=f32))
+            new.append(_record(m, syn[i], factor, offset, use_thr, thr))
+        vote = bad if (adaptive or it > 0) else torch.ones_like(bad)
+        newly = active & ~vote
+        conv |= newly
+        iters = torch.where(newly, it + 1 if adaptive else it, iters)
+        final = torch.where(newly[None, :], tot, final)
+        active &= vote
+        if not bool(active.any()):
+            break
+        recs = new
+        values = torch.zeros((layout.num_checks, 32, batch), dtype=f32)
+        for (start, count, deg, _), rec in zip(checks, recs):
+            values[start:start + count, :deg] = _rebuild(*rec)
+        tot = llr.clone()
+        for start, count, deg, c, k in bits:
+            for j in range(deg):
+                tot[start:start + count] = (tot[start:start + count]
+                                            + values[c[:, j], k[:, j]])
+    else:
+        if not adaptive and cap > 0:
+            conv |= active & ~parity()
+    final = torch.where(active[None, :], tot, final)
+    keys = ((final <= 0) == a_int).all(dim=0)
+    return conv, keys, iters
+
+
+@pytest.mark.parametrize("use_thr", [False, True])
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_cluster_schedule_model_equals_plain(irregular, alg, f1, f2, use_thr):
+    """The cluster kernel's schedule, modelled from its tables at two CTAs
+    a cluster, equals the plain f32 trial bit for bit on 21 frames of the
+    N=288 code in its waterfall (some converge at once, some late, some
+    run to the cap)."""
+    alice, bob, _, _ = (torch.tensor(x) for x in
+                        channel_case(irregular, 21, 0.07, 41))
+    thr = THRESHOLD if use_thr else 0.0
+    want = generic_stream.make_generic_stream_trial(
+        irregular, TAlg[alg], 12, use_thr)(alice, bob, log_ratio(0.07), f1,
+                                           f2, thr)
+    got = _cluster_model_trial(layout_for(irregular), 2, alg, 12, use_thr,
+                               alice, bob, log_ratio(0.07), f1, f2, thr)
+    assert 0 < int(want[0].sum()) < 21
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------
@@ -803,3 +1083,194 @@ def test_spa_long_checks_and_forced_frames_on_card(cuda_device, alg, group):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w.cpu()), use_thr
+
+
+# ---------------------------------------------------------------------------
+# On the card: the cluster kernel == plain, exactly, and its route.
+# ---------------------------------------------------------------------------
+
+
+def _alist100k():
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+
+    return read_sparse_matrix_alist(
+        ALIST / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx")
+
+
+def _assert_cluster_equals_plain(matrix, alg, f1, f2, use_thr, thr, alice,
+                                 bob, lp):
+    """A trial whose launch takes the cluster kernel with every frame equals
+    the plain version and the batch-minor kernel exactly; returns its conv
+    and iterations."""
+    trial = generic_stream.make_generic_stream_trial(matrix, TAlg[alg], CAP,
+                                                     use_thr)
+    generic_stream.reset_counts()
+    got = trial(alice, bob, lp, f1, f2, thr)
+    torch.cuda.synchronize()
+    assert generic_stream.counts() == (1, 0, 1, alice.shape[0])
+    want = trial.plain(alice, bob, lp, f1, f2, thr)
+    minor = generic_stream.make_generic_stream_trial(
+        matrix, TAlg[alg], CAP, use_thr, generic_stream.GROUPS[0])(
+            alice, bob, lp, f1, f2, thr)
+    for g, w, o in zip(got, want, minor):
+        assert torch.equal(g.cpu(), w.cpu())
+        assert torch.equal(g.cpu(), o.cpu())
+    return got[0].cpu(), got[2].cpu()
+
+
+@pytest.mark.cuda
+def test_cluster_plan_equals_the_library(cuda_device):
+    """The Python mirror of the cluster kernel's layout (threads and shared
+    bytes per CTA, record bytes per cluster, its limits) equals the
+    library's for every group size and cluster size."""
+    lib = generic_stream._lib()
+    for n, m in ((288, 144), (10240, 2841), (22000, 11000), (N100K, M100K),
+                 (800000, 250000)):
+        for f in generic_stream.CLUSTER_FRAMES:
+            for c in generic_stream.CLUSTER_SIZES:
+                assert lib.generic_cluster_threads(n, m, f, c) == min(
+                    generic_stream.THREADS,
+                    f * max(generic_stream._share(n, c),
+                            generic_stream._share(m, c)))
+                assert lib.generic_cluster_shared_bytes(n, m, f, c) \
+                    == generic_stream.cluster_shared_bytes(n, m, f, c)
+            assert lib.generic_cluster_record_bytes(m, f) \
+                == -(-16 * m * f // 256) * 256
+    assert (lib.generic_cluster_max_groups(), lib.generic_cluster_max_degree(),
+            lib.generic_cluster_max_frames()) == (
+        generic_stream.MAX_GROUPS, generic_stream.MAX_DEGREE,
+        max(generic_stream.CLUSTER_FRAMES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_thr", [False, True])
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_cluster_kernel_matches_plain_at_100k_on_card(cuda_device, alg, f1,
+                                                      f2, use_thr):
+    """The N=102400 alist code in its waterfall (64 frames at QBER 0.038,
+    cap 30), the clamp off and on: the cluster kernel equals the plain
+    version and the batch-minor kernel in conv, keys and iterations."""
+    matrix = _alist100k()
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.038)
+    alice, bob = _card_keys(n, 64, ne, seed=11, device=cuda_device)
+    _assert_cluster_equals_plain(matrix, alg, f1, f2, use_thr,
+                                 2.5 if use_thr else 0.0, alice, bob,
+                                 log_ratio(ne / n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [-1, 1, 5])
+def test_cluster_batches_off_the_clusters_in_flight_on_card(cuda_device,
+                                                            extra):
+    """Batches that are not a multiple of the groups the clusters in flight
+    take at once (one group per cluster, plus or less a few frames; the last
+    group ragged), and batches below one group, equal the plain version,
+    NMSA and AOMSA."""
+    matrix = stream_sized_code()
+    n = matrix.num_bit_nodes
+    plan = generic_stream.launch_plan(
+        matrix, fused_generic._flags(TAlg.NMSA), cuda_device)
+    for frames in (plan.clusters * plan.cluster.frames + extra,
+                   plan.cluster.frames - 1 if extra < 0 else extra):
+        if frames < 1:
+            continue
+        ne = int(n * 0.075)
+        alice, bob = _card_keys(n, frames, ne, seed=frames,
+                                device=cuda_device)
+        for alg, f1, f2 in (ALGS[0], ALGS[3]):
+            _assert_cluster_equals_plain(matrix, alg, f1, f2, False, 0.0,
+                                         alice, bob, log_ratio(ne / n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_cluster_frames_at_the_cap_on_card(cuda_device, alg, f1, f2):
+    """Groups that mix frames without errors (they converge at once) with
+    frames deep in the waterfall that run to the cap: every frame's outcome,
+    the frozen ones' included, equals the plain version."""
+    matrix = stream_sized_code()
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.09)
+    frames = 2 * max(generic_stream.CLUSTER_FRAMES) + 3
+    alice, bob = _card_keys(n, frames, ne, seed=3, device=cuda_device)
+    for f in (0, 5, frames - 1):
+        bob[f] = alice[f]
+    conv, iters = _assert_cluster_equals_plain(
+        matrix, alg, f1, f2, False, 0.0, alice, bob, log_ratio(ne / n))
+    assert bool(conv[0]) and int(iters[0]) == 1
+    assert int(iters.max()) == CAP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,f1,f2", [ALGS[0], ALGS[3]])
+def test_cluster_long_checks_on_card(cuda_device, alg, f1, f2):
+    """Checks of more than the register run's 16 edges (a regular code with
+    rows of 30: the two-pass path, both words of the record) equal the
+    plain version, the clamp off and on."""
+    matrix = generate_regular_ldpc(num_bits=2000, num_checks=200,
+                                   column_weight=3, seed=4)
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.012)
+    alice, bob = _card_keys(n, 41, ne, seed=13, device=cuda_device)
+    for use_thr in (False, True):
+        _assert_cluster_equals_plain(matrix, alg, f1, f2, use_thr,
+                                     2.5 if use_thr else 0.0, alice, bob,
+                                     log_ratio(ne / n))
+
+
+@pytest.mark.cuda
+def test_cluster_forced_stream_10k_on_card(cuda_device):
+    """The 10k alist code forced to the stream engine takes the cluster
+    kernel with one CTA a cluster (a group of 4 frames) and equals the
+    plain version, the batch-minor kernel and the fused generic kernel."""
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
+
+    matrix = read_sparse_matrix_alist(
+        ALIST / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx")
+    plan = generic_stream.launch_plan(
+        matrix, fused_generic._flags(TAlg.NMSA), cuda_device)
+    assert (plan.cluster.frames, plan.cluster.cluster) == (4, 1)
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.032)
+    alice, bob = _card_keys(n, 257, ne, seed=5, device=cuda_device)
+    lp = log_ratio(ne / n)
+    for alg, f1, f2 in (ALGS[0], ALGS[3]):
+        _assert_cluster_equals_plain(matrix, alg, f1, f2, False, 0.0, alice,
+                                     bob, lp)
+        trial = generic_stream.make_generic_stream_trial(matrix, TAlg[alg],
+                                                         CAP, False)
+        fused = fused_generic.make_fused_generic_trial(matrix, TAlg[alg], CAP,
+                                                       False)
+        for g, w in zip(trial(alice, bob, lp, f1, f2, 0.0),
+                        fused(alice, bob, lp, f1, f2, 0.0)):
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+def test_cluster_route_counter_on_card(cuda_device):
+    """The route counter: a min-sum trial launch takes the cluster kernel
+    with every frame; decode mode, the SPA pair's trial and a launch that
+    pins the batch-minor group size count a launch and leave the cluster
+    counts as they were."""
+    matrix = stream_sized_code()
+    n, frames = matrix.num_bit_nodes, 37
+    ne = int(n * 0.06)
+    alice, bob = _card_keys(n, frames, ne, seed=9, device=cuda_device)
+    lp = log_ratio(ne / n)
+    lpt = torch.tensor(lp, device=cuda_device)
+    llr = torch.where(bob == 1, -lpt, lpt)
+    syn = calculate_syndrome(layout_for(matrix), alice)
+    generic_stream.reset_counts()
+    generic_stream.make_generic_stream_trial(matrix, TAlg.NMSA, CAP, False)(
+        alice, bob, lp, 0.8)
+    assert generic_stream.counts() == (1, 0, 1, frames)
+    generic_stream.make_generic_stream_decoder(matrix, TAlg.NMSA, CAP, False)(
+        llr, syn, 0.8)
+    generic_stream.make_generic_stream_trial(matrix, TAlg.SPA, CAP, False)(
+        alice, bob, lp)
+    generic_stream.make_generic_stream_trial(matrix, TAlg.NMSA, CAP, False,
+                                             generic_stream.GROUPS[1])(
+        alice, bob, lp, 0.8)
+    torch.cuda.synchronize()
+    assert generic_stream.counts() == (4, 0, 1, frames)

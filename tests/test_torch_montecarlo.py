@@ -344,7 +344,7 @@ def test_run_combination_routes_mc(engine, fed):
     mc_expected = not fed and engine != "stream"
     assert (module.COUNTS.plain("mc") > 0) == mc_expected
     assert (module.COUNTS.plain("trial") > 0) == (not mc_expected)
-    assert module.counts() == (0, 0) and module.COUNTS.mc_launches == 0
+    assert not any(module.counts()) and module.COUNTS.mc_launches == 0
     assert 0.0 < res.ratio_trials_success_decoding <= 1.0
 
 

@@ -218,7 +218,7 @@ def test_unported_engines_raise(matrices, change, match, tmp_path, capsys):
         assert tsim.select_engine(code, tcfg) == match.split()[0]
         generic_stream.reset_counts()
         got = tsim.run_combination(code, comb, tcfg, 0, "cpu")
-        assert generic_stream.counts() == (0, 0)
+        assert generic_stream.counts() == (0, 0, 0, 0)
         assert 0.0 < got.ratio_trials_success_decoding <= 1.0
         return
     assert match == "traced"
@@ -368,7 +368,7 @@ def test_rate_adaptive_pinned_stream_matches_jax_xla(tmp_path, monkeypatch):
     combs = _adapted(jm, tm, 0.03, 0.1, 1.5, False, (0.8,))
     generic_stream.reset_counts()
     _, got = _ra_run_both(jm, tm, jcfg, tcfg, combs, tmp_path, monkeypatch)
-    assert generic_stream.counts() == (0, 0)
+    assert generic_stream.counts() == (0, 0, 0, 0)
     assert got.ratio_trials_success_decoding > 0.0
 
 
