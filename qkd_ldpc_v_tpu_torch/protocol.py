@@ -18,6 +18,16 @@ are static per combination: computed on the host, applied as gathers on
 the keys' device. Alice -> Bob "communication" is the syndrome tensor passed
 into the decoder.
 
+What a round needs that depends only on its spec and its device is a round
+plan (``round_plan``), built on the spec's first round on that device and
+reused by every later one: the decoder (``round_decoder(spec)``, so the
+engine gates run once), the index arrays and ``spec.keep`` as int64 tensors
+on the device, and the LLRs of punctured and shortened bits in the spec's
+dtype. The plans are held per (spec, device) by the spec's identity and
+freed with the spec; ``PLAN_COUNTS`` counts their hits and misses. A spec's
+index arrays are read once per device, so they must not be changed in
+place after its first round there: build a new spec instead.
+
 The round runs where its key tensors lie. The decoder is the JAX package's
 choice, the generic decoder, on this port's engines (``round_decoder``):
 in float32 the fused generic kernel where ``generic_feasible`` holds the
@@ -29,10 +39,12 @@ version (the float32 generic torch decoder) on CPU tensors and launch the
 kernel on CUDA tensors, so a CPU round equals the JAX package's round.
 
 A round is the span ``protocol.round`` (``utils.span``); its stages are
-``protocol.positions`` (each index array of the spec put on the keys'
-device), ``protocol.frame`` (the frame and its LLRs), ``protocol.syndrome``,
-``protocol.decode`` (the decoder's choice and its call), ``protocol.compare``
-(the key match) and ``protocol.remove`` (the bit-removal gathers).
+``protocol.plan`` (only where the round builds its plan: the decoder's
+choice, and inside it one ``protocol.positions`` for each index array of
+the spec put on the keys' device), ``protocol.frame`` (the frame and its
+LLRs), ``protocol.syndrome``, ``protocol.decode`` (the decoder's call),
+``protocol.compare`` (the key match) and ``protocol.remove`` (the
+bit-removal gathers). A round whose plan exists opens no ``protocol.plan``.
 """
 
 from __future__ import annotations
@@ -62,7 +74,7 @@ from qkd_ldpc_v_tpu_torch.rate_adapt import (
     HMatrixParams,
     finalize_bits_to_remove,
 )
-from qkd_ldpc_v_tpu_torch.utils import span
+from qkd_ldpc_v_tpu_torch.utils import PlanCache, span
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -185,7 +197,11 @@ def round_decoder(spec: ProtocolSpec) -> Callable[..., DecodeResult]:
     ``generic_feasible``, else the streamed generic kernel's inside
     ``stream_feasible``, else the generic torch decoder; float64 and
     bfloat16 take the generic torch decoder. A kernel's wrapper carries its
-    plain version as ``.plain``."""
+    plain version as ``.plain``.
+
+    A factory: each call runs the gates and builds a new decoder. Rounds
+    call it once per spec and device, when ``round_plan`` builds the
+    spec's plan there, and reuse that decoder."""
     args = (spec.algorithm, spec.max_iterations, spec.use_threshold)
     dtype = _DTYPES[spec.dtype]
     if dtype == torch.float32:
@@ -196,27 +212,86 @@ def round_decoder(spec: ProtocolSpec) -> Callable[..., DecodeResult]:
     return get_decoder(spec.layout, *args, dtype)
 
 
+class PlanCounts:
+    """Hits and misses of the round plans' cache (``round_plan``)."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.hits = 0
+        self.misses = 0
+
+
+PLAN_COUNTS = PlanCounts()
+_PLANS = PlanCache()
+
+
+class RoundPlan(NamedTuple):
+    """What the rounds of one spec on one device share: the decoder, the
+    spec's index arrays as int64 tensors on the device (the three position
+    arrays None at a fixed rate) and the LLRs of punctured and shortened
+    bits as 0-dim tensors there in the spec's dtype."""
+
+    decode: Callable[..., DecodeResult]
+    keep: torch.Tensor
+    payload: Optional[torch.Tensor]
+    punctured: Optional[torch.Tensor]
+    shortened: Optional[torch.Tensor]
+    almost_zero: torch.Tensor
+    llr_max: torch.Tensor
+
+
 def _positions(positions: np.ndarray, device) -> torch.Tensor:
     """One index array of a spec as int64 on ``device``."""
     with span("protocol.positions"):
         return torch.as_tensor(positions.astype(np.int64), device=device)
 
 
-def _run_decode(spec, llr, alice_frame, primary, secondary, threshold):
+def round_plan(spec: ProtocolSpec, device) -> RoundPlan:
+    """The plan of ``spec``'s rounds on ``device``: built, inside the span
+    ``protocol.plan``, on the first round there, and found by every later
+    one."""
+    device = torch.device(device)
+    key = (str(device),)
+    plan = _PLANS.get(spec, extra=key)
+    if plan is not None:
+        PLAN_COUNTS.hits += 1
+        return plan
+    PLAN_COUNTS.misses += 1
+    with span("protocol.plan"):
+        dtype = _DTYPES[spec.dtype]
+        payload = punct = short = None
+        if spec.rate_adaptive:
+            payload, punct, short = (
+                _positions(p, device)
+                for p in (spec.payload_positions, spec.punctured_positions,
+                          spec.shortened_positions))
+        plan = RoundPlan(
+            decode=round_decoder(spec),
+            keep=_positions(spec.keep, device),
+            payload=payload,
+            punctured=punct,
+            shortened=short,
+            almost_zero=torch.tensor(ALMOST_ZERO, dtype=dtype, device=device),
+            llr_max=torch.tensor(torch.finfo(dtype).max, dtype=dtype,
+                                 device=device),
+        )
+    _PLANS.put(spec, plan, extra=key)
+    return plan
+
+
+def _run_decode(spec, plan, llr, alice_frame, primary, secondary, threshold):
     """Shared tail: Alice syndrome -> decode -> key match -> bit removal."""
     with span("protocol.syndrome"):
         syndrome = calculate_syndrome(spec.layout, alice_frame)
     with span("protocol.decode"):
-        res = round_decoder(spec)(llr, syndrome, primary, secondary,
-                                  threshold)
+        res = plan.decode(llr, syndrome, primary, secondary, threshold)
     with span("protocol.compare"):
         keys_match = (res.decision == alice_frame).all(dim=1)
-    with span("protocol.positions"):
-        keep = torch.as_tensor(spec.keep.astype(np.int64),
-                               device=alice_frame.device)
     with span("protocol.remove"):
-        alice_out = alice_frame.index_select(1, keep)
-        bob_out = res.decision.index_select(1, keep)
+        alice_out = alice_frame.index_select(1, plan.keep)
+        bob_out = res.decision.index_select(1, plan.keep)
     return ProtocolResult(
         syndromes_match=res.syndromes_match,
         keys_match=keys_match,
@@ -249,11 +324,13 @@ def qkd_ldpc(
     or arrays (placed on the card); qber: the accurate QBER of the batch.
     """
     with span("protocol.round"):
+        alice = _keys(alice, None)
+        bob = _keys(bob, alice.device)
+        plan = round_plan(spec, alice.device)
         with span("protocol.frame"):
-            alice = _keys(alice, None)
-            bob = _keys(bob, alice.device)
             llr = llr_from_bits(bob, qber, _DTYPES[spec.dtype])
-        return _run_decode(spec, llr, alice, primary, secondary, threshold)
+        return _run_decode(spec, plan, llr, alice, primary, secondary,
+                           threshold)
 
 
 def qkd_ldpc_rate_adapt(
@@ -283,10 +360,8 @@ def qkd_ldpc_rate_adapt(
         dev = alice_key.device
         bob_key = _keys(bob_key, dev)
         batch = alice_key.shape[0]
-        payload, punct, short = (
-            _positions(p, dev)
-            for p in (spec.payload_positions, spec.punctured_positions,
-                      spec.shortened_positions))
+        plan = round_plan(spec, dev)
+        payload, punct, short = plan.payload, plan.punctured, plan.shortened
         with span("protocol.frame"):
             if alice_punct is None:
                 if punct_generator is None:
@@ -307,7 +382,7 @@ def qkd_ldpc_rate_adapt(
 
             llr = torch.zeros((batch, n_frame), dtype=dtype, device=dev)
             llr[:, payload] = llr_from_bits(bob_key, qber, dtype)
-            llr[:, punct] = ALMOST_ZERO
-            llr[:, short] = torch.finfo(dtype).max
-        return _run_decode(spec, llr, alice_ext, primary, secondary,
+            llr[:, punct] = plan.almost_zero
+            llr[:, short] = plan.llr_max
+        return _run_decode(spec, plan, llr, alice_ext, primary, secondary,
                            threshold)

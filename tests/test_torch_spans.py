@@ -40,9 +40,8 @@ torch.set_num_threads(2)
 PREFIXES = ("sim.", "channel.", "kernel.", "protocol.", "parallel.")
 QBER = 0.075
 CAP = 8
-ROUND_STAGES = ["protocol.positions"] * 3 + [
-    "protocol.frame", "protocol.syndrome", "protocol.decode",
-    "protocol.compare", "protocol.positions", "protocol.remove"]
+ROUND_STAGES = ["protocol.plan", "protocol.frame", "protocol.syndrome",
+                "protocol.decode", "protocol.compare", "protocol.remove"]
 GROUP_TIMEOUT_S = 120
 
 
@@ -142,22 +141,36 @@ def test_no_profiler_opens_no_range(code, monkeypatch):
     assert calls[0] == "protocol.round"
 
 
-@pytest.mark.parametrize("rate_adaptive", [False, True],
-                         ids=["fixed", "rate_adaptive"])
-def test_a_round_records_its_stages(code, rate_adaptive):
-    _, spans = _profiled(_round(code, rate_adaptive))
+@pytest.mark.parametrize("rate_adaptive,warm", [
+    (False, False), (True, False), (True, True)],
+    ids=["fixed", "rate_adaptive", "rate_adaptive_second_round"])
+def test_a_round_records_its_stages(code, rate_adaptive, warm):
+    """A spec's first round builds its plan: the index arrays' uploads
+    (payload, punctured, shortened and ``keep``; ``keep`` alone at a fixed
+    rate) inside ``protocol.plan``. A second round on the spec finds the
+    plan and uploads nothing."""
+    run = _round(code, rate_adaptive)
+    if warm:
+        run()
+    _, spans = _profiled(run)
     assert [s for s in spans if s[0] == "protocol.round"] == [
         ("protocol.round", None)]
     stages = _children(spans, "protocol.round")
-    if rate_adaptive:
-        assert stages == ROUND_STAGES
+    plan = (["protocol.positions"] * 4 if rate_adaptive
+            else ["protocol.positions"])
+    if warm:
+        assert stages == ROUND_STAGES[1:]
+        assert "protocol.positions" not in {name for name, _ in spans}
     else:
-        assert stages == ROUND_STAGES[3:]
+        assert stages == ROUND_STAGES
+        assert _children(spans, "protocol.plan") == plan
     # The decoder's call, on the CPU its plain version, inside the decode
     # stage; nothing else of the program nests deeper.
     assert _children(spans, "protocol.decode") == [
         "kernel.fused_generic.decode"]
-    assert {p for _, p in spans} == {None, "protocol.round", "protocol.decode"}
+    parents = {None, "protocol.round", "protocol.decode"}
+    assert {p for _, p in spans} == (parents if warm
+                                     else parents | {"protocol.plan"})
 
 
 @pytest.mark.parametrize("kind,decode", [
