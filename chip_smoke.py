@@ -1110,16 +1110,16 @@ def print_generic_plan(torch, label, matrix, card):
 
     dev = torch.device("cuda")
     for alg in (DecodingAlgorithm.NMSA, DecodingAlgorithm.SPA_APPROX):
-        launch = fused_generic._launch_plan(matrix, fused_generic._flags(alg),
-                                            dev)
-        for mode, plan in launch.plans.items():
+        built = fused_generic._launch_plan(
+            matrix, fused_generic.generic_flags(alg), dev)
+        for mode, plan in built.plans.items():
             print(f"{label}: {alg.name} {mode} plan: {plan.threads} threads, "
                   f"{plan.shared_bytes} shared bytes, checks in "
-                  f"{plan.checks} memory, {launch.per_sm[mode]} blocks per "
-                  f"SM ({launch.resident[mode]} on the card; {card})",
+                  f"{plan.checks} memory, {built.per_sm[mode]} blocks per "
+                  f"SM ({built.resident[mode]} on the card; {card})",
                   flush=True)
         if alg == DecodingAlgorithm.NMSA:
-            check(launch.per_sm["trial"] >= 2 and launch.per_sm["mc"] >= 2,
+            check(built.per_sm["trial"] >= 2 and built.per_sm["mc"] >= 2,
                   f"{label}: min-sum frames do not share an SM")
 
 
@@ -1571,7 +1571,7 @@ def phase_generic_stream_main_path(torch, card):
     check(select_engine(matrix, run_cfg) == "stream",
           "the 100k alist code does not select the stream engine")
     n, m, e = matrix.num_bit_nodes, matrix.num_check_nodes, matrix.num_edges
-    flags = fused_generic._flags(run_cfg.decoding_algorithm)
+    flags = fused_generic.generic_flags(run_cfg.decoding_algorithm)
     plan = generic_stream.launch_plan(matrix, flags, dev)
     for g in generic_stream.GROUPS:  # the pinned plans, built untimed
         generic_stream.launch_plan(matrix, flags, dev, g)
@@ -1923,7 +1923,7 @@ def phase_mc_vs_plain(torch, card):
     from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
     from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
     from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
-    from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, qc_stream
+    from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, launch, qc_stream
     from qkd_ldpc_v_tpu_torch.ops.channel import (
         chunk_seed, exact_error_count, log_ratio)
 
@@ -1975,9 +1975,9 @@ def phase_mc_vs_plain(torch, card):
             fused_generic.make_fused_generic_montecarlo(code, alg, 100, clamp),
         # The checks forced into the per-block global slice.
         "fused_generic_mc_global": lambda code, alg, clamp, schedule:
-            fused_generic.generic_montecarlo(
+            launch.generic_montecarlo(
                 "fused generic", fused_generic.COUNTS,
-                fused_generic.cached_plans(
+                launch.cached_plans(
                     lambda m, flags, device: fused_generic._Launch(
                         m, flags, device, "global")),
                 code, alg, 100, clamp),
@@ -3676,7 +3676,7 @@ def phase_campaigns(torch, card):
                     generic_stream.make_generic_stream_trial(
                         code.matrix, algorithm, fc.CAP, False),
                     alice, bob, (log_ratio(ne / n), code.alpha, 0.0, 0.0),
-                    fused_generic._flags(algorithm))
+                    fused_generic.generic_flags(algorithm))
     check(compared == CAMPAIGN_POINTS,
           f"phase 6a: {compared} points compared, not {CAMPAIGN_POINTS}")
     check(exact == len(CAMPAIGN_EXACT),

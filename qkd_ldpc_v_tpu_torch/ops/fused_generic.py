@@ -31,12 +31,11 @@ equals it exactly (decisions, convergence, iterations).
 
 Routing is by the tensors' device and nothing else: CPU tensors go to the
 plain version, CUDA tensors launch the kernel, and any other device
-raises. There is no fallback from a failed launch. ``generic_trial`` and
-``generic_decoder`` are that wrapper (``fused_qc.kernel_trial`` /
-``kernel_decoder``) with the generic plain versions; the streamed generic
-kernel (``ops/generic_stream.py``) uses them with its own launch plan.
-``make_fused_generic_frame_trial`` is ``fused_qc.kernel_frame_trial`` with
-the generic plain version.
+raises. There is no fallback from a failed launch. The wrapper body is
+``launch.generic_trial`` / ``generic_montecarlo`` / ``generic_decoder``,
+shared with the streamed generic kernel (``ops/generic_stream.py``), and
+``launch.kernel_frame_trial`` with the generic plain version; this module
+gives it the fused kernel's launch plan.
 
 ``generic_feasible(matrix)`` is this port's gate for the ``generic``
 engine. It picks exactly the codes that the JAX package's
@@ -53,9 +52,9 @@ a check of degree <= 16; the SPA pair: an f32 per slot) — in shared memory
 where one frame fits a block's, else in a per-block global slice.
 ``fused_tables`` builds the kernel's index tables from the layout, and
 ``compress_check`` / ``rebuild_check`` mirror its compressed min-sum check
-for the tests. ``launch_tables`` is the streamed generic kernel's table.
+for the tests.
 
-Counters: as ``fused_qc.KernelCounts`` (``launches``, ``mc_launches``,
+Counters: as ``launch.KernelCounts`` (``launches``, ``mc_launches``,
 ``plain_calls``, ``plain_on_cuda``); ``reset_counts`` zeroes them and
 ``counts`` reads ``(launches, plain_on_cuda)``.
 """
@@ -78,22 +77,24 @@ from qkd_ldpc_v_tpu_torch.ops.decoders import (
     DecodeResult,
     frame_trial,
     get_decoder,
-    make_trial,
 )
-from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+from qkd_ldpc_v_tpu_torch.ops.launch import (
     MAX_SHARED_BYTES,
     MODES,
-    SELECTION_BYTES,
     KernelCounts,
+    align16,
     cached_plans,
-    check_flags,
-    kernel_decoder,
+    edge_offsets,
+    generic_decoder,
+    generic_flags,
+    generic_montecarlo,
+    generic_trial,
     kernel_frame_trial,
-    kernel_montecarlo,
-    kernel_trial,
     pointers,
     stream_of,
+    to_slot_major,
 )
+from qkd_ldpc_v_tpu_torch.ops.philox import SELECTION_BYTES
 
 COUNTS = KernelCounts()
 reset_counts = COUNTS.reset
@@ -123,8 +124,6 @@ SLICE = 16
 # kRun); the check table is padded with this many entries.
 RUN = 16
 
-_SIGNATURES_SET = False
-
 
 def _edge_rows(rows: List[np.ndarray]) -> int:
     """Edge-plane rows of one side in the TPU kernel's layout: each degree
@@ -145,84 +144,15 @@ def generic_feasible(matrix: HMatrix) -> bool:
     return -(-used // LANES) <= MAX_TILES
 
 
-def _lib() -> ctypes.CDLL:
-    global _SIGNATURES_SET
-    lib = kernels.library()
-    if not _SIGNATURES_SET:
-        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_uint)
-        ll = ctypes.c_longlong
-        shape = [p, i, i, i, i]  # table, n, m, e, max_deg
-        tail = [p, i, i]         # slice, grid, threads
-        lib.fused_generic_trial.argtypes = [
-            p, p, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
-        lib.fused_generic_trial.restype = i
-        lib.fused_generic_decode.argtypes = [
-            p, p, i, *shape, i, i, i, f, f, f, *tail, p, p, p, p]
-        lib.fused_generic_decode.restype = i
-        lib.fused_generic_frame.argtypes = lib.fused_generic_decode.argtypes
-        lib.fused_generic_frame.restype = i
-        lib.fused_generic_mc.argtypes = [
-            u, u, i, i, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
-        lib.fused_generic_mc.restype = i
-        lib.fused_generic_resident_blocks.argtypes = [
-            i, i, i, i, i, i, i, ctypes.POINTER(i)]
-        lib.fused_generic_resident_blocks.restype = i
-        lib.fused_generic_shared_bytes.argtypes = [i, i, i, i, i]
-        lib.fused_generic_shared_bytes.restype = ll
-        lib.fused_generic_slice_floats.argtypes = [i, i, i]
-        lib.fused_generic_slice_floats.restype = ll
-        lib.fused_generic_max_threads.argtypes = []
-        lib.fused_generic_max_threads.restype = i
-        _SIGNATURES_SET = True
-    return lib
-
-
-def _offsets(groups, count: int) -> np.ndarray:
-    """[count + 1] edge offsets of the nodes of one side's degree groups."""
-    deg = np.zeros(count, dtype=np.int64)
-    for g in groups:
-        deg[g.node_start:g.node_start + g.count] = g.degree
-    return np.concatenate([[0], np.cumsum(deg)])
-
-
-def launch_tables(layout: EdgeLayout) -> np.ndarray:
-    """The streamed generic kernel's index tables, concatenated as int32:
-    cptr[M+1], cbit[E], bptr[N+1], bedge[E], bit_ext[N], chk_ext[M] (see
-    the header of csrc/generic_decode.cuh)."""
-    parts = [
-        _offsets(layout.check_groups, layout.num_checks),
-        layout.check_edge_bit,
-        _offsets(layout.bit_groups, layout.num_bits),
-        layout.to_bit_major,
-        layout.bit_order,
-        layout.check_order,
-    ]
-    return np.concatenate([np.asarray(x, dtype=np.int64) for x in parts]
-                          ).astype(np.int32)
-
-
 def bit_entries(layout: EdgeLayout) -> np.ndarray:
     """[E] the bit-major edge words in the layout's bit-major order (each
     bit's edges in slot order, ascending check index): the edge's internal
     check c and its slot s in that check's row, as ``c | s << 16``."""
-    cptr = _offsets(layout.check_groups, layout.num_checks)
+    cptr = edge_offsets(layout.check_groups, layout.num_checks)
     check_of = np.repeat(np.arange(layout.num_checks), np.diff(cptr))
     pos = np.asarray(layout.to_bit_major, dtype=np.int64)
     c = check_of[pos]
     return c | ((pos - cptr[c]) << 16)
-
-
-def _slot_major(groups, values) -> np.ndarray:
-    """[E] one side's edge values from node-major order within each degree
-    group ([count, degree]) to slot-major ([degree, count])."""
-    out = np.empty_like(values)
-    for g in groups:
-        size = g.count * g.degree
-        block = values[g.edge_offset:g.edge_offset + size]
-        out[g.edge_offset:g.edge_offset + size] = \
-            block.reshape(g.count, g.degree).T.reshape(-1)
-    return out
 
 
 def _rows(groups, count: int, slot_major: bool) -> np.ndarray:
@@ -256,8 +186,8 @@ def fused_tables(layout: EdgeLayout, slot_major: bool) -> np.ndarray:
     cbit = np.asarray(layout.check_edge_bit, dtype=np.int64)
     bent = bit_entries(layout)
     if slot_major:
-        cbit = _slot_major(layout.check_groups, cbit)
-        bent = _slot_major(layout.bit_groups, bent)
+        cbit = to_slot_major(layout.check_groups, cbit)
+        bent = to_slot_major(layout.bit_groups, bent)
     parts = [
         _rows(layout.check_groups, layout.num_checks, slot_major).reshape(-1),
         _rows(layout.bit_groups, layout.num_bits, slot_major).reshape(-1),
@@ -346,10 +276,6 @@ def code_shape(layout: EdgeLayout) -> Tuple[int, int, int, int]:
     return layout.num_bits, layout.num_checks, layout.num_edges, max_deg
 
 
-def _align16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
 def check_floats(m: int, max_deg: int, spa: bool) -> int:
     """Floats of one frame's checks: min-sum 8 bytes of value pair and 2
     bits per edge, in words, per check; the SPA pair one f32 per slot of
@@ -368,8 +294,8 @@ def shared_bytes(n: int, m: int, max_deg: int, spa: bool, slice_: bool,
     bits = 4 * (-(-n // 32))
     msgs = 0 if slice_ else 4 * check_floats(m, max_deg, spa)
     if mode == "mc":
-        msgs = max(msgs, _align16(SELECTION_BYTES) + bits)
-    size = _align16(_align16(4 * n) + msgs) + 4 * (-(-m // 32))
+        msgs = max(msgs, align16(SELECTION_BYTES) + bits)
+    size = align16(align16(4 * n) + msgs) + 4 * (-(-m // 32))
     if mode != "decode":
         size += bits
     if mode in ("trial", "mc"):
@@ -380,12 +306,13 @@ def shared_bytes(n: int, m: int, max_deg: int, spa: bool, slice_: bool,
 def launch_plan(matrix: HMatrix, flags: int, mode: str,
                 checks: Optional[str] = None,
                 threads: Optional[int] = None) -> LaunchPlan:
-    """The launch plan of one mode and template ``flags`` (``_flags``): the
-    checks in shared memory where one frame fits a block's, else in global
-    memory; ``THREADS[0]`` threads where two blocks fit an SM's shared
-    memory, else ``THREADS[1]`` (``checks`` and ``threads`` force either,
-    for tests and probes). Raises ``NotImplementedError`` where even the
-    totals and key bits exceed a block's shared memory."""
+    """The launch plan of one mode and template ``flags``
+    (``launch.generic_flags``): the checks in shared memory where one frame
+    fits a block's, else in global memory; ``THREADS[0]`` threads where two
+    blocks fit an SM's shared memory, else ``THREADS[1]`` (``checks`` and
+    ``threads`` force either, for tests and probes). Raises
+    ``NotImplementedError`` where even the totals and key bits exceed a
+    block's shared memory."""
     n, m, _, max_deg = code_shape(layout_for(matrix))
     spa = bool((flags >> 2) & 3)
     if checks is None:
@@ -413,10 +340,7 @@ class _Launch:
     tables on the device and, per mode, the ``LaunchPlan`` and the blocks
     that fit on one SM (``per_sm``) and on the card (``resident``) at once.
     ``checks`` and ``threads`` force the plan (tests and probes only).
-    ``trial``, ``mc``, ``frame`` and ``decode`` launch the kernel and
-    return its CUDA error code (arguments: see ``fused_qc.kernel_trial``,
-    ``fused_qc.kernel_montecarlo``, ``fused_qc.kernel_frame_trial`` and
-    ``fused_qc.kernel_decoder``)."""
+    ``launch`` launches one mode."""
 
     def __init__(self, matrix: HMatrix, flags: int, device: torch.device,
                  checks: Optional[str] = None,
@@ -436,7 +360,7 @@ class _Launch:
             launch_flags = flags | (SLICE if plan.checks == "global" else 0)
             per_sm = ctypes.c_int(0)
             with torch.cuda.device(device):
-                resident = _lib().fused_generic_resident_blocks(
+                resident = kernels.library().fused_generic_resident_blocks(
                     n, m, e, max_deg, launch_flags, MODES[mode],
                     plan.threads, ctypes.byref(per_sm))
             if resident <= 0:
@@ -449,98 +373,27 @@ class _Launch:
             dtype=torch.int32, device=device)
         self.shape = (self.table.data_ptr(), n, m, e, max_deg)
 
-    def _launch(self, mode: str, batch: int, scalars, device):
-        """(scalars with the plan's flags, (slice, grid, threads), the slice
-        tensor) of one launch. The slice is freed once the launch is
-        queued; the caching allocator reuses it only in stream order."""
+    def launch(self, mode: str, batch: int, inputs, scalars, outs) -> int:
+        """Launch the kernel's entry of ``mode`` on ``batch`` frames and
+        return its CUDA error code (``inputs``, ``scalars`` and ``outs``:
+        see ``launch.kernel_trial``). Where the plan puts the checks in
+        global memory, the launch adds ``SLICE`` and a slice per resident
+        block; the slice is freed once the launch is queued, and the caching
+        allocator reuses it only in stream order."""
         plan = self.plans[mode]
-        if plan.checks == "shared":
-            return scalars, (None, batch, plan.threads), None
-        blocks = min(batch, self.resident[mode])
-        ext = torch.empty(blocks * plan.slice_floats, dtype=torch.float32,
-                          device=device)
-        return ((scalars[0] | SLICE,) + tuple(scalars[1:]),
-                (ext.data_ptr(), blocks, plan.threads), ext)
-
-    def trial(self, alice, bob, scalars, outs) -> int:
-        scalars, tail, _keep = self._launch("trial", alice.shape[0], scalars,
-                                            alice.device)
-        return _lib().fused_generic_trial(
-            *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            *tail, *pointers(*outs), stream_of(alice))
-
-    def mc(self, draw, scalars, outs) -> int:
-        scalars, tail, _keep = self._launch("mc", draw[-1], scalars,
-                                            outs[0].device)
-        return _lib().fused_generic_mc(
-            *draw, *self.shape, *scalars, *tail, *pointers(*outs),
+        tail, ext = (None, batch, plan.threads), None
+        if plan.checks == "global":
+            blocks = min(batch, self.resident[mode])
+            ext = torch.empty(blocks * plan.slice_floats, dtype=torch.float32,
+                              device=outs[0].device)
+            scalars = (scalars[0] | SLICE,) + tuple(scalars[1:])
+            tail = (ext.data_ptr(), blocks, plan.threads)
+        return getattr(kernels.library(), f"fused_generic_{mode}")(
+            *inputs, *self.shape, *scalars, *tail, *pointers(*outs),
             stream_of(outs[0]))
-
-    def frame(self, alice, llr, scalars, outs) -> int:
-        scalars, tail, _keep = self._launch("frame", alice.shape[0], scalars,
-                                            alice.device)
-        return _lib().fused_generic_frame(
-            *pointers(alice, llr), alice.shape[0], *self.shape, *scalars,
-            *tail, *pointers(*outs), stream_of(alice))
-
-    def decode(self, llr, syndrome, scalars, outs) -> int:
-        scalars, tail, _keep = self._launch("decode", llr.shape[0], scalars,
-                                            llr.device)
-        return _lib().fused_generic_decode(
-            *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            *tail, *pointers(*outs), stream_of(llr))
 
 
 _launch_plan = cached_plans(_Launch)
-
-
-def _flags(algorithm: DecodingAlgorithm) -> int:
-    """The generic kernels' template flags: bit 0 adaptive, bit 1 offset
-    (OMSA/AOMSA), bits 2-3 the check update (``fused_qc.check_flags``: 4
-    SPA, 8 SPA-lin). The fused kernel's launch adds ``SLICE`` where its
-    plan puts the checks in global memory."""
-    offset = algorithm in (DecodingAlgorithm.OMSA, DecodingAlgorithm.AOMSA)
-    return (int(algorithm.is_adaptive) | (int(offset) << 1)
-            | (check_flags(algorithm) << 2))
-
-
-def generic_trial(kernel: str, counts: KernelCounts, plan_for: Callable,
-                  matrix: HMatrix, algorithm: DecodingAlgorithm,
-                  max_iterations: int, use_threshold: bool) -> Callable:
-    """``fused_qc.kernel_trial`` of a generic kernel, with the generic plain
-    version: the f32 generic torch decoder, ``calculate_syndrome`` and the
-    key compare."""
-    plain = make_trial(layout_for(matrix), algorithm, max_iterations,
-                       use_threshold, torch.float32)
-    return kernel_trial(kernel, counts, plan_for, matrix,
-                        _flags(algorithm), matrix.num_bit_nodes,
-                        max_iterations, use_threshold, plain)
-
-
-def generic_montecarlo(kernel: str, counts: KernelCounts, plan_for: Callable,
-                       matrix: HMatrix, algorithm: DecodingAlgorithm,
-                       max_iterations: int, use_threshold: bool) -> Callable:
-    """``fused_qc.kernel_montecarlo`` of a generic kernel, with the generic
-    plain trial."""
-    plain = make_trial(layout_for(matrix), algorithm, max_iterations,
-                       use_threshold, torch.float32)
-    return kernel_montecarlo(kernel, counts, plan_for, matrix,
-                             _flags(algorithm), matrix.num_bit_nodes,
-                             max_iterations, use_threshold, plain)
-
-
-def generic_decoder(kernel: str, counts: KernelCounts, plan_for: Callable,
-                    matrix: HMatrix, algorithm: DecodingAlgorithm,
-                    max_iterations: int,
-                    use_threshold: bool) -> Callable[..., DecodeResult]:
-    """``fused_qc.kernel_decoder`` of a generic kernel, with the f32 generic
-    torch decoder as its plain version."""
-    plain = get_decoder(layout_for(matrix), algorithm, max_iterations,
-                        use_threshold, torch.float32)
-    return kernel_decoder(kernel, counts, plan_for, matrix,
-                          _flags(algorithm), matrix.num_bit_nodes,
-                          matrix.num_check_nodes, max_iterations,
-                          use_threshold, plain)
 
 
 def make_fused_generic_trial(
@@ -600,7 +453,7 @@ def make_fused_generic_frame_trial(
     plain = frame_trial(decode, lambda alice_frame: calculate_syndrome(
         layout, alice_frame))
     return kernel_frame_trial("fused generic", COUNTS, _launch_plan, matrix,
-                              _flags(algorithm), matrix.num_bit_nodes,
+                              generic_flags(algorithm), matrix.num_bit_nodes,
                               max_iterations, use_threshold, plain)
 
 

@@ -19,8 +19,8 @@ Both have the signatures and returns of ``ops/fused_generic.py``'s
 wrappers and the same plain versions (the f32 generic torch decoder plus
 ``calculate_syndrome`` and the key compare), so the two generic kernels
 give identical results wherever both run. The wrapper body is
-``fused_generic.generic_trial`` / ``generic_decoder``; this module gives it
-the streamed kernel's launch plan. Routing is by the tensors' device and
+``launch.generic_trial`` / ``generic_decoder``; this module gives it the
+streamed kernel's launch plan. Routing is by the tensors' device and
 nothing else: CPU tensors go to the plain version, CUDA tensors launch the
 kernel (or raise), and any other device raises. There is no fallback from
 a failed launch.
@@ -37,7 +37,7 @@ frame in an L2-resident slice, groups taken from an atomic counter. Decode
 mode (an f32 LLR plane more), the SPA pair (no two-minimum form), codes
 beyond those limits and launches that pin ``group`` take the batch-minor
 kernel (``csrc/generic_stream.cu``). ``cluster_tables`` builds the cluster
-kernel's tables.
+kernel's tables and ``launch_tables`` the batch-minor kernel's.
 
 The batch-minor kernel decodes a group of F frames per block with
 batch-minor messages (``[E, F]`` f32 per block in a global scratch) and
@@ -52,11 +52,10 @@ scratch bytes, ``shared_bytes`` a block's shared memory, and
 whose planes exceed it (at F=8, N + M > 227 KB, e.g. N=200k at rate 0.7);
 F=16 serves the codes whose 2N bytes of decisions fit.
 
-``stream_feasible`` is the JAX package's gate for its ``stream`` engine,
-copied as a predicate so that ``simulation.select_engine`` names the
-engine JAX would run; the kernel itself serves any code within its shared
-memory (``tpu.force_engine = "stream"`` sends a code inside the generic
-gate here too). The JAX sweep's two-phase straggler re-decode for this
+The kernel serves any code within its shared memory, inside the JAX
+package's ``stream`` gate (``engines.stream_feasible``) or not
+(``tpu.force_engine = "stream"`` sends a code inside the generic gate here
+too). The JAX sweep's two-phase straggler re-decode for this
 engine (``tpu.phase1_iterations``) is not ported: a group iterates to its
 slowest frame, but a frame that has converged makes no more loads or
 stores, and the measured waste does not call for it (PERF.md).
@@ -71,7 +70,6 @@ comparisons make. ``reset_counts`` zeroes them and ``counts`` reads
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -83,19 +81,16 @@ from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, layout_for
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
-from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
-    _offsets,
-    _slot_major,
-    generic_decoder,
-    generic_trial,
-    launch_tables,
-)
-from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
+from qkd_ldpc_v_tpu_torch.ops.launch import (
     MAX_SHARED_BYTES,
     KernelCounts,
     cached_plans,
+    edge_offsets,
+    generic_decoder,
+    generic_trial,
     pointers,
     stream_of,
+    to_slot_major,
 )
 
 
@@ -119,27 +114,11 @@ COUNTS = StreamCounts()
 reset_counts = COUNTS.reset
 counts = COUNTS.get
 
-# The JAX package's gate (pallas_stream.py::stream_feasible, 128 lanes).
-_JAX_LANES = 128
-
 # Frames per group the library carries, narrowest first
 # (csrc/generic_stream.cu::Group).
 GROUPS = (8, 16)
 # Threads per block: one 1024-thread block per SM.
 THREADS = 1024
-
-_SIGNATURES_SET = False
-
-
-def stream_feasible(matrix: HMatrix) -> bool:
-    """The JAX package's ``stream_feasible`` verdict: more than 256 edge rows
-    of 128 lanes on the bit side at its widest degree, and check degrees
-    under 64."""
-    if not matrix.bit_nodes or not matrix.check_nodes:
-        return False
-    dmax_b = max(len(r) for r in matrix.bit_nodes)
-    dmax_c = max(len(r) for r in matrix.check_nodes)
-    return dmax_b * -(-matrix.num_bit_nodes // _JAX_LANES) > 256 and dmax_c < 64
 
 
 def _round_up(x: int, a: int) -> int:
@@ -309,6 +288,22 @@ def _layout_plan(layout: EdgeLayout, mode: str, spa: bool,
                  len(layout.check_groups), len(layout.bit_groups), frames)
 
 
+def launch_tables(layout: EdgeLayout) -> np.ndarray:
+    """The batch-minor kernel's index tables, concatenated as int32:
+    cptr[M+1], cbit[E], bptr[N+1], bedge[E], bit_ext[N], chk_ext[M] (see
+    the header of csrc/generic_decode.cuh)."""
+    parts = [
+        edge_offsets(layout.check_groups, layout.num_checks),
+        layout.check_edge_bit,
+        edge_offsets(layout.bit_groups, layout.num_bits),
+        layout.to_bit_major,
+        layout.bit_order,
+        layout.check_order,
+    ]
+    return np.concatenate([np.asarray(x, dtype=np.int64) for x in parts]
+                          ).astype(np.int32)
+
+
 def cluster_tables(layout: EdgeLayout, cluster: int) -> np.ndarray:
     """The cluster kernel's tables, concatenated as int32: the check and bit
     degree groups as (node_start, count, degree, edge_offset); each check
@@ -320,56 +315,18 @@ def cluster_tables(layout: EdgeLayout, cluster: int) -> np.ndarray:
               for g in layout.check_groups + layout.bit_groups]
     cbit = np.asarray(layout.check_edge_bit, dtype=np.int64)
     cword = (cbit // share) << _LOCAL_BITS | cbit % share
-    cptr = _offsets(layout.check_groups, layout.num_checks)
+    cptr = edge_offsets(layout.check_groups, layout.num_checks)
     check_of = np.repeat(np.arange(layout.num_checks), np.diff(cptr))
     pos = np.asarray(layout.to_bit_major, dtype=np.int64)
     bword = check_of[pos] << _SLOT_BITS | (pos - cptr[check_of[pos]])
     parts = [
         np.asarray(groups, dtype=np.int64).reshape(-1),
-        _slot_major(layout.check_groups, cword),
-        _slot_major(layout.bit_groups, bword),
+        to_slot_major(layout.check_groups, cword),
+        to_slot_major(layout.bit_groups, bword),
         layout.bit_order,
     ]
     return np.concatenate([np.asarray(x, dtype=np.int64) for x in parts]
                           ).astype(np.int32)
-
-
-def _lib() -> ctypes.CDLL:
-    global _SIGNATURES_SET
-    lib = kernels.library()
-    if not _SIGNATURES_SET:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.generic_stream_trial.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, f, f, f, f, i, p, i, i, p, p, p, p]
-        lib.generic_stream_trial.restype = i
-        lib.generic_stream_decode.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, f, f, f, i, p, i, i, p, p, p, p]
-        lib.generic_stream_decode.restype = i
-        lib.generic_stream_resident_blocks.argtypes = [i, i, i, i, i]
-        lib.generic_stream_resident_blocks.restype = i
-        lib.generic_stream_shared_bytes.argtypes = [i, i, i]
-        lib.generic_stream_shared_bytes.restype = ctypes.c_longlong
-        lib.generic_stream_scratch_bytes.argtypes = [i, i, i, i, i]
-        lib.generic_stream_scratch_bytes.restype = ctypes.c_longlong
-        lib.generic_cluster_trial.argtypes = [
-            p, p, i, p, i, i, i, i, i, i, i, i, f, f, f, f, p, i, i, i, p, p,
-            p, p]
-        lib.generic_cluster_trial.restype = i
-        lib.generic_cluster_resident.argtypes = [i, i, i, i, i]
-        lib.generic_cluster_resident.restype = i
-        lib.generic_cluster_threads.argtypes = [i, i, i, i]
-        lib.generic_cluster_threads.restype = i
-        lib.generic_cluster_shared_bytes.argtypes = [i, i, i, i]
-        lib.generic_cluster_shared_bytes.restype = ctypes.c_longlong
-        lib.generic_cluster_record_bytes.argtypes = [i, i]
-        lib.generic_cluster_record_bytes.restype = ctypes.c_longlong
-        for name in ("generic_cluster_max_groups",
-                     "generic_cluster_max_degree",
-                     "generic_cluster_max_frames"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        _SIGNATURES_SET = True
-    return lib
 
 
 class _Launch:
@@ -378,10 +335,8 @@ class _Launch:
     device and the resident blocks of each group size whose planes fit;
     where ``group`` is None and ``cluster_plan`` gives one, the cluster
     kernel's plan (``cluster``), tables and the clusters that fit at once
-    (``clusters``), which the trial mode takes. ``trial`` and ``decode``
-    allocate the launch's scratch, launch a kernel and return its CUDA error
-    code (arguments: see ``fused_qc.kernel_trial`` and
-    ``fused_qc.kernel_decoder``)."""
+    (``clusters``), which the trial mode takes. ``launch`` launches one
+    mode."""
 
     def __init__(self, matrix: HMatrix, flags: int, device: torch.device,
                  group: Optional[int], frames: Optional[int] = None):
@@ -398,7 +353,7 @@ class _Launch:
         self.resident = {}
         for g in sizes:
             with torch.cuda.device(device):
-                blocks = _lib().generic_stream_resident_blocks(
+                blocks = kernels.library().generic_stream_resident_blocks(
                     self.n, self.m, flags, g, THREADS)
             if blocks <= 0:
                 raise RuntimeError(
@@ -413,7 +368,7 @@ class _Launch:
                                      frames))
         if self.cluster is not None:
             with torch.cuda.device(device):
-                self.clusters = _lib().generic_cluster_resident(
+                self.clusters = kernels.library().generic_cluster_resident(
                     self.n, self.m, flags, self.cluster.frames,
                     self.cluster.cluster)
             if self.clusters <= 0:
@@ -428,50 +383,40 @@ class _Launch:
                 self.cluster_table.data_ptr(), self.n, self.m, self.e,
                 len(layout.check_groups), len(layout.bit_groups))
 
-    def launch_args(self, batch: int, trial: bool, device):
-        """(group, scratch, grid) of one launch. The scratch is freed once
-        the launch is queued; the caching allocator reuses it only in
-        stream order."""
+    def launch(self, mode: str, batch: int, inputs, scalars, outs) -> int:
+        """Launch a kernel's entry of ``mode`` on ``batch`` frames and return
+        its CUDA error code (``inputs``, ``scalars`` and ``outs``: see
+        ``launch.kernel_trial``): the cluster kernel for a trial where the
+        plan has one, else the batch-minor kernel at the launch's group size
+        over a persistent grid, each block with its slice of the scratch.
+        The scratch is freed once the launch is queued; the caching
+        allocator reuses it only in stream order."""
+        if mode == "trial" and self.cluster is not None:
+            return self._cluster_trial(batch, inputs, scalars, outs)
         group = group_for(batch, self.resident)
         _, grid, nbytes = launch_shape(batch, self.resident[group], self.n,
-                                       self.m, self.e, group, trial)
-        return group, torch.empty(nbytes, dtype=torch.uint8,
-                                  device=device), grid
+                                       self.m, self.e, group, mode == "trial")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=outs[0].device)
+        return getattr(kernels.library(), f"generic_stream_{mode}")(
+            *inputs, *self.shape, *scalars, group, scratch.data_ptr(), grid,
+            THREADS, *pointers(*outs), stream_of(outs[0]))
 
-    def trial(self, alice, bob, scalars, outs) -> int:
-        if self.cluster is not None:
-            return self.cluster_trial(alice, bob, scalars, outs)
-        group, scratch, grid = self.launch_args(alice.shape[0], True,
-                                                alice.device)
-        return _lib().generic_stream_trial(
-            *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            group, scratch.data_ptr(), grid, THREADS, *pointers(*outs),
-            stream_of(alice))
-
-    def cluster_trial(self, alice, bob, scalars, outs) -> int:
+    def _cluster_trial(self, batch: int, inputs, scalars, outs) -> int:
         """A trial launch of the cluster kernel over as many clusters as fit
         at once (at most one a group of frames), counted in ``COUNTS`` where
         it launched."""
-        batch, plan = alice.shape[0], self.cluster
+        plan = self.cluster
         clusters = min(-(-batch // plan.frames), self.clusters)
         scratch = torch.empty(_COUNTER_BYTES + clusters * plan.record_bytes,
-                              dtype=torch.uint8, device=alice.device)
-        err = _lib().generic_cluster_trial(
-            *pointers(alice, bob), batch, *self.cluster_shape, *scalars,
-            scratch.data_ptr(), plan.frames, plan.cluster, clusters,
-            *pointers(*outs), stream_of(alice))
+                              dtype=torch.uint8, device=outs[0].device)
+        err = kernels.library().generic_cluster_trial(
+            *inputs, *self.cluster_shape, *scalars, scratch.data_ptr(),
+            plan.frames, plan.cluster, clusters, *pointers(*outs),
+            stream_of(outs[0]))
         if err == 0:
             COUNTS.cluster_launches += 1
             COUNTS.cluster_frames += batch
         return err
-
-    def decode(self, llr, syndrome, scalars, outs) -> int:
-        group, scratch, grid = self.launch_args(llr.shape[0], False,
-                                                llr.device)
-        return _lib().generic_stream_decode(
-            *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            group, scratch.data_ptr(), grid, THREADS, *pointers(*outs),
-            stream_of(llr))
 
 
 _PLANS = {group: cached_plans(
@@ -483,7 +428,7 @@ _PLANS = {group: cached_plans(
 def launch_plan(matrix: HMatrix, flags: int, device,
                 group: Optional[int] = None) -> _Launch:
     """The cached launch plan of a code, template flags
-    (``fused_generic._flags``), device and group size (``None``: chosen per
+    (``launch.generic_flags``), device and group size (``None``: chosen per
     launch)."""
     if group is not None:
         _check_group(group)

@@ -45,6 +45,11 @@ MASK32 = 0xFFFFFFFF
 ALICE = 0
 ERRORS = 1
 
+# Shared memory of the mc mode's selection state (csrc/philox.cuh::Selection:
+# 256 bins, 512 listed keys, five words; a card test holds it equal to the
+# library's).
+SELECTION_BYTES = 4 * (256 + 512 + 5)
+
 
 def key_of(seed: int) -> Tuple[int, int]:
     """The Philox key of a chunk seed: its low and high 32-bit words."""

@@ -25,13 +25,11 @@ go to the plain version, CUDA tensors launch the kernel (or raise beyond
 its limits), and any other device raises. There is no fallback from a
 failed launch.
 
-``qc_stream_feasible`` is the JAX package's gate for its ``qc_stream``
-engine, copied as a predicate so that ``simulation.select_engine`` names the
-engine JAX would run. Its byte budget is the TPU kernel's VMEM and says
-nothing about this kernel, whose own limits are ``MAX_LIFTING``,
-``MAX_BLOCK_EDGES``, ``MAX_BASE_CHECKS``, ``MAX_BASE_BITS`` and one frame
-within the shared memory of a cluster of 16 CTAs, which admits every shape
-the gate admits (N up to about 786k).
+The kernel's own limits are ``MAX_LIFTING``, ``MAX_BLOCK_EDGES``,
+``MAX_BASE_CHECKS``, ``MAX_BASE_BITS`` and one frame within the shared
+memory of a cluster of 16 CTAs, which admits every shape the JAX package's
+``qc_stream`` gate admits (N up to about 786k; the gate, a TPU VMEM budget
+that says nothing about this kernel, is ``engines.qc_stream_feasible``).
 
 ``plan_for`` is the launch plan of one mode, computed here so that the CPU
 tests reach it: the smallest thread-block cluster (1, 2, 4, 8 or 16 CTAs)
@@ -41,19 +39,18 @@ checks, or the SPA pair's extrinsics). ``compress_row`` and
 ``rebuild_row`` mirror the kernel's compressed check in torch, for tests.
 
 The wrapper body (checks, device routing, outputs, counting) is
-``fused_qc.qc_trial`` / ``qc_montecarlo`` / ``qc_decoder``, shared with the
+``launch.qc_trial`` / ``qc_montecarlo`` / ``qc_decoder``, shared with the
 fused QC kernel; this module gives it the streamed kernel's launch plan.
 
-Counters: as ``fused_qc.KernelCounts`` (``launches``, ``mc_launches``,
+Counters: as ``launch.KernelCounts`` (``launches``, ``mc_launches``,
 ``plain_calls``, ``plain_on_cuda``); ``reset_counts`` zeroes them and
 ``counts`` reads ``(launches, plain_on_cuda)``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional
 
 import torch
 
@@ -61,18 +58,21 @@ from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
-from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
-    SELECTION_BYTES,
+from qkd_ldpc_v_tpu_torch.ops.launch import (
+    MAX_SHARED_BYTES,
     KernelCounts,
-    cached_plans,
+    align16,
     block_edge_table,
+    cached_plans,
     limit_reason,
     pointers,
     qc_decoder,
     qc_montecarlo,
     qc_trial,
+    shape_of,
     stream_of,
 )
+from qkd_ldpc_v_tpu_torch.ops.philox import SELECTION_BYTES
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import _RowUpdate, base_tables
 
 COUNTS = KernelCounts()
@@ -87,36 +87,9 @@ MAX_BLOCK_EDGES = 1024
 MAX_BASE_CHECKS = 1024
 MAX_BASE_BITS = 8191
 
-# The JAX package's gate (pallas_qc_stream.py: _MAX_BLOCK_EDGES, the 72 MiB
-# VMEM budget at its 8-frame tile, 128-lane lifting sizes).
-_JAX_MAX_BLOCK_EDGES = 420
-_JAX_BUDGET = 72 * 1024 * 1024
-_JAX_TILE = 8
-_JAX_LANES = 128
-
-_SIGNATURES_SET = False
-
-
-def qc_stream_feasible(qc: QCMatrix) -> bool:
-    """The JAX package's ``qc_stream_feasible`` verdict: Z a multiple of 128,
-    1-420 block edges, every base row non-empty, and the TPU kernel's
-    resident planes within its VMEM budget."""
-    if qc.lifting % _JAX_LANES:
-        return False
-    rows, _, num_be = base_tables(qc)
-    if num_be == 0 or num_be > _JAX_MAX_BLOCK_EDGES:
-        return False
-    if any(not r for r in rows):
-        return False
-    max_deg = max(len(r) for r in rows)
-    units = 3 * qc.base_bits + qc.base_checks + 2 * max_deg + 6
-    return units * _JAX_TILE * qc.lifting * 4 <= _JAX_BUDGET
-
-
-# The cluster sizes the kernel launches with, smallest first, and what one
-# CTA may hold (csrc/qc_stream.cu: kMaxCluster, kMaxSharedBytes).
+# The cluster sizes the kernel launches with, smallest first
+# (csrc/qc_stream.cu: kMaxCluster); one CTA holds ``MAX_SHARED_BYTES``.
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-MAX_SHARED_BYTES = 232448
 # The kernel's modes (csrc/qc_stream.cu: Mode), by which its shared layout,
 # cluster size and resident clusters differ.
 _MODES = {"decode": 0, "trial": 1, "mc": 2}
@@ -135,10 +108,6 @@ class Plan:
     scratch_words: int
 
 
-def _align16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
 def threads_for(z: int, cluster: int) -> int:
     return min(1024, (-(-z // cluster) + 31) // 32 * 32)
 
@@ -155,11 +124,11 @@ def shared_bytes(mb: int, nb: int, z: int, num_be: int, cluster: int,
     share = (-(-nb * z // cluster) + 31) // 32 * 32
     per_row = -(-z // (cluster * threads))
     syn_words = (mb * per_row + 31) // 32
-    size = _align16(4 * (mb + 1 + 4 * num_be + (nb + 2) // 2))
-    size += _align16(4 * 2 * 16)
+    size = align16(4 * (mb + 1 + 4 * num_be + (nb + 2) // 2))
+    size += align16(4 * 2 * 16)
     if mode == "mc":
-        size += _align16(SELECTION_BYTES)
-    size += _align16(4 * threads * syn_words)
+        size += align16(SELECTION_BYTES)
+    size += align16(4 * threads * syn_words)
     size += 4 * share
     if mode != "decode":
         size += 2 * (share // 8)
@@ -192,19 +161,12 @@ def plan_for_shape(mb: int, nb: int, z: int, num_be: int, max_deg: int,
     return None
 
 
-def _shape(qc: QCMatrix) -> Tuple[int, int, int, int, int]:
-    """(mb, nb, Z, block edges, largest row degree)."""
-    rows, _, num_be = base_tables(qc)
-    return (qc.base_checks, qc.base_bits, qc.lifting, num_be,
-            max((len(r) for r in rows), default=0))
-
-
 def plan_for(qc: QCMatrix, mode: str, spa: bool = False,
              cluster: Optional[int] = None) -> Plan:
     """The launch plan of one mode; raises ``NotImplementedError`` beyond
     the kernel's limits (``_check_limits``)."""
     _check_limits(qc)
-    plan = plan_for_shape(*_shape(qc), mode, spa, cluster)
+    plan = plan_for_shape(*shape_of(qc), mode, spa, cluster)
     if plan is None:
         raise NotImplementedError(
             f"streamed QC kernel: cluster of {cluster} CTAs cannot hold the "
@@ -216,7 +178,7 @@ def _check_limits(qc: QCMatrix) -> None:
     reason = limit_reason(qc, MAX_LIFTING, MAX_BLOCK_EDGES, MAX_BASE_CHECKS)
     if reason is None and qc.base_bits > MAX_BASE_BITS:
         reason = f"base bits = {qc.base_bits} exceeds {MAX_BASE_BITS}"
-    if reason is None and plan_for_shape(*_shape(qc), "mc", False) is None:
+    if reason is None and plan_for_shape(*shape_of(qc), "mc", False) is None:
         reason = (f"one frame (N = {qc.num_bit_nodes}) exceeds the shared "
                   f"memory of {CLUSTER_SIZES[-1]} CTAs")
     if reason is not None:
@@ -242,60 +204,23 @@ def stream_table(qc: QCMatrix) -> List[int]:
     return block_edge_table(qc) + col_edges + halves
 
 
-def _lib() -> ctypes.CDLL:
-    global _SIGNATURES_SET
-    lib = kernels.library()
-    if not _SIGNATURES_SET:
-        p, i, f, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_longlong, ctypes.c_uint)
-        shape = [p, i, i, i, i, i]  # table, mb, nb, z, num_be, max_deg
-        tail = [p, ll, i, i]        # scratch, per_cluster, cluster, grid
-        lib.qc_stream_trial.argtypes = [
-            p, p, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
-        lib.qc_stream_trial.restype = i
-        lib.qc_stream_decode.argtypes = [
-            p, p, i, *shape, i, i, i, f, f, f, *tail, p, p, p, p]
-        lib.qc_stream_decode.restype = i
-        lib.qc_stream_mc.argtypes = [
-            u, u, i, i, i, *shape, i, i, i, f, f, f, f, *tail, p, p, p, p]
-        lib.qc_stream_mc.restype = i
-        lib.qc_stream_threads.argtypes = [i, i]
-        lib.qc_stream_threads.restype = i
-        lib.qc_stream_shared_bytes.argtypes = [i, i, i, i, i, i]
-        lib.qc_stream_shared_bytes.restype = ll
-        lib.qc_stream_scratch_words.argtypes = [i, i, i, i, i]
-        lib.qc_stream_scratch_words.restype = ll
-        lib.qc_stream_resident_clusters.argtypes = [i, i, i, i, i, i, i]
-        lib.qc_stream_resident_clusters.restype = i
-        for name in ("qc_stream_max_lifting", "qc_stream_max_block_edges",
-                     "qc_stream_max_base_checks", "qc_stream_max_base_bits",
-                     "qc_stream_max_cluster"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        _SIGNATURES_SET = True
-    return lib
-
-
 class _Launch:
     """Launch plan of one code, kernel variant and device: the table on the
     device and, per mode, the ``Plan`` and the clusters that fit on the
     card at once. ``cluster`` forces the CTAs per cluster (tests only).
-    ``trial``, ``mc`` and ``decode`` allocate the clusters' global scratch,
-    launch the kernel and return its CUDA error code (arguments: see
-    ``fused_qc.qc_trial``, ``fused_qc.kernel_montecarlo`` and
-    ``fused_qc.qc_decoder``). A refused launch or no resident cluster
+    ``launch`` launches one mode. A refused launch or no resident cluster
     raises; there is no other path."""
 
     def __init__(self, qc: QCMatrix, flags: int, device: torch.device,
                  cluster: Optional[int] = None):
-        mb, nb, z, num_be, max_deg = _shape(qc)
+        mb, nb, z, num_be, max_deg = shape_of(qc)
         spa = bool(flags >> 3)
         self.plans = {mode: plan_for(qc, mode, spa, cluster)
                       for mode in _MODES}
         self.resident = {}
         for mode, code in _MODES.items():
             with torch.cuda.device(device):
-                resident = _lib().qc_stream_resident_clusters(
+                resident = kernels.library().qc_stream_resident_clusters(
                     mb, nb, z, num_be, flags, code, self.plans[mode].cluster)
             if resident <= 0:
                 raise RuntimeError(
@@ -307,34 +232,20 @@ class _Launch:
                                   device=device)
         self.shape = (self.table.data_ptr(), mb, nb, z, num_be, max_deg)
 
-    def _scratch(self, batch: int, mode: str, device):
-        """(scratch tensor, words per cluster, cluster, grid) of one launch.
-        The scratch is freed once the launch is queued; the caching
-        allocator reuses it only in stream order."""
+    def launch(self, mode: str, batch: int, inputs, scalars, outs) -> int:
+        """Launch the kernel's entry of ``mode`` on ``batch`` frames over as
+        many clusters as fit at once, with their global scratch, and return
+        its CUDA error code (``inputs``, ``scalars`` and ``outs``: see
+        ``launch.kernel_trial``). The scratch is freed once the launch is
+        queued; the caching allocator reuses it only in stream order."""
         plan = self.plans[mode]
         clusters = min(batch, self.resident[mode])
         scratch = torch.empty(clusters * plan.scratch_words,
-                              dtype=torch.int32, device=device)
-        return (scratch.data_ptr(), plan.scratch_words, plan.cluster,
-                clusters * plan.cluster), scratch
-
-    def trial(self, alice, bob, scalars, outs) -> int:
-        tail, _keep = self._scratch(alice.shape[0], "trial", alice.device)
-        return _lib().qc_stream_trial(
-            *pointers(alice, bob), alice.shape[0], *self.shape, *scalars,
-            *tail, *pointers(*outs), stream_of(alice))
-
-    def mc(self, draw, scalars, outs) -> int:
-        tail, _keep = self._scratch(draw[-1], "mc", outs[0].device)
-        return _lib().qc_stream_mc(
-            *draw, *self.shape, *scalars, *tail, *pointers(*outs),
-            stream_of(outs[0]))
-
-    def decode(self, llr, syndrome, scalars, outs) -> int:
-        tail, _keep = self._scratch(llr.shape[0], "decode", llr.device)
-        return _lib().qc_stream_decode(
-            *pointers(llr, syndrome), llr.shape[0], *self.shape, *scalars,
-            *tail, *pointers(*outs), stream_of(llr))
+                              dtype=torch.int32, device=outs[0].device)
+        return getattr(kernels.library(), f"qc_stream_{mode}")(
+            *inputs, *self.shape, *scalars, scratch.data_ptr(),
+            plan.scratch_words, plan.cluster, clusters * plan.cluster,
+            *pointers(*outs), stream_of(outs[0]))
 
 
 _launch_plan = cached_plans(_Launch)

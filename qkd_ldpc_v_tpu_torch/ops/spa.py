@@ -20,12 +20,14 @@ tensors launch the entry, and any other device raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from qkd_ldpc_v_tpu_torch import kernels
-from qkd_ldpc_v_tpu_torch.ops.fused_qc import KernelCounts, raise_on_error, stream_of
+from qkd_ldpc_v_tpu_torch.ops.launch import (
+    KernelCounts,
+    raise_on_error,
+    stream_of,
+)
 from qkd_ldpc_v_tpu_torch.ops.linapprox import (
     atanh_lin_approx,
     guard_atanh_ratio,
@@ -38,8 +40,6 @@ STEPS = ("tanh", "atanh", "tanh_lin", "atanh_lin")
 SPANS = {step: f"kernel.spa.{step}" for step in STEPS}
 
 COUNTS = KernelCounts()
-
-_SIGNATURES_SET = False
 
 
 def plain_step(x: torch.Tensor, step: str) -> torch.Tensor:
@@ -56,18 +56,6 @@ def plain_step(x: torch.Tensor, step: str) -> torch.Tensor:
     if step == "atanh_lin":
         return two * atanh_lin_approx(x)
     raise ValueError(f"unknown step {step!r}; expected one of {STEPS}")
-
-
-def _lib() -> ctypes.CDLL:
-    global _SIGNATURES_SET
-    lib = kernels.library()
-    if not _SIGNATURES_SET:
-        lib.spa_steps.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_void_p]
-        lib.spa_steps.restype = ctypes.c_int
-        _SIGNATURES_SET = True
-    return lib
 
 
 def spa_step(x: torch.Tensor, step: str) -> torch.Tensor:
@@ -87,9 +75,8 @@ def spa_step(x: torch.Tensor, step: str) -> torch.Tensor:
     if x.numel() == 0:
         return out
     with span(SPANS[step]):
-        raise_on_error(_lib().spa_steps(x.data_ptr(), out.data_ptr(),
-                                        x.numel(), STEPS.index(step),
-                                        stream_of(x)),
-                       f"spa_steps {step}")
+        raise_on_error(kernels.library().spa_steps(
+            x.data_ptr(), out.data_ptr(), x.numel(), STEPS.index(step),
+            stream_of(x)), f"spa_steps {step}")
         COUNTS.count_launch(step)
     return out

@@ -20,8 +20,8 @@ into the decoder.
 
 What a round needs that depends only on its spec and its device is a round
 plan (``round_plan``), built on the spec's first round on that device and
-reused by every later one: the decoder (``round_decoder(spec)``, so the
-engine gates run once), the index arrays and ``spec.keep`` as int64 tensors
+reused by every later one: the decoder (``round_decoder(spec)``), the index
+arrays and ``spec.keep`` as int64 tensors
 on the device, and the LLRs of punctured and shortened bits in the spec's
 dtype. The plans are held per (spec, device) by the spec's identity and
 freed with the spec; ``PLAN_COUNTS`` counts their hits and misses. A spec's
@@ -30,9 +30,10 @@ place after its first round there: build a new spec instead.
 
 The round runs where its key tensors lie. The decoder is the JAX package's
 choice, the generic decoder, on this port's engines (``round_decoder``):
-in float32 the fused generic kernel where ``generic_feasible`` holds the
-code, else the streamed generic kernel where ``stream_feasible`` does, else
-the generic torch decoder; float64 and bfloat16 always take the generic
+in float32 the fused generic kernel where the generic gate holds the code,
+else the streamed generic kernel where the stream gate does, else the
+generic torch decoder (the gates' verdicts are kept per matrix:
+``engines.verdicts``); float64 and bfloat16 always take the generic
 torch decoder. QC codes take the generic kernels too, as JAX's protocol
 takes its generic decoder on them. The kernels' wrappers run their plain
 version (the float32 generic torch decoder) on CPU tensors and launch the
@@ -56,17 +57,14 @@ import numpy as np
 import torch
 
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
+from qkd_ldpc_v_tpu_torch.engines import DTYPES, verdicts
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, layout_for
 from qkd_ldpc_v_tpu_torch.ops.channel import calculate_syndrome, llr_from_bits
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult, get_decoder
-from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
-    generic_feasible,
-    make_fused_generic_decoder,
-)
+from qkd_ldpc_v_tpu_torch.ops.fused_generic import make_fused_generic_decoder
 from qkd_ldpc_v_tpu_torch.ops.generic_stream import (
     make_generic_stream_decoder,
-    stream_feasible,
 )
 from qkd_ldpc_v_tpu_torch.privacy import bits_positions_to_remove, keep_positions
 from qkd_ldpc_v_tpu_torch.rate_adapt import (
@@ -75,10 +73,6 @@ from qkd_ldpc_v_tpu_torch.rate_adapt import (
     finalize_bits_to_remove,
 )
 from qkd_ldpc_v_tpu_torch.utils import PlanCache, span
-
-_DTYPES = {"float32": torch.float32, "float64": torch.float64,
-           "bfloat16": torch.bfloat16}
-
 
 class ProtocolResult(NamedTuple):
     """Batched analogue of the reference's ``LDPC_result``
@@ -193,21 +187,22 @@ def make_protocol_spec(
 def round_decoder(spec: ProtocolSpec) -> Callable[..., DecodeResult]:
     """The decoder of this spec's rounds: ``decode(llr [B,N], syndrome
     [B,M] int8, primary, secondary, threshold) -> DecodeResult``. In
-    float32 the fused generic kernel's decode mode inside
-    ``generic_feasible``, else the streamed generic kernel's inside
-    ``stream_feasible``, else the generic torch decoder; float64 and
+    float32 the fused generic kernel's decode mode inside the generic gate,
+    else the streamed generic kernel's inside the stream gate
+    (``engines.verdicts``), else the generic torch decoder; float64 and
     bfloat16 take the generic torch decoder. A kernel's wrapper carries its
     plain version as ``.plain``.
 
-    A factory: each call runs the gates and builds a new decoder. Rounds
-    call it once per spec and device, when ``round_plan`` builds the
-    spec's plan there, and reuse that decoder."""
+    A factory: each call builds a new decoder. Rounds call it once per spec
+    and device, when ``round_plan`` builds the spec's plan there, and reuse
+    that decoder."""
     args = (spec.algorithm, spec.max_iterations, spec.use_threshold)
-    dtype = _DTYPES[spec.dtype]
+    dtype = DTYPES[spec.dtype]
     if dtype == torch.float32:
-        if generic_feasible(spec.matrix):
+        gates = verdicts(spec.matrix)
+        if gates.generic:
             return make_fused_generic_decoder(spec.matrix, *args)
-        if stream_feasible(spec.matrix):
+        if gates.stream:
             return make_generic_stream_decoder(spec.matrix, *args)
     return get_decoder(spec.layout, *args, dtype)
 
@@ -260,7 +255,7 @@ def round_plan(spec: ProtocolSpec, device) -> RoundPlan:
         return plan
     PLAN_COUNTS.misses += 1
     with span("protocol.plan"):
-        dtype = _DTYPES[spec.dtype]
+        dtype = DTYPES[spec.dtype]
         payload = punct = short = None
         if spec.rate_adaptive:
             payload, punct, short = (
@@ -328,7 +323,7 @@ def qkd_ldpc(
         bob = _keys(bob, alice.device)
         plan = round_plan(spec, alice.device)
         with span("protocol.frame"):
-            llr = llr_from_bits(bob, qber, _DTYPES[spec.dtype])
+            llr = llr_from_bits(bob, qber, DTYPES[spec.dtype])
         return _run_decode(spec, plan, llr, alice, primary, secondary,
                            threshold)
 
@@ -355,7 +350,7 @@ def qkd_ldpc_rate_adapt(
     solely for trace printing (:1153-1154, 1230-1231).
     """
     with span("protocol.round"):
-        dtype = _DTYPES[spec.dtype]
+        dtype = DTYPES[spec.dtype]
         alice_key = _keys(alice_key, None)
         dev = alice_key.device
         bob_key = _keys(bob_key, dev)

@@ -8,24 +8,14 @@ included), the rate-based lookups, ``make_frame_plan``, ``SimResult``,
 copies of the JAX package's NumPy code (importing that package imports
 JAX); the CSV is byte-identical for identical statistics.
 
-Engines (``select_engine`` names them as the JAX package's
-``pallas_engine`` does, from the same gates; ``tpu.force_engine`` pins
-one):
-  * ``qc``: a QC matrix, ``tpu.use_pallas = true``, float32 — a QC trial
-    kernel chosen by ``qc_kernel``: the fused QC kernel
-    (``ops/fused_qc.py``) where it holds the code, else the streamed QC
-    kernel (``ops/qc_stream.py``), e.g. for every N=102400 QC code;
-  * ``qc_stream``: QC codes inside the JAX package's streamed-QC gate that
-    its fused gate refuses, or any QC code with ``force_engine =
-    "qc_stream"`` — the streamed QC kernel;
-  * ``generic``: any other code inside ``fused_generic.generic_feasible``
-    with ``use_pallas`` and float32 — the fused generic trial
-    (``ops/fused_generic.py``);
-  * ``stream``: codes too large for the generic kernel (the 100k alist
-    code), or any code with ``force_engine = "stream"`` — the streamed
-    generic trial (``ops/generic_stream.py``);
-  * ``xla``: ``use_pallas = false`` or dtype float64/bfloat16 — the generic
-    torch decoder (``ops/decoders.py``), all six algorithms.
+Engines and kernels (``engines.py``): ``select_engine`` names the engine
+of a (matrix, config) as the JAX package's ``pallas_engine`` does, from the
+same gates, whose verdicts are kept per matrix; ``tpu.force_engine`` pins
+one. ``qc`` and ``qc_stream`` run a QC kernel (``qc_kernel``: the fused QC
+kernel where it holds the code, else the streamed QC kernel), ``generic``
+the fused generic kernel, ``stream`` the streamed generic kernel and
+``xla`` (``use_pallas = false`` or dtype float64/bfloat16) the generic
+torch decoder, all six algorithms.
 The kernels' trials launch their CUDA kernels for tensors on a CUDA device
 and run their plain torch versions for tensors on the CPU; the ``xla``
 engine runs on the requested device. Every engine runs all six
@@ -79,7 +69,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -97,45 +86,24 @@ from qkd_ldpc_v_tpu_torch.config import (
     RScalingFactorMap,
     ScalingFactorRange,
 )
+from qkd_ldpc_v_tpu_torch.engines import (  # noqa: F401
+    DTYPES as _DTYPES,
+    _make_trial,
+    frame_engine_trial,
+    montecarlo_trial,
+    qc_kernel,
+    select_engine,
+)
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix, read_matrix
-from qkd_ldpc_v_tpu_torch.models.layout import layout_for
-from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.channel import (
     build_frames,
-    calculate_syndrome,
     chunk_seed,
     exact_error_count,
     generate_keys,
     inject_errors,
     log_ratio,
-    qc_syndrome,
     random_bits,
     rank_chunk_seed,
-)
-from qkd_ldpc_v_tpu_torch.ops.decoders import frame_trial, get_decoder, make_trial
-from qkd_ldpc_v_tpu_torch.ops.fused_generic import (
-    generic_feasible,
-    make_fused_generic_frame_trial,
-    make_fused_generic_montecarlo,
-    make_fused_generic_trial,
-)
-from qkd_ldpc_v_tpu_torch.ops.fused_qc import (
-    fused_qc_fits,
-    make_fused_qc_frame_trial,
-    make_fused_qc_montecarlo,
-    make_fused_qc_trial,
-)
-from qkd_ldpc_v_tpu_torch.ops.generic_stream import (
-    make_generic_stream_decoder,
-    make_generic_stream_trial,
-    stream_feasible,
-)
-from qkd_ldpc_v_tpu_torch.ops.qc_decoder import MIN_SUM
-from qkd_ldpc_v_tpu_torch.ops.qc_stream import (
-    make_qc_stream_decoder,
-    make_qc_stream_montecarlo,
-    make_qc_stream_trial,
-    qc_stream_feasible,
 )
 from qkd_ldpc_v_tpu_torch.oracle import calculate_syndrome as oracle_syndrome
 from qkd_ldpc_v_tpu_torch.privacy import bits_positions_to_remove
@@ -147,11 +115,6 @@ from qkd_ldpc_v_tpu_torch.rate_adapt import (
 )
 from qkd_ldpc_v_tpu_torch.tracing import traced_decode
 from qkd_ldpc_v_tpu_torch.utils import span
-
-logger = logging.getLogger(__name__)
-
-_DTYPES = {"float32": torch.float32, "float64": torch.float64,
-           "bfloat16": torch.bfloat16}
 
 # (sim_number, chunk_index, batch, num_bits) -> (alice int8 [B,N],
 # rand_bits [B,N] uniform 32-bit values), as tensors or arrays; with the
@@ -431,166 +394,6 @@ def process_trials_results(
 # ---------------------------------------------------------------------------
 # Batched trial execution
 # ---------------------------------------------------------------------------
-
-
-# The JAX package's engine gates, copied as predicates so that
-# ``select_engine`` names the engine the JAX package would run
-# (ops/pallas_qc.py::feasible_batch_tile > 0 at its smallest tile,
-# ops/pallas_qc_stream.py::qc_stream_feasible and
-# ops/pallas_stream.py::stream_feasible, whose copies ``ops/qc_stream.py``
-# and ``ops/generic_stream.py`` hold). The byte budgets are the
-# TPU kernels' on-chip memory and say nothing about this port's kernels,
-# which check their own bounds.
-_QC_MAX_BLOCK_EDGES = 420
-_QC_BUDGET = 84 * 1024 * 1024
-_QC_MIN_TILE = 8
-
-
-def _qc_fused_gate(qc: QCMatrix) -> bool:
-    num_be = int((qc.shifts >= 0).sum())
-    if qc.lifting % 128 or num_be > _QC_MAX_BLOCK_EDGES:
-        return False
-    nb, mb = qc.base_bits, qc.base_checks
-    planes = num_be + 3 * nb + mb + 2 * nb
-    return planes * qc.lifting * 4 * _QC_MIN_TILE <= _QC_BUDGET
-
-
-def select_engine(matrix: HMatrix, cfg: Config) -> str:
-    """The engine for this (matrix, config): "qc" | "qc_stream" | "generic"
-    | "stream" | "xla", chosen as ``qkd_ldpc_v_tpu.simulation.pallas_engine``
-    chooses it. ``tpu.force_engine`` pins one; a pinned engine that cannot
-    serve the matrix raises ``ValueError``."""
-    if not cfg.use_pallas or cfg.dtype != "float32":
-        return "xla"
-    force = cfg.force_engine
-    if matrix.qc is not None:
-        if force in ("", "qc") and _qc_fused_gate(matrix.qc):
-            return "qc"
-        if force in ("", "qc_stream") and qc_stream_feasible(matrix.qc):
-            return "qc_stream"
-    if force in ("", "generic") and generic_feasible(matrix):
-        return "generic"
-    if force in ("", "stream") and stream_feasible(matrix):
-        return "stream"
-    if force and force != "xla":
-        raise ValueError(
-            f"tpu.force_engine = {force!r} cannot serve this matrix"
-        )
-    return "xla"
-
-
-def qc_kernel(qc: QCMatrix, engine: str, layered: bool) -> str:
-    """The kernel a QC engine runs on this code and schedule: "fused_qc" |
-    "qc_stream".
-
-    Engine ``qc_stream`` always runs the streamed kernel; engine ``qc`` runs
-    the fused kernel where ``fused_qc_fits`` says it holds the code, else
-    the streamed one. Both kernels equal the same plain versions bit for
-    bit, so this is a capacity choice made from the code's shape before any
-    launch, and results do not depend on it."""
-    if engine not in ("qc", "qc_stream"):
-        raise ValueError(f"engine {engine!r} is not a QC engine")
-    if engine == "qc" and fused_qc_fits(qc, layered):
-        return "fused_qc"
-    return "qc_stream"
-
-
-def _schedule(engine: str, matrix: HMatrix, cfg: Config):
-    """(QC kernel or None, layered) of this engine and config; warns where
-    the layered schedule asked for cannot run (not a QC engine, or the SPA
-    pair, as the JAX package's ``_effective_schedule``) and the engine
-    floods. The QC kernel is chosen for the schedule that runs."""
-    is_qc = engine in ("qc", "qc_stream")
-    layered = (is_qc and cfg.schedule == "layered"
-               and cfg.decoding_algorithm in MIN_SUM)
-    if cfg.schedule == "layered" and not layered:
-        logger.warning(
-            "tpu.schedule = layered needs a QC engine and a min-sum "
-            "algorithm; using the flooding schedule for this combination."
-        )
-    if not is_qc:
-        return None, False
-    kernel = qc_kernel(matrix.qc, engine, layered)
-    logger.info("engine %s: the %s kernel (N=%d, Z=%d)", engine, kernel,
-                matrix.num_bit_nodes, matrix.qc.lifting)
-    return kernel, layered
-
-
-def _make_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
-    alg = cfg.decoding_algorithm
-    cap = cfg.decoding_alg_max_iterations
-    use_thr = cfg.enable_msg_llr_threshold
-    kernel, layered = _schedule(engine, matrix, cfg)
-    if kernel is not None:
-        make = (make_fused_qc_trial if kernel == "fused_qc"
-                else make_qc_stream_trial)
-        return make(matrix.qc, alg, cap, use_thr,
-                    schedule="layered" if layered else "flooding")
-    if engine == "generic":
-        return make_fused_generic_trial(matrix, alg, cap, use_thr)
-    if engine == "stream":
-        return make_generic_stream_trial(matrix, alg, cap, use_thr)
-    return make_trial(layout_for(matrix), alg, cap, use_thr,
-                      _DTYPES[cfg.dtype])
-
-
-def montecarlo_trial(engine: str, matrix: HMatrix,
-                     cfg: Config) -> Optional[Callable]:
-    """The engine's mc mode for fixed-rate runs, or None where it has none.
-
-    As in the JAX sweep (``_build_step``: ``mk_mc``): the fused QC kernel
-    (engine ``qc`` where it holds the code), the streamed QC kernel (engine
-    ``qc`` beyond it, and ``qc_stream``) and the fused generic kernel
-    (``generic``) draw the keys in the kernel; ``stream`` and ``xla`` have no
-    mc mode. ``mc(seed, frame0, batch, num_errors, log_p, primary,
-    secondary, threshold, device) -> (syndromes_match, keys_match,
-    iterations)``."""
-    if engine not in ("qc", "qc_stream", "generic"):
-        return None
-    alg = cfg.decoding_algorithm
-    cap = cfg.decoding_alg_max_iterations
-    use_thr = cfg.enable_msg_llr_threshold
-    kernel, layered = _schedule(engine, matrix, cfg)
-    if kernel is None:
-        return make_fused_generic_montecarlo(matrix, alg, cap, use_thr)
-    make = (make_fused_qc_montecarlo if kernel == "fused_qc"
-            else make_qc_stream_montecarlo)
-    return make(matrix.qc, alg, cap, use_thr,
-                schedule="layered" if layered else "flooding")
-
-
-def frame_engine_trial(engine: str, matrix: HMatrix, cfg: Config) -> Callable:
-    """The rate-adaptive step's decode of prebuilt frames for this engine:
-    ``trial(alice_frame [B,N] int8, llr [B,N], primary, secondary,
-    threshold) -> (syndromes_match, keys_match, iterations)``.
-
-    As in the JAX sweep (``_build_step``: ``mk_frame`` and
-    ``decode_tail``): the fused QC kernel (engine ``qc`` where it holds the
-    code) and the fused generic kernel run their frame mode; the streamed
-    QC kernel (engine ``qc`` beyond the fused kernel, and ``qc_stream``),
-    the streamed generic kernel (``stream``) and the generic torch decoder
-    (``xla``) run their decode mode on Alice's syndrome taken in torch and
-    compare keys over the whole frame."""
-    alg = cfg.decoding_algorithm
-    cap = cfg.decoding_alg_max_iterations
-    use_thr = cfg.enable_msg_llr_threshold
-    kernel, layered = _schedule(engine, matrix, cfg)
-    schedule = "layered" if layered else "flooding"
-    if kernel == "fused_qc":
-        return make_fused_qc_frame_trial(matrix.qc, alg, cap, use_thr,
-                                         schedule=schedule)
-    if kernel == "qc_stream":
-        decode = make_qc_stream_decoder(matrix.qc, alg, cap, use_thr,
-                                        schedule=schedule)
-        return frame_trial(decode, lambda a: qc_syndrome(matrix.qc, a))
-    if engine == "generic":
-        return make_fused_generic_frame_trial(matrix, alg, cap, use_thr)
-    layout = layout_for(matrix)
-    if engine == "stream":
-        decode = make_generic_stream_decoder(matrix, alg, cap, use_thr)
-    else:
-        decode = get_decoder(layout, alg, cap, use_thr, _DTYPES[cfg.dtype])
-    return frame_trial(decode, lambda a: calculate_syndrome(layout, a))
 
 
 def default_key_source(seed: int, device, rank: int = 0) -> KeySource:

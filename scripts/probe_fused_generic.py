@@ -40,6 +40,7 @@ def main() -> int:
     from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
     from qkd_ldpc_v_tpu_torch.models.hmatrix import read_sparse_matrix_alist
     from qkd_ldpc_v_tpu_torch.ops import fused_generic as fg
+    from qkd_ldpc_v_tpu_torch.ops import launch
     from qkd_ldpc_v_tpu_torch.ops.channel import exact_error_count, log_ratio
     from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
 
@@ -83,14 +84,14 @@ def main() -> int:
 
     def variant(alg, **plan):
         def make(matrix, flags, device):
-            launch = fg._Launch(matrix, flags, device, **plan)
-            print(f"{alg.name} {plan}: mc plan {launch.plans['mc']}, "
-                  f"{launch.per_sm['mc']} blocks per SM", flush=True)
-            return launch
+            built = fg._Launch(matrix, flags, device, **plan)
+            print(f"{alg.name} {plan}: mc plan {built.plans['mc']}, "
+                  f"{built.per_sm['mc']} blocks per SM", flush=True)
+            return built
 
-        return fg.generic_montecarlo("fused generic", fg.COUNTS,
-                                     fg.cached_plans(make), code, alg, 100,
-                                     False)
+        return launch.generic_montecarlo("fused generic", fg.COUNTS,
+                                         launch.cached_plans(make), code, alg,
+                                         100, False)
 
     cases = [(alg, "threads", [{"threads": t} for t in (256, 512, 1024)])
              for alg in (nmsa, spa_lin)]

@@ -37,7 +37,7 @@ def main() -> int:
 
     from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
     from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
-    from qkd_ldpc_v_tpu_torch.ops import fused_qc
+    from qkd_ldpc_v_tpu_torch.ops import fused_qc, launch
     from qkd_ldpc_v_tpu_torch.ops.channel import exact_error_count, log_ratio
     from qkd_ldpc_v_tpu_torch.simulation import chunk_seed
 
@@ -83,8 +83,8 @@ def main() -> int:
     makers = {
         "shared": fused_qc.make_fused_qc_montecarlo(
             code, DecodingAlgorithm.SPA, 100, False, "flooding"),
-        "global": fused_qc.qc_montecarlo(
-            "fused QC", fused_qc.COUNTS, fused_qc.cached_plans(global_plan),
+        "global": launch.qc_montecarlo(
+            "fused QC", fused_qc.COUNTS, launch.cached_plans(global_plan),
             code, DecodingAlgorithm.SPA, 100, False, "flooding"),
     }
     turns = {"shared": [], "global": []}

@@ -81,7 +81,7 @@ def main() -> int:
             print("ptxas:", line.strip())
     matrix = read_sparse_matrix_alist(ALIST100K)
     n, e = matrix.num_bit_nodes, matrix.num_edges
-    lib = generic_stream._lib()
+    lib = kernels.library()
     ok = True
     for nn, mm in ((288, 144), (10240, 2841), (22000, 11000), (102400, 31744)):
         for f in generic_stream.CLUSTER_FRAMES:
@@ -109,14 +109,16 @@ def main() -> int:
 
     def launcher(algorithm, frames):
         """The cluster kernel at ``frames`` frames a cluster, as a trial."""
-        flags = fused_generic._flags(algorithm)
+        flags = fused_generic.generic_flags(algorithm)
         plan = generic_stream._Launch(matrix, flags, dev, None, frames)
 
         def run(alice, bob, lp, f1, f2, thr):
             outs = tuple(torch.empty(alice.shape[0], dtype=t, device=dev)
                          for t in (torch.int8, torch.int8, torch.int32))
-            err = plan.cluster_trial(alice, bob, (flags, 0, CAP, lp, f1, f2,
-                                                  thr), outs)
+            batch = alice.shape[0]
+            err = plan.launch("trial", batch,
+                              (alice.data_ptr(), bob.data_ptr(), batch),
+                              (flags, 0, CAP, lp, f1, f2, thr), outs)
             assert err == 0, err
             return outs[0].bool(), outs[1].bool(), outs[2]
         return plan, run
@@ -150,7 +152,7 @@ def main() -> int:
               f"cluster, L2 working set {cp.working_set(clusters) / 1e6:.1f}"
               f" MB", flush=True)
         runs[f] = run
-    flags = fused_generic._flags(DecodingAlgorithm.NMSA)
+    flags = fused_generic.generic_flags(DecodingAlgorithm.NMSA)
     plan = generic_stream.launch_plan(matrix, flags, dev)
     print(f"the plan takes F={plan.cluster.frames}, C={plan.cluster.cluster}",
           flush=True)

@@ -31,7 +31,7 @@ def main() -> int:
 
     from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
     from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
-    from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
+    from qkd_ldpc_v_tpu_torch.ops import launch, qc_stream
     from qkd_ldpc_v_tpu_torch.ops.channel import (
         exact_error_count, inject_errors, log_ratio)
     from qkd_ldpc_v_tpu_torch.simulation import default_key_source
@@ -62,15 +62,15 @@ def main() -> int:
         base = qc_stream.plan_for(code, "trial").cluster
         for schedule in ("layered", "flooding"):
             for cluster in (base, 2 * base, 4 * base):
-                plans = fused_qc.cached_plans(
+                plans = launch.cached_plans(
                     lambda c, f, d, k=cluster: qc_stream._Launch(c, f, d, k))
-                flags = fused_qc.kernel_flags(DecodingAlgorithm.NMSA,
-                                              schedule == "layered")
-                launch = plans(code, flags, dev)
-                plan = launch.plans["trial"]
+                flags = launch.kernel_flags(DecodingAlgorithm.NMSA,
+                                            schedule == "layered")
+                built = plans(code, flags, dev)
+                plan = built.plans["trial"]
                 times = []
                 for cap in (0, 1, 2, 4):
-                    trial = fused_qc.qc_trial(
+                    trial = launch.qc_trial(
                         "streamed QC", qc_stream.COUNTS, plans, code,
                         DecodingAlgorithm.NMSA, cap, False, schedule)
                     args = (alice, bob, lp, 0.8, 1.0, 0.0)
@@ -83,7 +83,7 @@ def main() -> int:
                     times.append((time.perf_counter() - t0) * 1e3 / 3)
                 print(f"{name} {schedule} C={plan.cluster} T={plan.threads} "
                       f"smem={plan.shared_bytes} "
-                      f"clusters={launch.resident['trial']}: "
+                      f"clusters={built.resident['trial']}: "
                       + " ".join(f"cap{c}={t:.3f}ms" for c, t in
                                  zip((0, 1, 2, 4), times))
                       + f" per-iteration={(times[3] - times[1]) / 3:.3f}ms "

@@ -25,11 +25,12 @@ import numpy as np
 import pytest
 import torch
 
+from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.convert import hmatrix_from_rows
 from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
 from qkd_ldpc_v_tpu_torch.models.hmatrix import from_dense, read_sparse_matrix_alist
-from qkd_ldpc_v_tpu_torch.ops import fused_generic
+from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream, launch
 from qkd_ldpc_v_tpu_torch.ops.channel import (
     calculate_syndrome,
     inject_errors,
@@ -265,7 +266,7 @@ def test_launch_tables_address_every_edge_once(medium):
     matrix = medium[0]
     layout = layout_for(matrix)
     n, m, e = layout.num_bits, layout.num_checks, layout.num_edges
-    t = fused_generic.launch_tables(layout)
+    t = generic_stream.launch_tables(layout)
     assert t.shape == (2 * e + 2 * n + 2 * m + 2,)
     cptr, t = t[:m + 1], t[m + 1:]
     cbit, t = t[:e], t[e:]
@@ -418,19 +419,19 @@ def _forced(matrix, alg, checks, threads=None):
     """The fused generic kernel's four wrappers of one algorithm, cap CAP,
     clamp off, with the launch plan forced to ``checks`` (and
     ``threads``)."""
-    plan_for = fused_generic.cached_plans(
+    plan_for = launch.cached_plans(
         lambda m, flags, device: fused_generic._Launch(m, flags, device,
                                                        checks, threads))
     args = ("fused generic", fused_generic.COUNTS, plan_for, matrix,
             TAlg[alg], CAP, False)
-    frame = fused_generic.kernel_frame_trial(
+    frame = launch.kernel_frame_trial(
         "fused generic", fused_generic.COUNTS, plan_for, matrix,
-        fused_generic._flags(TAlg[alg]), matrix.num_bit_nodes, CAP, False,
+        launch.generic_flags(TAlg[alg]), matrix.num_bit_nodes, CAP, False,
         fused_generic.make_fused_generic_frame_trial(matrix, TAlg[alg], CAP,
                                                      False).plain)
-    return (fused_generic.generic_trial(*args),
-            fused_generic.generic_decoder(*args),
-            fused_generic.generic_montecarlo(*args), frame)
+    return (launch.generic_trial(*args),
+            launch.generic_decoder(*args),
+            launch.generic_montecarlo(*args), frame)
 
 
 def _all_modes(matrix, alg, qber, wrappers, device, batch=37):
@@ -472,7 +473,7 @@ def test_plan_matches_library_on_card(cuda_device):
     for every mode, check update and storage, on codes that take each
     storage; the 10k alist code runs 2 blocks per SM (min-sum) and 1
     (the SPA pair)."""
-    lib = fused_generic._lib()
+    lib = kernels.library()
     assert lib.fused_generic_max_threads() == 1024
     codes = [read_sparse_matrix_alist(ALIST10K),
              read_sparse_matrix_alist(ALIST1K_DEG63),
@@ -481,10 +482,10 @@ def test_plan_matches_library_on_card(cuda_device):
     for matrix in codes:
         n, m, _, max_deg = fused_generic.code_shape(layout_for(matrix))
         for alg in ("NMSA", "AOMSA", "SPA", "SPA_APPROX"):
-            flags = fused_generic._flags(TAlg[alg])
+            flags = launch.generic_flags(TAlg[alg])
             for checks in ("shared", "global"):
                 slice_flag = fused_generic.SLICE if checks == "global" else 0
-                for mode, code in fused_generic.MODES.items():
+                for mode, code in launch.MODES.items():
                     try:
                         plan = fused_generic.launch_plan(matrix, flags, mode,
                                                          checks)
@@ -498,9 +499,9 @@ def test_plan_matches_library_on_card(cuda_device):
                             lib.fused_generic_slice_floats(m, max_deg, flags)
     matrix = codes[0]
     for alg, per_sm in (("NMSA", 2), ("SPA_APPROX", 1)):
-        launch = fused_generic._Launch(matrix, fused_generic._flags(TAlg[alg]),
-                                       cuda_device)
-        assert all(v == per_sm for v in launch.per_sm.values())
+        plan = fused_generic._Launch(matrix, launch.generic_flags(TAlg[alg]),
+                                     cuda_device)
+        assert all(v == per_sm for v in plan.per_sm.values())
 
 
 @pytest.mark.cuda

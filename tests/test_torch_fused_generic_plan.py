@@ -40,6 +40,7 @@ from qkd_ldpc_v_tpu_torch.models.hmatrix import (
 )
 from qkd_ldpc_v_tpu_torch.models.layout import layout_for
 from qkd_ldpc_v_tpu_torch.ops import fused_generic as fg
+from qkd_ldpc_v_tpu_torch.ops import launch
 from qkd_ldpc_v_tpu_torch.ops.channel import (
     calculate_syndrome,
     inject_errors,
@@ -309,7 +310,8 @@ def test_fused_tables_address_every_edge_once(path, fmt, monkeypatch):
         # The N=102400 alist code: the streamed generic kernel's, refused
         # before anything is built.
         with pytest.raises(NotImplementedError, match="streamed generic"):
-            fg._Launch(matrix, fg._flags(TAlg.NMSA), torch.device("cpu"))
+            fg._Launch(matrix, launch.generic_flags(TAlg.NMSA),
+                       torch.device("cpu"))
         return
     layout = layout_for(matrix)
     n, m, e, max_deg = fg.code_shape(layout)
@@ -347,8 +349,8 @@ def test_fused_tables_address_every_edge_once(path, fmt, monkeypatch):
     np.testing.assert_array_equal(np.sort(t["chk_ext"]), np.arange(m))
     # Every committed generic asset keeps its checks in shared memory, two
     # blocks of 512 threads to an SM, in every mode of min-sum.
-    for mode in fg.MODES:
-        plan = fg.launch_plan(matrix, fg._flags(TAlg.NMSA), mode)
+    for mode in launch.MODES:
+        plan = fg.launch_plan(matrix, launch.generic_flags(TAlg.NMSA), mode)
         assert plan.checks == "shared" and plan.slice_floats == 0
         assert plan.threads == 512
 
@@ -361,7 +363,7 @@ def test_launch_plan_layout_by_hand():
     (1280) fit in the checks' space."""
     matrix = read_sparse_matrix_alist(ALIST10K)
     assert fg.code_shape(layout_for(matrix)) == (10240, 2841, 40960, 15)
-    nmsa = fg._flags(TAlg.NMSA)
+    nmsa = launch.generic_flags(TAlg.NMSA)
     base = 40960 + 34096 + 356  # the checks end on a 16-byte boundary
     assert fg.launch_plan(matrix, nmsa, "decode").shared_bytes == base
     assert fg.launch_plan(matrix, nmsa, "frame").shared_bytes == base + 1280
@@ -372,7 +374,7 @@ def test_launch_plan_layout_by_hand():
     assert 2 * (mc.shared_bytes + 1024) <= 233472
     # The SPA pair: one f32 per slot of the largest degree (15 x 2841), one
     # block of 1024 threads per SM.
-    spa = fg.launch_plan(matrix, fg._flags(TAlg.SPA_APPROX), "mc")
+    spa = fg.launch_plan(matrix, launch.generic_flags(TAlg.SPA_APPROX), "mc")
     assert spa == fg.LaunchPlan(1024, 40960 + 4 * 15 * 2841 + 4 + 356 + 2560,
                                 "shared", 0)
     # Forced into the global slice: the checks' floats rounded up to 16
@@ -385,7 +387,8 @@ def test_launch_plan_layout_by_hand():
         == 40960 + 356
     with pytest.raises(ValueError, match="checks"):
         fg.launch_plan(matrix, nmsa, "mc", "nowhere")
-    assert fg._flags(TAlg.AOMSA) == 3 and fg._flags(TAlg.SPA_APPROX) == 8
+    assert launch.generic_flags(TAlg.AOMSA) == 3
+    assert launch.generic_flags(TAlg.SPA_APPROX) == 8
 
 
 def _degree2_code(n):
@@ -400,17 +403,17 @@ def test_fit_edges():
     N = 11136; one frame's checks stay in shared memory up to N = 22528;
     beyond, the checks go to the global slice (the gate's edge, N = 32768,
     among them) with one block of 1024 threads per SM."""
-    flags = fg._flags(TAlg.NMSA)
+    flags = launch.generic_flags(TAlg.NMSA)
     plans = {n: fg.launch_plan(_degree2_code(n), flags, "mc")
              for n in (11136, 11264, 22528, 22656, 32768)}
     assert plans[11136].threads == 512 and plans[11264].threads == 1024
     assert 2 * (plans[11136].shared_bytes + 1024) <= 233472 \
         < 2 * (plans[11264].shared_bytes + 1024)
     assert plans[22528].checks == "shared"
-    assert plans[22528].shared_bytes <= fg.MAX_SHARED_BYTES
+    assert plans[22528].shared_bytes <= launch.MAX_SHARED_BYTES
     assert plans[22656].checks == "global"
     assert fg.shared_bytes(22656, 11328, 4, False, False, "mc") \
-        > fg.MAX_SHARED_BYTES
+        > launch.MAX_SHARED_BYTES
     gate = plans[32768]
     assert gate == fg.LaunchPlan(1024, 4 * 32768 + 3104 + 4096 + 2048
                                  + 2 * 4096, "global", 3 * 16384)

@@ -29,7 +29,7 @@ from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.models.qc import generate_qc_ldpc, read_qc_matrix
-from qkd_ldpc_v_tpu_torch.ops import fused_qc
+from qkd_ldpc_v_tpu_torch.ops import fused_qc, launch, philox
 from qkd_ldpc_v_tpu_torch.ops.channel import (
     build_frames,
     inject_errors,
@@ -295,7 +295,7 @@ def test_frame_kernel_matches_plain_on_card(cuda_device, alg, f1, f2,
 
 @pytest.mark.cuda
 def test_selection_bytes_equal_the_library(cuda_device):
-    assert fused_qc.SELECTION_BYTES == kernels.library().mc_selection_bytes()
+    assert philox.SELECTION_BYTES == kernels.library().mc_selection_bytes()
 
 
 @pytest.mark.cuda
@@ -410,19 +410,19 @@ def _assert_equal(got, want):
 
 @pytest.mark.cuda
 def test_launch_plan_equals_the_library(cuda_device):
-    lib = fused_qc._lib()
+    lib = kernels.library()
     codes = [read_qc_matrix(HEADLINE), read_qc_matrix(R035),
              generate_qc_ldpc(8, 4, 128, 3, seed=5)]
     codes += [_shape_code(name)[0] for name in ("deg40", "z100", "z1024")]
     for code in codes:
-        shape = fused_qc.shape_of(code)
+        shape = launch.shape_of(code)
         assert lib.fused_qc_threads(code.lifting) \
             == fused_qc.launch_plan(code, 0, "trial").threads
         for flags in list(range(8)) + [8, 16]:
             for messages in (("shared", "global") if flags >= 8
                              else ("shared",)):
                 extra = fused_qc.SPA_GLOBAL if messages == "global" else 0
-                for mode, code_of in fused_qc.MODES.items():
+                for mode, code_of in launch.MODES.items():
                     plan = fused_qc.launch_plan(code, flags, mode, messages)
                     assert lib.fused_qc_shared_bytes(
                         *shape, flags | extra, code_of) == plan.shared_bytes
@@ -508,34 +508,34 @@ def test_spa_global_messages_match_plain_on_card(cuda_device, alg):
     def forced(code, flags, device):
         return fused_qc._Launch(code, flags, device, messages="global")
 
-    plans = fused_qc.cached_plans(forced)
+    plans = launch.cached_plans(forced)
     algorithm = TAlg[alg]
     code = generate_qc_ldpc(8, 4, 128, 3, seed=5)
     n = code.num_bit_nodes
     ne = int(n * 0.075)
     lp = log_ratio(ne / n)
-    flags = fused_qc.kernel_flags(algorithm, False)
+    flags = launch.kernel_flags(algorithm, False)
     resident = plans(code, flags, cuda_device).resident["trial"]
     batch = resident + 37
     alice, bob = _keys(n, batch, ne, seed=5, device=cuda_device)
     for use_thr, thr in ((False, 0.0), (True, THRESHOLD)):
-        trial = fused_qc.qc_trial("fused QC", fused_qc.COUNTS, plans, code,
+        trial = launch.qc_trial("fused QC", fused_qc.COUNTS, plans, code,
                                   algorithm, CAP, use_thr, "flooding")
         _assert_equal(trial(alice, bob, lp, 1.0, 1.0, thr),
                       trial.plain(alice, bob, lp, 1.0, 1.0, thr))
         lpt = torch.tensor(lp, device=cuda_device)
         llr = torch.where(bob == 1, -lpt, lpt)
-        dec = fused_qc.qc_decoder("fused QC", fused_qc.COUNTS, plans, code,
+        dec = launch.qc_decoder("fused QC", fused_qc.COUNTS, plans, code,
                                   algorithm, CAP, use_thr, "flooding")
         syn = qc_syndrome(code, alice)
         _assert_equal(dec(llr, syn, 1.0, 1.0, thr),
                       dec.plain(llr, syn, 1.0, 1.0, thr))
-        frame = fused_qc.qc_frame_trial("fused QC", fused_qc.COUNTS, plans,
+        frame = launch.qc_frame_trial("fused QC", fused_qc.COUNTS, plans,
                                         code, algorithm, CAP, use_thr,
                                         "flooding")
         _assert_equal(frame(alice, llr, 1.0, 1.0, thr),
                       frame.plain(alice, llr, 1.0, 1.0, thr))
-        mc = fused_qc.qc_montecarlo("fused QC", fused_qc.COUNTS, plans, code,
+        mc = launch.qc_montecarlo("fused QC", fused_qc.COUNTS, plans, code,
                                     algorithm, CAP, use_thr, "flooding")
         args = (tsim.chunk_seed(5, 2, 3), 1000, batch, ne, lp, 1.0, 1.0, thr)
         _assert_equal(mc(*args, device=cuda_device),

@@ -30,7 +30,7 @@ from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.convert import qc_from_arrays
 from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
-from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
+from qkd_ldpc_v_tpu_torch.ops import fused_qc, launch, philox, qc_stream
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import _RowUpdate, base_tables
 
 REPO = Path(__file__).resolve().parent.parent
@@ -39,10 +39,10 @@ FMAX = float(np.finfo(np.float32).max)
 SPECIAL = [0.0, -0.0, 1.5, -1.5, 0.25, -0.25, float("inf"), float("-inf"),
            float("nan"), FMAX, -FMAX, 1e-45, -1e-45]
 FLAGS = {
-    "NMSA flooding": fused_qc.kernel_flags(TAlg.NMSA, False),
-    "AOMSA layered": fused_qc.kernel_flags(TAlg.AOMSA, True),
-    "SPA": fused_qc.kernel_flags(TAlg.SPA, False),
-    "SPA-lin": fused_qc.kernel_flags(TAlg.SPA_APPROX, False),
+    "NMSA flooding": launch.kernel_flags(TAlg.NMSA, False),
+    "AOMSA layered": launch.kernel_flags(TAlg.AOMSA, True),
+    "SPA": launch.kernel_flags(TAlg.SPA, False),
+    "SPA-lin": launch.kernel_flags(TAlg.SPA_APPROX, False),
 }
 
 
@@ -50,7 +50,7 @@ def _earlier_fits(qc, layered):
     """The fit rule of the kernel's earlier layout: its limits, and the
     table, one frame's totals (flooding also its channel LLRs) and the
     selection state within a block's shared memory."""
-    if fused_qc.limit_reason(qc, 1024, 256, 64) is not None:
+    if launch.limit_reason(qc, 1024, 256, 64) is not None:
         return False
     shared = 4 * (qc.base_checks + 1 + 2 * len(qc.block_edges)) + \
         (1 if layered else 2) * 4 * qc.num_bit_nodes + 4 * (256 + 512 + 5)
@@ -73,12 +73,12 @@ def test_launch_plan_on_every_qc_asset(path, monkeypatch):
         return
     z = code.lifting
     for name, flags in FLAGS.items():
-        for mode in fused_qc.MODES:
+        for mode in launch.MODES:
             plan = fused_qc.launch_plan(code, flags, mode)
             assert plan.threads == (z + 31) // 32 * 32
             assert plan.threads % 32 == 0 and plan.threads >= z
             assert plan.frames_per_block == 1
-            assert plan.shared_bytes <= fused_qc.MAX_SHARED_BYTES
+            assert plan.shared_bytes <= launch.MAX_SHARED_BYTES
             assert plan.messages == "shared" and plan.slice_floats == 0
             # One frame's totals and key bits are always there.
             n = code.num_bit_nodes
@@ -89,7 +89,7 @@ def test_launch_plan_on_every_qc_asset(path, monkeypatch):
     nmsa = FLAGS["NMSA flooding"]
     mc = fused_qc.launch_plan(code, nmsa, "mc").shared_bytes
     trial = fused_qc.launch_plan(code, nmsa, "trial").shared_bytes
-    assert mc == trial or 12 * code.num_check_nodes < fused_qc.SELECTION_BYTES
+    assert mc == trial or 12 * code.num_check_nodes < philox.SELECTION_BYTES
 
 
 def test_launch_plan_layout_by_hand():
@@ -100,7 +100,7 @@ def test_launch_plan_layout_by_hand():
     path = REPO / "sparse_matrices" / "matrices_qc" / \
         "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx"
     code = read_qc_matrix(path)
-    assert fused_qc.shape_of(code) == (6, 20, 512, 80, 14)
+    assert launch.shape_of(code) == (6, 20, 512, 80, 14)
     base = 2800 + 40960 + 12 * 3072
     nmsa = FLAGS["NMSA flooding"]
     assert fused_qc.launch_plan(code, nmsa, "decode").shared_bytes == base
@@ -140,9 +140,9 @@ def test_fit_edge():
     code, wider = _edge_code(nb), _edge_code(nb + 1)
     flags = FLAGS["NMSA flooding"]
     assert fused_qc.launch_plan(code, flags, "mc").shared_bytes \
-        <= fused_qc.MAX_SHARED_BYTES
+        <= launch.MAX_SHARED_BYTES
     assert fused_qc.launch_plan(wider, flags, "mc").shared_bytes \
-        > fused_qc.MAX_SHARED_BYTES
+        > launch.MAX_SHARED_BYTES
     assert not fused_qc.fused_qc_fits(wider, False)
     assert fused_qc._unfit_reason(wider, True).endswith("exceed 232448")
     engine = "qc"
@@ -256,7 +256,7 @@ def test_fused_table_layout():
     rows, cols, num_be = base_tables(code)
     mb, nb = code.base_checks, code.base_bits
     table = fused_qc.fused_table(code)
-    assert table[:mb + 1 + 2 * num_be] == fused_qc.block_edge_table(code)
+    assert table[:mb + 1 + 2 * num_be] == launch.block_edge_table(code)
     assert len(table) == mb + 1 + 3 * num_be + nb + 1
     entries = table[mb + 1 + 2 * num_be:mb + 1 + 3 * num_be]
     col_ptr = table[mb + 1 + 3 * num_be:]

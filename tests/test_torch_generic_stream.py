@@ -36,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from qkd_ldpc_v_tpu_torch import kernels
+from qkd_ldpc_v_tpu_torch import engines, kernels
 from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.config import MatrixFormat as TFormat
@@ -45,7 +45,7 @@ from qkd_ldpc_v_tpu_torch.models.generator import generate_regular_ldpc
 from qkd_ldpc_v_tpu_torch.models.hmatrix import from_dense
 from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix as tread_matrix
 from qkd_ldpc_v_tpu_torch.models.layout import layout_for
-from qkd_ldpc_v_tpu_torch.ops import fused_generic, fused_qc, generic_stream
+from qkd_ldpc_v_tpu_torch.ops import fused_generic, generic_stream, launch
 from qkd_ldpc_v_tpu_torch.ops.channel import (
     calculate_syndrome,
     inject_errors,
@@ -297,7 +297,7 @@ def test_gate_equals_jax_stream_feasible(path, fmt):
     from qkd_ldpc_v_tpu.models.hmatrix import read_matrix as jread_matrix
     from qkd_ldpc_v_tpu.ops.pallas_stream import stream_feasible
 
-    assert generic_stream.stream_feasible(tread_matrix(path, TFormat[fmt])) \
+    assert engines.stream_feasible(tread_matrix(path, TFormat[fmt])) \
         == stream_feasible(jread_matrix(path, JFormat[fmt]))
 
 
@@ -305,7 +305,7 @@ def test_gate_on_the_test_codes(irregular):
     from qkd_ldpc_v_tpu.ops.pallas_stream import stream_feasible
 
     codes = [irregular, stream_sized_code()]
-    verdicts = [generic_stream.stream_feasible(c) for c in codes]
+    verdicts = [engines.stream_feasible(c) for c in codes]
     assert verdicts == [stream_feasible(_jax_matrix(c)) for c in codes]
     assert verdicts == [False, True]
     assert not fused_generic.generic_feasible(codes[1])
@@ -379,13 +379,13 @@ def test_stream_engine_run_matches_jax_xla(tmp_path):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-def test_forced_stream_run_matches_jax_stream(irregular, monkeypatch,
-                                              tmp_path):
+def test_forced_stream_run_matches_jax_stream(monkeypatch, tmp_path):
     """Both packages' gates patched to ``stream`` on the N=288 code, as
     the JAX package's own sweep test of that engine forces it
     (tests/test_pallas_stream.py:454): the port's NMSA statistics equal
     JAX's streamed run with f32 transport, and the port's trial is the
-    streamed one."""
+    streamed one. The code is read afresh, so that no verdict kept for the
+    module's copy hides the patched gates."""
     from qkd_ldpc_v_tpu import simulation as jsim
     from qkd_ldpc_v_tpu.ops import pallas_generic, pallas_stream
 
@@ -397,21 +397,18 @@ def test_forced_stream_run_matches_jax_stream(irregular, monkeypatch,
         pallas_stream, "make_pallas_stream_trial",
         lambda *a, **k: called.append(1) or orig(
             *a, cap_rows=CAP_ROWS, transport="f32", **k))
-    monkeypatch.setattr(tsim, "generic_feasible", lambda m: False)
-    monkeypatch.setattr(tsim, "stream_feasible", lambda m: True)
-    made = []
-    monkeypatch.setattr(
-        tsim, "make_generic_stream_trial",
-        lambda *a: made.append(1) or generic_stream.make_generic_stream_trial(*a))
+    monkeypatch.setattr(engines, "generic_feasible", lambda m: False)
+    monkeypatch.setattr(engines, "stream_feasible", lambda m: True)
 
     qber = 0.07
-    jm = _jax_matrix(irregular)
+    tm = from_dense(irregular_dense())
+    jm = _jax_matrix(tm)
     jcfg = _jax_cfg(qber=qber, use_pallas=True)
     tcfg = config_from_dict(dataclasses.asdict(jcfg))
     assert jsim.pallas_engine(jm, jcfg) == "stream"
-    assert tsim.select_engine(irregular, tcfg) == "stream"
-    want, got = _run_both(jm, irregular, jcfg, tcfg, qber, tmp_path)
-    assert called and made
+    assert tsim.select_engine(tm, tcfg) == "stream"
+    want, got = _run_both(jm, tm, jcfg, tcfg, qber, tmp_path)
+    assert called and generic_stream.COUNTS.plain("trial") > 0
     assert 0.0 < got.ratio_trials_success_ldpc < 1.0
     assert got.ratio_trials_success_ldpc == want.ratio_trials_success_ldpc
     assert got.iter_success_mean == want.iter_success_mean
@@ -667,7 +664,7 @@ def test_cluster_plan_rule(case):
         assert plan is None
         return
     assert (plan.frames, plan.cluster, plan.shared_bytes) == want
-    assert plan.shared_bytes <= fused_qc.MAX_SHARED_BYTES
+    assert plan.shared_bytes <= launch.MAX_SHARED_BYTES
     assert plan.threads == 1024
     assert plan.record_bytes == -(-16 * m * plan.frames // 256) * 256
     assert plan.table_bytes == 4 * (4 * 3 + 2 * e + n)
@@ -710,7 +707,7 @@ def test_cluster_tables_address_every_edge(irregular, cluster):
             assert (start, count, deg) == (g.node_start, g.count, g.degree)
             np.testing.assert_array_equal(b, g.neighbor)
         edge_bit = np.asarray(layout.check_edge_bit)
-        cptr = fused_generic._offsets(layout.check_groups, layout.num_checks)
+        cptr = launch.edge_offsets(layout.check_groups, layout.num_checks)
         for g, (start, count, deg, c, k) in zip(layout.bit_groups, bits):
             assert (start, count, deg) == (g.node_start, g.count, g.degree)
             np.testing.assert_array_equal(c, g.neighbor)
@@ -920,7 +917,7 @@ def _card_keys(n, batch, num_errors, seed, device):
 
 @pytest.mark.cuda
 def test_shared_bytes_equal_the_library(cuda_device):
-    lib = generic_stream._lib()
+    lib = kernels.library()
     for group in generic_stream.GROUPS:
         for n, m in ((288, 144), (22000, 11000), (102400, 31744),
                      (200000, 60001)):
@@ -932,7 +929,7 @@ def test_shared_bytes_equal_the_library(cuda_device):
                     generic_stream.scratch_bytes(n, m, 3 * n, group,
                                                  bool(trial))
         assert generic_stream.shared_bytes(102400, 31744, group) \
-            <= fused_qc.MAX_SHARED_BYTES
+            <= launch.MAX_SHARED_BYTES
     assert lib.generic_stream_shared_bytes(288, 144, 4) == -1
 
 
@@ -1123,7 +1120,7 @@ def test_cluster_plan_equals_the_library(cuda_device):
     """The Python mirror of the cluster kernel's layout (threads and shared
     bytes per CTA, record bytes per cluster, its limits) equals the
     library's for every group size and cluster size."""
-    lib = generic_stream._lib()
+    lib = kernels.library()
     for n, m in ((288, 144), (10240, 2841), (22000, 11000), (N100K, M100K),
                  (800000, 250000)):
         for f in generic_stream.CLUSTER_FRAMES:
@@ -1170,7 +1167,7 @@ def test_cluster_batches_off_the_clusters_in_flight_on_card(cuda_device,
     matrix = stream_sized_code()
     n = matrix.num_bit_nodes
     plan = generic_stream.launch_plan(
-        matrix, fused_generic._flags(TAlg.NMSA), cuda_device)
+        matrix, launch.generic_flags(TAlg.NMSA), cuda_device)
     for frames in (plan.clusters * plan.cluster.frames + extra,
                    plan.cluster.frames - 1 if extra < 0 else extra):
         if frames < 1:
@@ -1229,7 +1226,7 @@ def test_cluster_forced_stream_10k_on_card(cuda_device):
     matrix = read_sparse_matrix_alist(
         ALIST / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx")
     plan = generic_stream.launch_plan(
-        matrix, fused_generic._flags(TAlg.NMSA), cuda_device)
+        matrix, launch.generic_flags(TAlg.NMSA), cuda_device)
     assert (plan.cluster.frames, plan.cluster.cluster) == (4, 1)
     n = matrix.num_bit_nodes
     ne = int(n * 0.032)

@@ -14,6 +14,7 @@ import torch
 
 from benchmark.reference import compare, layered
 from benchmark.reference.qc import block_row_bits, expand, read_qc
+from qkd_ldpc_v_tpu_torch import engines
 from qkd_ldpc_v_tpu_torch import simulation as sim
 from qkd_ldpc_v_tpu_torch.config import Config, DecodingAlgorithm, MatrixFormat
 from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix
@@ -99,7 +100,7 @@ def port_outcome(matrix, algorithm, qber, trials, chunk, cap):
                  matrix_format=MatrixFormat.QC, batch_size=chunk,
                  dtype="float32", use_pallas=True, schedule="layered")
     assert sim.select_engine(matrix, cfg) == "qc"
-    assert sim._schedule("qc", matrix, cfg) == ("fused_qc", True)
+    assert engines._schedule("qc", matrix, cfg) == ("fused_qc", True)
     primary, secondary = FACTORS[algorithm]
     comb = sim.SimCombination(qber, HMatrixParams(),
                               sim.ScalingFactors(primary=primary,

@@ -40,14 +40,14 @@ import numpy as np
 import pytest
 import torch
 
-from qkd_ldpc_v_tpu_torch import kernels
+from qkd_ldpc_v_tpu_torch import engines, kernels
 from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.config import MatrixFormat as TFormat
 from qkd_ldpc_v_tpu_torch.convert import config_from_dict
 from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix as tread_matrix
 from qkd_ldpc_v_tpu_torch.models.qc import generate_qc_peg, read_qc_matrix
-from qkd_ldpc_v_tpu_torch.ops import fused_qc, qc_stream
+from qkd_ldpc_v_tpu_torch.ops import fused_qc, launch, qc_stream
 from qkd_ldpc_v_tpu_torch.ops.channel import log_ratio, qc_syndrome
 
 torch.set_num_threads(2)
@@ -277,7 +277,7 @@ def test_gate_equals_jax_qc_stream_feasible(path):
     from qkd_ldpc_v_tpu.models.qc import read_qc_matrix as jread
     from qkd_ldpc_v_tpu.ops.pallas_qc_stream import qc_stream_feasible
 
-    assert qc_stream.qc_stream_feasible(read_qc_matrix(path)) \
+    assert engines.qc_stream_feasible(read_qc_matrix(path)) \
         == qc_stream_feasible(jread(path))
 
 
@@ -410,7 +410,7 @@ def test_limit_constants_equal_the_library(cuda_device):
             fused_qc.MAX_BASE_CHECKS) == (lib.fused_qc_max_lifting(),
                                           lib.fused_qc_max_block_edges(),
                                           lib.fused_qc_max_base_checks())
-    qc_stream._lib()
+    kernels.library()
     assert (qc_stream.MAX_LIFTING, qc_stream.MAX_BLOCK_EDGES,
             qc_stream.MAX_BASE_CHECKS) == (lib.qc_stream_max_lifting(),
                                            lib.qc_stream_max_block_edges(),
@@ -420,7 +420,7 @@ def test_limit_constants_equal_the_library(cuda_device):
     # The Python plan mirrors the kernel's layout on every QC asset.
     for path in QC_ASSETS:
         code = read_qc_matrix(path)
-        mb, nb, z, num_be, max_deg = qc_stream._shape(code)
+        mb, nb, z, num_be, max_deg = launch.shape_of(code)
         for cluster in qc_stream.CLUSTER_SIZES:
             assert qc_stream.threads_for(z, cluster) == \
                 lib.qc_stream_threads(z, cluster)
@@ -564,7 +564,7 @@ def test_forced_cluster_matches_plain_on_card(cuda_device, cluster, schedule,
     def forced(code, flags, device):
         return qc_stream._Launch(code, flags, device, cluster=cluster)
 
-    plans = fused_qc.cached_plans(forced)
+    plans = launch.cached_plans(forced)
     f1, f2 = dict(ALGS_BY_NAME, SPA=(1.0, 1.0))[alg]
     algorithm = TAlg[alg]
     codes = ((FLAGSHIP, 0.037, 12), (QC1K, 0.06, 40))
@@ -573,26 +573,26 @@ def test_forced_cluster_matches_plain_on_card(cuda_device, cluster, schedule,
         n = code.num_bit_nodes
         ne = int(n * qber)
         lp = log_ratio(ne / n)
-        trial = fused_qc.qc_trial("streamed QC", qc_stream.COUNTS, plans,
+        trial = launch.qc_trial("streamed QC", qc_stream.COUNTS, plans,
                                   code, algorithm, CAP, False, schedule)
         alice, bob = _card_keys(n, frames, ne, seed=11, device=cuda_device)
         got = trial(alice, bob, lp, f1, f2, 0.0)
         want = trial.plain(alice, bob, lp, f1, f2, 0.0)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
-        flags = fused_qc.kernel_flags(algorithm, schedule == "layered")
+        flags = launch.kernel_flags(algorithm, schedule == "layered")
         assert plans(code, flags, cuda_device).plans["trial"].cluster \
             == cluster
         lpt = torch.tensor(lp, device=cuda_device)
         llr = torch.where(bob == 1, -lpt, lpt)
         syn = qc_syndrome(code, alice)
-        dec = fused_qc.qc_decoder("streamed QC", qc_stream.COUNTS, plans,
+        dec = launch.qc_decoder("streamed QC", qc_stream.COUNTS, plans,
                                   code, algorithm, CAP, True, schedule)
         got = dec(llr, syn, f1, f2, 2.5)
         want = dec.plain(llr, syn, f1, f2, 2.5)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
-        mc = fused_qc.qc_montecarlo("streamed QC", qc_stream.COUNTS, plans,
+        mc = launch.qc_montecarlo("streamed QC", qc_stream.COUNTS, plans,
                                     code, algorithm, CAP, False, schedule)
         mc_args = (chunk_seed(5, 1, 0), 7, frames, ne, lp, f1, f2, 0.0)
         got = mc(*mc_args, device=cuda_device)

@@ -25,10 +25,11 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from qkd_ldpc_v_tpu_torch import engines
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.convert import qc_from_arrays
 from qkd_ldpc_v_tpu_torch.models.qc import read_qc_matrix
-from qkd_ldpc_v_tpu_torch.ops import qc_stream
+from qkd_ldpc_v_tpu_torch.ops import launch, qc_stream
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import _RowUpdate, base_tables
 
 REPO = Path(__file__).resolve().parent.parent
@@ -122,7 +123,7 @@ def test_plan_fits_every_qc_asset(path):
         for spa in (False, True):
             plan = qc_stream.plan_for(code, mode, spa)
             assert plan.cluster in qc_stream.CLUSTER_SIZES
-            assert plan.shared_bytes <= qc_stream.MAX_SHARED_BYTES
+            assert plan.shared_bytes <= launch.MAX_SHARED_BYTES
             assert plan.threads <= 1024 and plan.threads % 32 == 0
             if code.num_bit_nodes == 102400:
                 assert plan.cluster == 2
@@ -131,7 +132,7 @@ def test_plan_fits_every_qc_asset(path):
             # The smallest cluster that fits: half of it does not.
             if plan.cluster > 1:
                 assert qc_stream.plan_for_shape(
-                    *qc_stream._shape(code), mode, spa,
+                    *launch.shape_of(code), mode, spa,
                     plan.cluster // 2) is None
 
 
@@ -139,7 +140,7 @@ def _edge_code(z, mb, max_deg):
     """The code of lifting z with mb base rows whose first row holds
     max_deg edges (every other row one), with the most base columns that
     JAX's qc_stream_feasible admits."""
-    nb = (qc_stream._JAX_BUDGET // (qc_stream._JAX_TILE * z * 4)
+    nb = (engines._QC_STREAM_BUDGET // (engines._TILE * z * 4)
           - mb - 2 * max_deg - 6) // 3
     shifts = -np.ones((mb, nb), dtype=np.int64)
     shifts[0, :max_deg] = np.arange(max_deg) % z
@@ -156,15 +157,15 @@ def test_plan_admits_jax_gate_edge(z, mb, max_deg):
     degree (up to N = 786k at Z = 128), the plan finds a cluster of at most
     16 CTAs, and one more base column leaves the JAX gate."""
     code, nb = _edge_code(z, mb, max_deg)
-    assert qc_stream.qc_stream_feasible(code)
+    assert engines.qc_stream_feasible(code)
     wider = qc_from_arrays(
         np.concatenate([code.shifts, -np.ones((mb, 1), dtype=np.int64)],
                        axis=1), z)
-    assert not qc_stream.qc_stream_feasible(wider)
+    assert not engines.qc_stream_feasible(wider)
     for mode in MODES:
         plan = qc_stream.plan_for(code, mode)
         assert plan.cluster <= 16
-        assert plan.shared_bytes <= qc_stream.MAX_SHARED_BYTES
+        assert plan.shared_bytes <= launch.MAX_SHARED_BYTES
 
 
 def test_plan_limit_raises_beyond_sixteen_ctas():

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from qkd_ldpc_v_tpu_torch import engines
 from qkd_ldpc_v_tpu_torch import protocol as tp
 from qkd_ldpc_v_tpu_torch import rate_adapt as tra
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm, MatrixFormat
@@ -105,7 +106,7 @@ def _assert_plan(plan, spec, device):
                     shortened=spec.shortened_positions)
     else:
         assert plan.payload is plan.punctured is plan.shortened is None
-    dtype = tp._DTYPES[spec.dtype]
+    dtype = engines.DTYPES[spec.dtype]
     for name, array in want.items():
         t = getattr(plan, name)
         assert t.device == torch.device(device) and t.dtype == torch.int64

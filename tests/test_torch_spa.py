@@ -49,13 +49,14 @@ from qkd_ldpc_v_tpu.ops.decoders import get_decoder as jget_decoder
 from qkd_ldpc_v_tpu.ops.pallas_qc import make_pallas_qc_decoder
 from qkd_ldpc_v_tpu.ops.pallas_qc_stream import make_pallas_qc_stream_decoder
 from qkd_ldpc_v_tpu.ops.qc_decoder import make_qc_decoder
+from qkd_ldpc_v_tpu_torch import engines
 from qkd_ldpc_v_tpu_torch import simulation as tsim
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm as TAlg
 from qkd_ldpc_v_tpu_torch.config import MatrixFormat as TFormat
 from qkd_ldpc_v_tpu_torch.convert import config_from_dict, qc_from_arrays
 from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix as tread_matrix
 from qkd_ldpc_v_tpu_torch.models.layout import layout_for as tlayout_for
-from qkd_ldpc_v_tpu_torch.ops import fused_qc, spa
+from qkd_ldpc_v_tpu_torch.ops import fused_qc, launch, spa
 from qkd_ldpc_v_tpu_torch.ops.channel import chunk_seed, log_ratio, mc_channel
 from qkd_ldpc_v_tpu_torch.ops.decoders import _prod_terms, get_decoder
 from qkd_ldpc_v_tpu_torch.ops.linapprox import (
@@ -261,7 +262,7 @@ def test_layered_spa_raises_in_the_decoders_and_floods_in_the_sweep(
         with pytest.raises(ValueError, match="layered"):
             decode_layered(tqc, llr, syn, TAlg[alg], CAP, False)
         with pytest.raises(ValueError, match="layered"):
-            fused_qc.kernel_flags(TAlg[alg], True)
+            launch.kernel_flags(TAlg[alg], True)
     matrix = tqc.to_hmatrix()
     comb = tsim.SimCombination(0.06, TParams(), tsim.ScalingFactors(1.0))
     results = {}
@@ -276,7 +277,7 @@ def test_layered_spa_raises_in_the_decoders_and_floods_in_the_sweep(
                                                      "cpu")
         warned = any("flooding" in r.getMessage() for r in caplog.records)
         assert warned == (schedule == "layered")
-        assert tsim._schedule("qc", matrix, cfg) == ("fused_qc", False)
+        assert engines._schedule("qc", matrix, cfg) == ("fused_qc", False)
     assert dataclasses.asdict(results["layered"]) == \
         dataclasses.asdict(results["flooding"])
 

@@ -31,6 +31,7 @@ from qkd_ldpc_v_tpu_torch.ops import (
     fused_generic,
     fused_qc,
     generic_stream,
+    launch,
     qc_stream,
     spa,
 )
@@ -257,7 +258,7 @@ def test_each_counted_spa_step_is_one_kernel_span(step):
 
 def test_a_plan_is_built_and_recorded_once_per_code(qc_code):
     built = []
-    plan_for = fused_qc.cached_plans(
+    plan_for = launch.cached_plans(
         lambda code, flags, device: built.append(flags) or object())
     _, first = _profiled(lambda: [plan_for(qc_code, 1, "cpu")
                                   for _ in range(3)])
