@@ -100,6 +100,19 @@ Phases (each raises on failure, and the script then exits non-zero):
    all-shortened neighbourhood of bit 0 among them (inf and NaN). mc cases
    are held to ``mc_channel`` + the plain trial. Conv, keys, iterations and
    decisions must be exactly equal.
+2h. The exact error injection's select kernel (csrc/inject.cu) vs plain:
+   ``channel.inject_errors`` on the card against ``plain_inject_errors``
+   (int64 keys, ``torch.kthvalue``) and NumPy's lexsort on the hard words
+   of ``tests/inject_cases.py`` (equal words, words in one bin, the
+   unsigned order's edges; no, one, a third, all but one and all errors;
+   N = 1000 and 4099; both key widths); then at the main path's shape,
+   4096 frames of 102400 bits drawn by the default key source, at the
+   ``alist100k-sweep`` cell's QBERs 0.020-0.035, both widths, and through
+   one ``ChunkStep`` chunk of the N=102400 alist code a QBER, which must
+   launch the kernel once and run no plain version on the card. Bob's keys
+   must be equal bit for bit. It prints the kernel's time beside its bounds
+   (one read of the words; every byte once), the plain version's and
+   ``torch.kthvalue``'s alone.
 3. Main path: the CLI (``python -m qkd_ldpc_v_tpu_torch --device cuda``,
    in-process) on copies of configs/example_qc_layered.json and of its
    flooding variant, 65536 trials in 16384-frame chunks each, over the
@@ -108,8 +121,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    launch and no plain version run on the card. Each CSV must carry the JAX
    package's columns and FER <= 0.01. The trial path then runs as a
    library caller with its own keys runs it (``qkd_ldpc_batch_simulation``
-   with the default key source fed as ``key_source``: torch keys,
-   ``kthvalue``, the trial kernel), which must launch the trial kernel
+   with the default key source fed as ``key_source``: torch keys, the
+   select kernel, the trial kernel), which must launch the trial kernel
    alone, at FER <= 0.01. On chunk 0 the mc kernel's statistics on the
    first 1024 frames equal the mc plain version's and the trial kernel's
    its plain version's; the mc chunk and the whole trial path are timed in
@@ -958,6 +971,125 @@ def phase_generic_stream_vs_plain(torch, card):
     return worst, times
 
 
+INJECT_QBERS = (0.02, 0.025, 0.03, 0.035)
+INJECT_FRAMES = 4096
+
+
+def phase_inject_vs_plain(torch, card):
+    """Phase 2h: the select kernel against its plain version, on the hard
+    words and at the main path's shape (see the module's docstring).
+    Returns the kernel table's (launches, worst, chunk, case): the chunk
+    steps' launches, the count of Bob's bits where kernel and plain version
+    differ, summed over every comparison (each must be 0), the kernel's
+    mean ms at the main path's shape with its byte bound, and the plain
+    version's mean ms."""
+    import itertools
+
+    import numpy as np
+
+    from qkd_ldpc_v_tpu_torch import simulation as tsim
+    from qkd_ldpc_v_tpu_torch.config import (Config, DecodingAlgorithm,
+                                             MatrixFormat)
+    from qkd_ldpc_v_tpu_torch.models.hmatrix import read_matrix
+    from qkd_ldpc_v_tpu_torch.ops import channel, generic_stream
+
+    inject_cases = load_script("inject_cases", "tests")
+    dev = torch.device("cuda")
+    cases = list(itertools.product(inject_cases.KINDS, inject_cases.SIZES,
+                                   (True, False), inject_cases.COUNTS))
+    unequal = 0
+    for kind, n, wide, which in cases:
+        words = inject_cases.words(kind, 3, n, seed=n)
+        alice = np.random.default_rng(1).integers(0, 2, (3, n), dtype=np.int8)
+        ne = inject_cases.error_count(which, n)
+        w, a = (torch.tensor(x, device=dev) for x in (words, alice))
+        bob = channel.inject_errors(w, a, ne, wide)
+        want = channel.plain_inject_errors(w, a, ne, wide)
+        flips = inject_cases.expected_flips(words, ne, wide)
+        unequal += int((bob != want).sum())
+        check(torch.equal(bob, want)
+              and (bob.cpu().numpy() ^ alice == flips).all(),
+              f"phase 2h: {kind} N={n} wide={wide} {which}: kernel != plain")
+    print(f"phase 2h(a): {len(cases)} hard-word cases, kernel == plain == "
+          f"lexsort ({card})", flush=True)
+
+    n, frames = 102400, INJECT_FRAMES
+    words_ms = frames * n * 8 / HBM_BYTES_PER_S * 1e3
+    bytes_ms = frames * n * 10 / HBM_BYTES_PER_S * 1e3
+    source = tsim.default_key_source(4242, dev)
+    kernel_ms, plain_ms = [], []
+    for i, qber in enumerate(INJECT_QBERS):
+        ne = channel.exact_error_count(n, qber)
+        alice, words = source(0, i, frames, n)
+        for wide in (True, False):
+            channel.INJECT_COUNTS.reset()
+            bob = channel.inject_errors(words, alice, ne, wide)
+            want = channel.plain_inject_errors(words, alice, ne, wide)
+            torch.cuda.synchronize()
+            check(channel.INJECT_COUNTS.get() == (1, 1),
+                  f"phase 2h: counts {channel.INJECT_COUNTS.get()}")
+            unequal += int((bob != want).sum())
+            check(torch.equal(bob, want), f"phase 2h: QBER {qber} wide="
+                  f"{wide}: kernel != plain at {frames} x {n}")
+            check(bool(((bob ^ alice).sum(dim=1) == ne).all()),
+                  f"phase 2h: QBER {qber}: not {ne} flips a frame")
+            del bob, want
+        _, k_ms = timed(lambda: channel.inject_errors(words, alice, ne, True),
+                        torch, reps=10)
+        _, p_ms = timed(lambda: channel.plain_inject_errors(words, alice, ne,
+                                                            True),
+                        torch, reps=3)
+        pos = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+        keys = ((words - (1 << 31)) << 32) | pos
+        _, kth_ms = timed(lambda: torch.kthvalue(keys, ne, dim=1), torch,
+                          reps=3)
+        del keys
+        kernel_ms.append(k_ms)
+        plain_ms.append(p_ms)
+        print(f"case 2h {frames} x {n} QBER {qber} ({ne} errors): kernel "
+              f"{k_ms:.3f} ms (bounds: one read of the words {words_ms:.3f} "
+              f"ms, every byte once {bytes_ms:.3f} ms; {bytes_ms / k_ms:.1%})"
+              f", plain {p_ms:.3f} ms, torch.kthvalue alone {kth_ms:.3f} ms",
+              flush=True)
+        del alice, words
+
+    matrix = read_matrix(ALIST100K, MatrixFormat.ALIST)
+    cfg = Config(trials_number=frames, simulation_seed=2024,
+                 decoding_algorithm=DecodingAlgorithm.NMSA,
+                 decoding_alg_max_iterations=100,
+                 matrix_format=MatrixFormat.ALIST, batch_size=frames,
+                 use_pallas=True)
+    step = tsim.ChunkStep(matrix, cfg, dev, frames)
+    launches = 0
+    for qber in INJECT_QBERS:
+        ne = channel.exact_error_count(n, qber)
+        args = tsim.ChunkArgs(sim_number=7, num_errors=ne,
+                              log_p=channel.log_ratio(ne / n),
+                              scalars=(0.8, 1.0, 0.0))
+        channel.INJECT_COUNTS.reset()
+        generic_stream.reset_counts()
+        step(args, 0, frames)
+        check(channel.INJECT_COUNTS.get() == (1, 0)
+              and generic_stream.COUNTS.get()[:2] == (1, 0),
+              f"phase 2h: chunk at QBER {qber}: injection counts "
+              f"{channel.INJECT_COUNTS.get()}, trial counts "
+              f"{generic_stream.COUNTS.get()}")
+        launches += channel.INJECT_COUNTS.launches
+        alice, bob, _ = step.chunk_keys(args, 0)
+        same_alice, words = step.source(7, 0, frames, n)
+        want = channel.plain_inject_errors(words, same_alice, ne, True)
+        unequal += int((bob != want).sum())
+        check(torch.equal(alice, same_alice) and torch.equal(bob, want),
+              f"phase 2h: chunk at QBER {qber}: kernel != plain")
+        del alice, bob, same_alice, words, want
+    print(f"phase 2h(b): main-path shape, kernel == plain at every QBER, one "
+          f"launch a chunk and no plain version on the card; {unequal} "
+          f"unequal bits in all ({card})", flush=True)
+    mean = sum(kernel_ms) / len(kernel_ms)
+    return (launches, unequal, (mean, bytes_ms, "bytes", frames),
+            (sum(plain_ms) / len(plain_ms), frames))
+
+
 def read_csv(results_dir: Path):
     csvs = sorted(results_dir.glob("*.csv"))
     check(len(csvs) == 1, f"expected one CSV in {results_dir}, got {csvs}")
@@ -1000,8 +1132,8 @@ def check_mc_counts(label, kernel_mod, others):
 
 def trial_path_run(torch, label, path, cfg, kernel_mod):
     """The trial path as a library caller runs it: ``qkd_ldpc_batch_simulation``
-    with the default key source fed as ``key_source`` (torch keys,
-    ``kthvalue``, the trial kernel). Returns its trial launches."""
+    with the default key source fed as ``key_source`` (torch keys, the
+    select kernel, the trial kernel). Returns its trial launches."""
     from qkd_ldpc_v_tpu_torch.simulation import (
         default_key_source, prepare_sim_inputs, qkd_ldpc_batch_simulation)
 
@@ -1027,8 +1159,8 @@ def mc_and_trial_chunk(torch, card, label, mc, trial, cfg, n, ne, args, edges,
     """Chunk 0 of a fixed-rate main path again: the mc kernel on the whole
     chunk as the main path ran it, the mc plain version on its first
     ``compared`` frames; the same chunk through the trial path (torch keys,
-    ``kthvalue``, the trial kernel, each timed) with the trial kernel held
-    to its plain version on the same frames; and the mc chunk against the
+    the select kernel, the trial kernel, each timed) with the trial kernel
+    held to its plain version on the same frames; and the mc chunk against the
     whole trial path in turns (mc, trial, trial, mc). Returns the
     worst difference, the mc chunk (ms, bound_ms, bound_by, frames) and the
     trial kernel's (ms, bound_ms, bound_by, frames)."""
@@ -3528,12 +3660,13 @@ CAMPAIGN_EXACT = {
 }
 
 
-def load_script(name):
-    """scripts/{name}.py as a module (scripts/ is not a package)."""
+def load_script(name, folder="scripts"):
+    """{folder}/{name}.py as a module (scripts/ and tests/ are not
+    packages)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        name, REPO / "scripts" / f"{name}.py")
+        name, REPO / folder / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
@@ -3762,6 +3895,8 @@ def main() -> int:
     phase_spa_steps(torch, card)
     worst2g, spa_times = phase_spa_vs_plain(torch, card)
     elapsed("2g")
+    inject2h = phase_inject_vs_plain(torch, card)
+    elapsed("2h")
     main3 = phase_main_path(torch, card)
     elapsed("3")
     main3b = phase_generic_main_path(torch, card)
@@ -3870,6 +4005,8 @@ def main() -> int:
                        "pallas_stream.py:1010", worst2d),
         protocol_entry("fused_generic_spa_lin_decode", "fused_generic.cu",
                        "pallas_generic.py:665", worst2g["fused_generic"]),
+        entry("inject_select", "inject.cu", "channel.py:39 (XLA, no Pallas)",
+              *inject2h),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -107,6 +107,9 @@ def _signatures() -> Dict[str, Tuple[list, type]]:
         "generic_cluster_resident": ([i] * 5, i),
         # csrc/spa.cu: x, out, n, step, stream
         "spa_steps": ([p, p, ll, i, p], i),
+        # csrc/inject.cu: words, alice, bob, batch, n, num_errors, narrow,
+        # stream
+        "inject_select": ([p, p, p, i, i, i, i, p], i),
     }
 
 

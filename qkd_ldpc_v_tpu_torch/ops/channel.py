@@ -15,7 +15,11 @@ src/array_and_matrix_operations.cpp:889-950):
     sweep's rate-adaptive step builds them in XLA.
 
 Random numbers are inputs. ``inject_errors`` takes its per-position random
-bits from the caller, so tests can feed the exact bits JAX draws.
+bits from the caller, so tests can feed the exact bits JAX draws. On CUDA
+tensors it is one hand-written kernel (``csrc/inject.cu``: the keys, the
+exact selection and the flips in two passes over the words), held bit for
+bit to its plain version (``plain_inject_errors``: int64 keys and
+``torch.kthvalue``), which CPU tensors run.
 ``mc_channel`` is the keys of the kernels' mc mode: Alice's bits and the
 error sort keys from the Philox stream of a chunk seed (``ops/philox.py``),
 with the 32-bit sort-key rule of the JAX mc kernels
@@ -36,11 +40,18 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+from qkd_ldpc_v_tpu_torch.ops.counts import (
+    KernelCounts,
+    kernel_span,
+    raise_on_error,
+    stream_of,
+)
 from qkd_ldpc_v_tpu_torch.ops.philox import ALICE, ERRORS, stream_words
 from qkd_ldpc_v_tpu_torch.rate_adapt import ALMOST_ZERO
-from qkd_ldpc_v_tpu_torch.utils import PlanCache
+from qkd_ldpc_v_tpu_torch.utils import PlanCache, span
 
 
 def exact_error_count(num_bits: int, qber: float) -> int:
@@ -124,6 +135,37 @@ def random_bits(
                          dtype=torch.int64, device=device)
 
 
+# The span of each launch of the select kernel (``counts.SPAN_FAMILIES``
+# says why its plain version records none), and the counters of its
+# launches (``count_launch("inject")``) and of the plain version's calls
+# (``count_plain(device, "inject")``).
+INJECT_SPAN = kernel_span("select", "inject")
+INJECT_COUNTS = KernelCounts()
+
+
+def _launch_select(words: torch.Tensor, alice: torch.Tensor,
+                   num_errors: int, narrow: bool) -> torch.Tensor:
+    bob = torch.empty_like(alice)
+    raise_on_error(kernels.library().inject_select(
+        words.data_ptr(), alice.data_ptr(), bob.data_ptr(), alice.shape[0],
+        alice.shape[1], num_errors, int(narrow), stream_of(alice)),
+        "inject_select")
+    return bob
+
+
+# The select kernel launches inside a registered operator, so that a
+# profiler links the kernel's device time to a host operator (the trace's
+# ``External id``), as it does for every torch operator: a ``ctypes`` call
+# alone is none, and a span is not one either. A plain ``Library``
+# definition: ``torch.library.custom_op`` would import ``torch._dynamo`` at
+# its first call, seconds of set-up.
+_LIBRARY = torch.library.Library("qkd_ldpc_v_tpu_torch", "DEF")
+_LIBRARY.define("inject_select(Tensor words, Tensor alice, int num_errors, "
+                "bool narrow) -> Tensor")
+_LIBRARY.impl("inject_select", _launch_select, "CUDA")
+_SELECT = torch.ops.qkd_ldpc_v_tpu_torch.inject_select.default
+
+
 def inject_errors(
     rand_bits: torch.Tensor, alice: torch.Tensor, num_errors: int, wide: bool
 ) -> torch.Tensor:
@@ -140,8 +182,45 @@ def inject_errors(
         offset by -2**31, which keeps the order and fits int64.
       * False: 32-bit keys, the random bits with their low
         ``ceil(log2 N)`` bits replaced by the position.
+
+    Routing is by ``alice``'s device: CPU tensors run the plain version
+    (``plain_inject_errors``), CUDA tensors launch the select kernel
+    (``csrc/inject.cu``) on Alice's int8 key, and any other device raises.
     """
-    batch, n = alice.shape
+    n = alice.shape[1]
+    if tuple(rand_bits.shape) != tuple(alice.shape):
+        raise ValueError(f"rand_bits {tuple(rand_bits.shape)} and alice "
+                         f"{tuple(alice.shape)} differ in shape")
+    if not 0 <= num_errors <= n:
+        raise ValueError(f"num_errors = {num_errors} is outside 0 .. {n}")
+    if alice.device.type == "cpu":
+        return plain_inject_errors(rand_bits, alice, num_errors, wide)
+    if alice.device.type != "cuda":
+        raise NotImplementedError(
+            f"inject_errors: no kernel for device {alice.device}")
+    if alice.dtype != torch.int8:
+        raise TypeError(f"alice: expected torch.int8, got {alice.dtype}")
+    if rand_bits.device != alice.device:
+        raise ValueError(f"rand_bits on {rand_bits.device}, alice on "
+                         f"{alice.device}")
+    words = rand_bits.to(torch.int64).contiguous()
+    alice = alice.contiguous()
+    if alice.numel() == 0:
+        return torch.empty_like(alice)
+    with span(INJECT_SPAN):
+        bob = _SELECT(words, alice, int(num_errors), not wide)
+        INJECT_COUNTS.count_launch("inject")
+    return bob
+
+
+def plain_inject_errors(
+    rand_bits: torch.Tensor, alice: torch.Tensor, num_errors: int, wide: bool
+) -> torch.Tensor:
+    """The plain version of ``inject_errors`` on any device: the sort keys
+    as int64, ``torch.kthvalue`` and a compare. What the select kernel is
+    held to; counted in ``INJECT_COUNTS``."""
+    INJECT_COUNTS.count_plain(alice.device, "inject")
+    n = alice.shape[1]
     if num_errors <= 0:
         return alice.clone()
     bits = rand_bits.to(torch.int64)

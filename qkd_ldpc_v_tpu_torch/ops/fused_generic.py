@@ -54,7 +54,7 @@ where one frame fits a block's, else in a per-block global slice.
 ``compress_check`` / ``rebuild_check`` mirror its compressed min-sum check
 for the tests.
 
-Counters: as ``launch.KernelCounts`` (``launches``, ``mc_launches``,
+Counters: as ``counts.KernelCounts`` (``launches``, ``mc_launches``,
 ``plain_calls``, ``plain_on_cuda``); ``reset_counts`` zeroes them and
 ``counts`` reads ``(launches, plain_on_cuda)``.
 """
@@ -73,6 +73,10 @@ from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, layout_for
 from qkd_ldpc_v_tpu_torch.ops.channel import calculate_syndrome
+from qkd_ldpc_v_tpu_torch.ops.counts import (
+    KernelCounts,
+    stream_of,
+)
 from qkd_ldpc_v_tpu_torch.ops.decoders import (
     DecodeResult,
     frame_trial,
@@ -81,7 +85,6 @@ from qkd_ldpc_v_tpu_torch.ops.decoders import (
 from qkd_ldpc_v_tpu_torch.ops.launch import (
     MAX_SHARED_BYTES,
     MODES,
-    KernelCounts,
     align16,
     cached_plans,
     edge_offsets,
@@ -91,7 +94,6 @@ from qkd_ldpc_v_tpu_torch.ops.launch import (
     generic_trial,
     kernel_frame_trial,
     pointers,
-    stream_of,
     to_slot_major,
 )
 from qkd_ldpc_v_tpu_torch.ops.philox import SELECTION_BYTES

@@ -38,7 +38,7 @@ limits, and one frame's totals, compressed min-sum messages, key bits and
 the mc selection within a block's shared memory. Codes beyond it run on
 the streamed QC kernel; ``engines.qc_kernel`` makes that choice.
 
-Counters: as ``launch.KernelCounts`` (``launches``, ``mc_launches``,
+Counters: as ``counts.KernelCounts`` (``launches``, ``mc_launches``,
 ``plain_calls``, ``plain_on_cuda``); ``reset_counts`` zeroes them and
 ``counts`` reads ``(launches, plain_on_cuda)``.
 """
@@ -53,11 +53,14 @@ import torch
 from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+from qkd_ldpc_v_tpu_torch.ops.counts import (
+    KernelCounts,
+    stream_of,
+)
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
 from qkd_ldpc_v_tpu_torch.ops.launch import (
     MAX_SHARED_BYTES,
     MODES,
-    KernelCounts,
     align16,
     block_edge_table,
     cached_plans,
@@ -69,7 +72,6 @@ from qkd_ldpc_v_tpu_torch.ops.launch import (
     qc_montecarlo,
     qc_trial,
     shape_of,
-    stream_of,
 )
 from qkd_ldpc_v_tpu_torch.ops.philox import SELECTION_BYTES
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import base_tables

@@ -80,16 +80,18 @@ from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.models.layout import EdgeLayout, layout_for
+from qkd_ldpc_v_tpu_torch.ops.counts import (
+    KernelCounts,
+    stream_of,
+)
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
 from qkd_ldpc_v_tpu_torch.ops.launch import (
     MAX_SHARED_BYTES,
-    KernelCounts,
     cached_plans,
     edge_offsets,
     generic_decoder,
     generic_trial,
     pointers,
-    stream_of,
     to_slot_major,
 )
 

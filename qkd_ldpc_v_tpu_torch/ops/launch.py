@@ -1,12 +1,12 @@
-"""The launch layer every kernel module of this package stands on: the
-wrapper body of the four decode kernels (fused QC, streamed QC, fused
-generic, streamed generic), their counters and spans, and the code facts
-more than one kernel reads.
+"""The launch layer the four decode kernels' modules stand on: their
+wrapper body (fused QC, streamed QC, fused generic, streamed generic), and
+the code facts more than one kernel reads.
 
 A kernel module (``ops/fused_qc.py``, ``ops/qc_stream.py``,
 ``ops/fused_generic.py``, ``ops/generic_stream.py``, ``ops/spa.py``) holds
 only what is its own kernel's: its launch plan, its limits, its tables and
-its ``make_*`` factories. It imports this module and the plain modules,
+its ``make_*`` factories. It imports this module (``ops/spa.py``, which
+needs no launch plan, does not), ``ops/counts.py`` and the plain modules,
 never another kernel module; this module imports no kernel module.
 
 Routing is by the tensors' device and nothing else: CPU tensors go to the
@@ -22,17 +22,14 @@ gives it a launch plan, built once per code, flags and device
 calls the kernel's C entry of that mode (``kernels.SIGNATURES``) and
 returns its CUDA error code.
 
-Counters (``KernelCounts``): ``launches`` counts kernel launches in the
-trial, frame and decode modes and ``mc_launches`` those in the mc mode;
-``plain_calls`` counts plain-version calls by device type and mode,
-``plain_on_cuda`` those on CUDA tensors (which only tests and the card
-smoke's comparisons make) and ``plain(mode)`` those of one mode. Each
-counted call is the span ``kernel.<family>.<mode>`` (``kernel_span``).
+Counters and spans: each wrapper counts its calls in a ``KernelCounts``
+and records each counted call as the span ``kernel_span(kernel, mode)``
+(``ops/counts.py``, which every kernel module and ``ops/channel.py`` import
+as this module does).
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -43,6 +40,11 @@ from qkd_ldpc_v_tpu_torch.models.hmatrix import HMatrix
 from qkd_ldpc_v_tpu_torch.models.layout import layout_for
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
 from qkd_ldpc_v_tpu_torch.ops.channel import mc_channel, qc_syndrome
+from qkd_ldpc_v_tpu_torch.ops.counts import (
+    KernelCounts,
+    kernel_span,
+    raise_on_error,
+)
 from qkd_ldpc_v_tpu_torch.ops.decoders import (
     DecodeResult,
     frame_trial,
@@ -58,58 +60,6 @@ from qkd_ldpc_v_tpu_torch.ops.qc_decoder import (
     decode_layered,
 )
 from qkd_ldpc_v_tpu_torch.utils import PlanCache, span
-
-
-class KernelCounts:
-    """One kernel's counters: launches of the kernel in the trial, frame and
-    decode modes (``launches``) and in the mc mode (``mc_launches``), and
-    calls of its plain version keyed by ``(device type, mode)``
-    (``plain_calls``), from which ``plain_on_cuda`` and ``plain`` read."""
-
-    def __init__(self) -> None:
-        self.reset()
-
-    def reset(self) -> None:
-        self.launches = 0
-        self.mc_launches = 0
-        self.plain_calls = Counter()
-
-    @property
-    def plain_on_cuda(self) -> int:
-        """Plain-version calls on CUDA tensors."""
-        return sum(n for (device, _), n in self.plain_calls.items()
-                   if device == "cuda")
-
-    def plain(self, mode: str) -> int:
-        """Plain-version calls of ``mode`` on any device."""
-        return sum(n for (_, m), n in self.plain_calls.items() if m == mode)
-
-    def get(self) -> Tuple[int, int]:
-        """(kernel launches outside the mc mode, plain-version calls on CUDA
-        tensors)."""
-        return self.launches, self.plain_on_cuda
-
-    def count_launch(self, mode: str) -> None:
-        if mode == "mc":
-            self.mc_launches += 1
-        else:
-            self.launches += 1
-
-    def count_plain(self, device: torch.device, mode: str) -> None:
-        self.plain_calls[device.type, mode] += 1
-
-
-# The trace names of the kernel families, by the name the wrappers give
-# their kernel: each launch and each plain-version call that a
-# ``KernelCounts`` counts is the span ``kernel.<family>.<mode>``.
-SPAN_FAMILIES = {"fused QC": "fused_qc", "streamed QC": "qc_stream",
-                 "fused generic": "fused_generic",
-                 "streamed generic": "generic_stream"}
-
-
-def kernel_span(kernel: str, mode: str) -> str:
-    """The span name of ``kernel``'s launches and plain calls in ``mode``."""
-    return f"kernel.{SPAN_FAMILIES[kernel]}.{mode}"
 
 
 # Shared memory one block may use on sm_90 (227 KB; csrc/*.cu:
@@ -133,10 +83,6 @@ def check_flags(algorithm: DecodingAlgorithm) -> int:
 
 def pointers(*tensors: torch.Tensor) -> List[int]:
     return [t.data_ptr() for t in tensors]
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def cached_plans(make: Callable) -> Callable:
@@ -165,11 +111,6 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-
-
-def raise_on_error(code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
 def _launch_stats(kernel: str, what: str, name: str, counts: KernelCounts,

@@ -42,7 +42,7 @@ The wrapper body (checks, device routing, outputs, counting) is
 ``launch.qc_trial`` / ``qc_montecarlo`` / ``qc_decoder``, shared with the
 fused QC kernel; this module gives it the streamed kernel's launch plan.
 
-Counters: as ``launch.KernelCounts`` (``launches``, ``mc_launches``,
+Counters: as ``counts.KernelCounts`` (``launches``, ``mc_launches``,
 ``plain_calls``, ``plain_on_cuda``); ``reset_counts`` zeroes them and
 ``counts`` reads ``(launches, plain_on_cuda)``.
 """
@@ -57,10 +57,13 @@ import torch
 from qkd_ldpc_v_tpu_torch import kernels
 from qkd_ldpc_v_tpu_torch.config import DecodingAlgorithm
 from qkd_ldpc_v_tpu_torch.models.qc import QCMatrix
+from qkd_ldpc_v_tpu_torch.ops.counts import (
+    KernelCounts,
+    stream_of,
+)
 from qkd_ldpc_v_tpu_torch.ops.decoders import DecodeResult
 from qkd_ldpc_v_tpu_torch.ops.launch import (
     MAX_SHARED_BYTES,
-    KernelCounts,
     align16,
     block_edge_table,
     cached_plans,
@@ -70,7 +73,6 @@ from qkd_ldpc_v_tpu_torch.ops.launch import (
     qc_montecarlo,
     qc_trial,
     shape_of,
-    stream_of,
 )
 from qkd_ldpc_v_tpu_torch.ops.philox import SELECTION_BYTES
 from qkd_ldpc_v_tpu_torch.ops.qc_decoder import _RowUpdate, base_tables

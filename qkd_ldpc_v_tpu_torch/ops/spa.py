@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from qkd_ldpc_v_tpu_torch import kernels
-from qkd_ldpc_v_tpu_torch.ops.launch import (
+from qkd_ldpc_v_tpu_torch.ops.counts import (
     KernelCounts,
     raise_on_error,
     stream_of,

@@ -4,9 +4,19 @@ package's channel on the same random bits.
 ``inject_errors`` must flip exactly the positions JAX flips when both get
 the bits of ``jax.random.bits(ke, (B, N), uint32)``: the 64-bit sort keys
 against JAX with x64 on (as the test conftest sets it), the 32-bit keys
-against JAX inside ``jax.enable_x64(False)``. ``log_ratio`` must give JAX's
-float32 bits at the QBERs the cross-package tests use.
+against JAX inside ``jax.enable_x64(False)``. On words that are hard for
+a selection by high bits (``inject_cases``: equal words, words in one bin,
+the unsigned order's edges; no, one, all but one and all errors; sizes that
+are not powers of two), it must flip the positions NumPy's lexsort on (hi,
+position) puts first, in both key widths, and count one plain call on the
+CPU and no launch; on CUDA tensors the select kernel launches inside a
+registered operator that has no CPU kernel. ``log_ratio`` must give JAX's float32 bits at the QBERs
+the cross-package tests use.
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +29,8 @@ from qkd_ldpc_v_tpu.models.qc import generate_qc_ldpc, generate_qc_peg
 from qkd_ldpc_v_tpu.ops import channel as jch
 from qkd_ldpc_v_tpu_torch.convert import qc_from_arrays
 from qkd_ldpc_v_tpu_torch.ops import channel as tch
+
+import inject_cases  # tests/inject_cases.py: pytest puts tests/ on the path
 
 torch.set_num_threads(2)
 
@@ -64,6 +76,44 @@ def test_wide_keys_keep_unsigned_order():
     want = np.zeros(n, np.int8)
     want[order[:4]] = 1
     np.testing.assert_array_equal(bob.numpy()[0], want)
+
+
+@pytest.mark.parametrize("which", inject_cases.COUNTS)
+@pytest.mark.parametrize("wide", [True, False], ids=["wide", "narrow"])
+@pytest.mark.parametrize("n", inject_cases.SIZES)
+@pytest.mark.parametrize("kind", inject_cases.KINDS)
+def test_inject_errors_flips_the_smallest_keys(kind, n, wide, which):
+    words = inject_cases.words(kind, 3, n, seed=n)
+    alice = np.random.default_rng(1).integers(0, 2, (3, n), dtype=np.int8)
+    num_errors = inject_cases.error_count(which, n)
+    tch.INJECT_COUNTS.reset()
+    bob = tch.inject_errors(torch.tensor(words), torch.tensor(alice),
+                            num_errors, wide)
+    assert tch.INJECT_COUNTS.plain_calls == {("cpu", "inject"): 1}
+    assert tch.INJECT_COUNTS.launches == 0
+    np.testing.assert_array_equal(
+        bob.numpy() ^ alice,
+        inject_cases.expected_flips(words, num_errors, wide))
+
+
+def test_select_kernel_launches_inside_a_cuda_only_operator():
+    """The select kernel's launch is a registered operator (which a profiler
+    links the kernel's device time to) with a CUDA kernel and none for the
+    CPU, and registering it imports no ``torch._dynamo``."""
+    op = torch.ops.qkd_ldpc_v_tpu_torch.inject_select.default
+    assert tch._SELECT is op
+    assert str(op._schema) == (
+        "qkd_ldpc_v_tpu_torch::inject_select(Tensor words, Tensor alice, "
+        "int num_errors, bool narrow) -> Tensor")
+    name = "qkd_ldpc_v_tpu_torch::inject_select"
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(name, "CUDA")
+    assert not torch._C._dispatch_has_kernel_for_dispatch_key(name, "CPU")
+    code = ("import sys, qkd_ldpc_v_tpu_torch.ops.channel; "
+            "print('torch._dynamo' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         cwd=Path(__file__).resolve().parents[1]).stdout
+    assert out.strip() == "False"
 
 
 def test_qc_syndrome_matches_calculate_syndrome():

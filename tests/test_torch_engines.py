@@ -3,8 +3,10 @@ kernel modules.
 
   * No kernel module (``ops/fused_qc.py``, ``ops/qc_stream.py``,
     ``ops/fused_generic.py``, ``ops/generic_stream.py``, ``ops/spa.py``)
-    imports another, and ``ops/launch.py`` imports none of them and only
-    the plain layers below it (a static scan).
+    imports another; each takes its counters from ``ops/counts.py`` and
+    each but ``ops/spa.py`` (whose steps need no launch plan) stands on
+    ``ops/launch.py``, which imports none of them and only the plain layers
+    below it (a static scan).
   * ``kernels.SIGNATURES`` declares exactly the ``extern "C"`` functions of
     ``csrc/*.cu``, with their argument and return types (the sources are
     parsed; nothing is built).
@@ -39,7 +41,8 @@ KERNEL_MODULES = ("fused_qc", "qc_stream", "fused_generic", "generic_stream",
                   "spa")
 # What ops/launch.py may stand on: the package's plain layers.
 LAUNCH_MAY_IMPORT = {"utils", "kernels", "config", "models", "ops.channel",
-                     "ops.decoders", "ops.qc_decoder", "ops.philox"}
+                     "ops.counts", "ops.decoders", "ops.qc_decoder",
+                     "ops.philox"}
 
 
 def _package_imports(path: Path) -> set:
@@ -72,7 +75,8 @@ def test_no_kernel_module_imports_another(module):
                                      for a in LAUNCH_MAY_IMPORT)
                    for i in imports), imports
     else:
-        assert "ops.launch" in imports
+        assert "ops.counts" in imports
+        assert ("ops.launch" in imports) == (module != "spa")
 
 
 _CTYPES = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
