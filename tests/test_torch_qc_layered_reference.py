@@ -2,9 +2,10 @@
 ``layered.py``) against the port on the CPU: the QC reader's expansion
 against ``models/qc.py``, edge for edge; the layered min-sum reference
 against the port's normal sweep path (``run_combination`` on the ``qc``
-engine, whose CPU path is the fused QC kernel's plain mc version) frame
-for frame; and the reference in bfloat16 against float32, which the
-benchmark's control of the QC sweep relies on."""
+engine, whose CPU path is the fused QC kernel's plain mc version, and on
+the N=102400 flagship, which the fused kernel does not hold, the streamed
+QC kernel's) frame for frame; and the reference in bfloat16 against
+float32, which the benchmark's control of the QC sweeps relies on."""
 
 from pathlib import Path
 
@@ -26,6 +27,10 @@ from qkd_ldpc_v_tpu_torch.rate_adapt import HMatrixParams
 ROOT = Path(__file__).resolve().parents[1]
 HEADLINE = (ROOT / "sparse_matrices" / "matrices_qc"
             / "(N=10240,M=3072,R=0.70,CW=4,Z=512,SEED=9).mtrx")
+# The N=102400 flagship, which the fused QC kernel does not hold: the
+# streamed QC kernel decodes it.
+FLAGSHIP = (ROOT / "sparse_matrices" / "matrices_qc"
+            / "(N=102400,M=30720,R=0.70,CW=3,Z=2048,SEED=56).mtrx")
 SEED = 2**31 + 77
 
 # (primary, secondary) of each min-sum algorithm.
@@ -79,9 +84,11 @@ def test_the_expansion_is_the_ports_matrix(source, tmp_path):
         assert len(np.unique(bits)) == bits.size
 
 
-def port_outcome(matrix, algorithm, qber, trials, chunk, cap):
+def port_outcome(matrix, algorithm, qber, trials, chunk, cap,
+                 kernel="fused_qc"):
     """Every frame's (converged, keys, iterations) of one combination of
-    the port's normal path, layered, on the CPU, and its statistics."""
+    the port's normal path, layered, on the CPU, and its statistics;
+    ``kernel`` is the QC kernel the ``qc`` engine has to choose."""
     log = []
 
     def factory(m, cfg, batch):
@@ -100,7 +107,7 @@ def port_outcome(matrix, algorithm, qber, trials, chunk, cap):
                  matrix_format=MatrixFormat.QC, batch_size=chunk,
                  dtype="float32", use_pallas=True, schedule="layered")
     assert sim.select_engine(matrix, cfg) == "qc"
-    assert engines._schedule("qc", matrix, cfg) == ("fused_qc", True)
+    assert engines._schedule("qc", matrix, cfg) == (kernel, True)
     primary, secondary = FACTORS[algorithm]
     comb = sim.SimCombination(qber, HMatrixParams(),
                               sim.ScalingFactors(primary=primary,
@@ -168,3 +175,25 @@ def test_bfloat16_changes_the_headline_outcome(headline):
                              dtype=torch.bfloat16)
     assert compare.mismatched(bf16, f32) > 0
 
+
+@pytest.fixture(scope="module")
+def flagship():
+    return read_matrix(FLAGSHIP, MatrixFormat.QC), read_qc(FLAGSHIP)
+
+
+@pytest.mark.parametrize("algorithm", list(FACTORS))
+def test_the_layered_reference_is_the_ports_sweep_on_the_flagship(
+        algorithm, flagship):
+    matrix, qc = flagship
+    got, result = port_outcome(matrix, algorithm, 0.035, 16, 8, 30,
+                               kernel="qc_stream")
+    want = reference_outcome(qc, algorithm, 0.035, 16, 8, 30)
+    assert_same(got, result, want)
+
+
+def test_bfloat16_changes_the_flagship_outcome(flagship):
+    _, qc = flagship
+    f32 = reference_outcome(qc, "NMSA", 0.035, 16, 8, 30)
+    bf16 = reference_outcome(qc, "NMSA", 0.035, 16, 8, 30,
+                             dtype=torch.bfloat16)
+    assert compare.mismatched(bf16, f32) > 0
