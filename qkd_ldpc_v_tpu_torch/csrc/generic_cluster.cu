@@ -64,7 +64,14 @@
 //     in slot order, the plain decoder's llr-first association, under
 //     -fmad=false, no fast math and no flush-to-zero. A check of at most
 //     kRun edges keeps its totals in a register run of 6, 8, ..., 16 slots
-//     with every load in flight at once; longer checks take two passes.
+//     with every load in flight at once (the run's last slot loads nothing
+//     past the check's degree); longer checks take two passes.
+//   * Per-thread state: what no thread changes (the shares, the sweep P,
+//     the shared offsets, the table sections, the fill and the clamp) is
+//     formed once by generic_cluster_trial and read from the parameter
+//     bank; slot and lane are shifts of tid; shared memory is addressed by
+//     32-bit offsets from the dynamic shared base. A thread keeps its rank,
+//     its vote slot and its cluster's records in registers.
 //   * Per-frame exit at the iteration the plain decoder gives, on a
 //     cluster-wide vote of a mask of frames: the adaptive pair on the
 //     decisions before the sweep, the others on those of the sweep before,
@@ -77,17 +84,21 @@
 //     from an atomic counter (zeroed by the launch), so groups that run to
 //     the iteration cap leave no tail of idle clusters.
 //
-// What bounds it on this card: latency. One 1024-thread CTA an SM (the
-// shares fill its shared memory), 64 registers a thread, 32 warps, each
-// waiting on chains of table word -> shared::cluster total (check pass) and
-// table word -> record in L2 (bit pass): the SMs issue about 0.3
-// instructions a cycle, and halving the threads costs 40 %. Neither the L2
-// nor the SM-to-SM network is saturated (a cluster's time per iteration is
-// the same with 2 or 15 clusters in flight). Loads of two checks at once,
-// the next node's table words fetched ahead, or two frames a thread all
-// spilled at 64 registers and were slower; explicit ld.shared::cluster in
-// place of the generic window's loads changed nothing. PERF.md has the
-// measured chunk times beside their bounds.
+// What bounds it on this card: the memory requests in flight, more than one
+// thread's chain. One 1024-thread CTA an SM (the shares fill its shared
+// memory), 64 registers a thread, 32 warps, each waiting on chains of table
+// word -> shared::cluster total (check pass) and table word -> record in L2
+// (bit pass); halving the threads costs 40 %. Neither the L2 nor the
+// SM-to-SM network is saturated (a cluster's time per iteration is the
+// same with 2 or 15 clusters in flight). Yet a thread that takes two checks
+// at once, every load of both in flight, was 2.4-5.5 % slower at the 100k
+// code in every form tried (with the per-thread state above, with spills
+// and without, with the node's table words shared by shuffles), and
+// shuffling the table words alone was 1 % slower; what paid was fewer
+// requests (no load for a run's last slot past a check's degree) and fewer
+// instructions a load (no predicate where a slot always loads). The next
+// node's table words fetched ahead and two frames a thread spilled and were
+// slower. PERF.md has the measured chunk times beside their bounds.
 
 #include <cfloat>
 #include <cmath>
@@ -119,18 +130,36 @@ constexpr int kBitRun = 4;
 // Frames a cluster decodes at once, at most.
 constexpr int kMaxFrames = 8;
 
+// Clamp bounds: [-threshold, threshold] where the clamp applies, else
+// [-inf, inf], which min.NaN / max.NaN pass every value through unchanged.
+struct Bounds {
+  float lo, hi;
+};
+
+// What a launch decodes, and the values every thread reads but no thread
+// changes, formed once on the host (generic_cluster_trial) and read from
+// the parameter bank where they are used.
 struct Params {
   const int8_t* alice;    // [B, N] 0/1, external order
   const int8_t* bob;      // [B, N] 0/1
-  const int32_t* table;   // ops/generic_stream.py::cluster_tables
+  const int4* groups;     // check, then bit degree groups (cluster_tables)
+  const uint32_t* cedge;  // [E] rank << 24 | local, slot-major
+  const uint32_t* bedge;  // [E] check << 5 | slot, slot-major
+  const int* bit_ext;     // [N]
   uint4* records;         // [clusters][M][F] compressed checks
   int* next;              // the next frame to take (zeroed by the launch)
-  int n, m, e, check_groups, bit_groups, cluster, batch, max_iter,
+  int n, m, check_groups, bit_groups, cluster, batch, max_iter,
       use_threshold;
-  float log_p, primary, secondary, threshold;
-  int8_t* conv;           // [B]
-  int8_t* keys;           // [B]
-  int32_t* iters;         // [B]
+  int share, check_share;  // S and Sc: one CTA's bits and checks
+  int sweep;               // P = T / F: nodes a sweep of the CTA's threads
+  uint32_t totals, alice_bits, bob_bits;  // shared offsets (SharedLayout)
+  uint32_t cluster_records;               // uint4 of one cluster's records
+  float log_p, primary, secondary;
+  uint32_t fill;   // every sign bit set where the threshold is negative
+  Bounds values;   // the clamp of check->bit values
+  int8_t* conv;    // [B]
+  int8_t* keys;    // [B]
+  int32_t* iters;  // [B]
 };
 
 // f32 min and max that return NaN where either operand is NaN, as
@@ -147,18 +176,15 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
-// Clamp bounds: [-threshold, threshold] where the clamp applies, else
-// [-inf, inf], which min.NaN / max.NaN pass every value through unchanged.
-struct Bounds {
-  float lo, hi;
-};
-
 __device__ __forceinline__ float clamp_to(float x, Bounds b) {
   return min_nan(max_nan(x, b.lo), b.hi);
 }
 
-__device__ __forceinline__ Bounds bounds(bool on, const Params& p) {
-  return on ? Bounds{-p.threshold, p.threshold} : Bounds{-INFINITY, INFINITY};
+// A bit->check message t - v as the pass forms it: clamped where CLAMP
+// (the sweeps after the first, where the clamp applies).
+template <bool CLAMP>
+__device__ __forceinline__ float message(const Params& p, float tv) {
+  return CLAMP ? clamp_to(tv, p.values) : tv;
 }
 
 // The min-sum check->bit value (unclamped) of an edge with m > 0 (plain:
@@ -191,11 +217,17 @@ __host__ __device__ inline int threads_for(int n, int m, int frames,
 }
 
 // Byte offsets of one CTA's shared memory: the check and bit degree groups,
-// the cluster votes, the next frames, the syndrome bits of its checks
-// ([Sc][F] bits), its totals ([S][F] f32), Alice's and Bob's bits of its
-// share ([S][F] bits each).
+// the cluster votes, the next frames and the syndrome bits of its checks
+// ([Sc][F] bits) at fixed offsets; then its totals ([S][F] f32), Alice's and
+// Bob's bits of its share ([S][F] bits each).
+constexpr uint32_t kCheckGroupsAt = 0;
+constexpr uint32_t kBitGroupsAt = 16 * kMaxGroups;
+constexpr uint32_t kVotesAt = kBitGroupsAt + 16 * kMaxGroups;
+constexpr uint32_t kNextAt = kVotesAt + sizeof(int) * 2 * kMaxCluster;
+constexpr uint32_t kSynAt = (kNextAt + sizeof(int) + 15) / 16 * 16;
+
 struct SharedLayout {
-  size_t bit_groups, votes, next, syn, totals, alice, bob, bytes;
+  size_t totals, alice, bob, bytes;
 };
 
 __host__ __device__ inline SharedLayout shared_layout(int n, int m,
@@ -203,11 +235,7 @@ __host__ __device__ inline SharedLayout shared_layout(int n, int m,
                                                       int cluster) {
   SharedLayout s;
   const size_t share = (size_t)share_of(n, cluster) * frames;
-  s.bit_groups = 16 * (size_t)kMaxGroups;
-  s.votes = s.bit_groups + 16 * (size_t)kMaxGroups;
-  s.next = s.votes + sizeof(int) * 2 * kMaxCluster;
-  s.syn = align16(s.next + sizeof(int));
-  s.totals = align16(s.syn + (size_t)share_of(m, cluster) * frames / 8);
+  s.totals = align16(kSynAt + (size_t)share_of(m, cluster) * frames / 8);
   s.alice = s.totals + sizeof(float) * share;
   s.bob = s.alice + share / 8;
   s.bytes = s.bob + share / 8;
@@ -221,64 +249,102 @@ __host__ __device__ inline size_t record_bytes(int m, int frames) {
 
 // ---------------------------------------------------------------------------
 // One CTA's view of its cluster. Thread tid serves node slot tid / F of a
-// sweep (P = T / F nodes a sweep) for frame lane tid % F of the group.
+// sweep (P = T / F nodes a sweep) for frame lane tid % F of the group; the
+// rest of what it reads is in Params or at fixed shared offsets.
 // ---------------------------------------------------------------------------
 
 struct Cta {
-  int rank, C, S, Sc, T, P, tid, slot, lane, count, checks;
-  uint32_t tot_sa;    // shared address of this CTA's totals
-  uint32_t alice_sa;  // and of its Alice words
-  uint32_t win_hi;    // the upper word of generic shared-memory pointers
-  float* tot;         // [S][F]
-  uint32_t* alice;    // [S][F] bits
-  uint32_t* bob;      // [S][F] bits
-  uint32_t* syn;      // [Sc * F / 32]
-  int* votes;         // [2][kMaxCluster]
-  int* next;
-  int vote_slot;
-  const int4* cgroups;  // (node_start, count, degree, edge_offset)
-  const int4* bgroups;
-  const uint32_t* cedge;  // [E] rank << 24 | local, slot-major
-  const uint32_t* bedge;  // [E] check << 5 | slot, slot-major
-  const int* bit_ext;     // [N]
-  uint4* rec;             // [M][F] this cluster's records
-  uint32_t fill;    // every sign bit set where the threshold is negative
-  Bounds values;    // the clamp of check->bit values
+  int rank;       // this CTA's rank in its cluster
+  int vote_slot;  // the vote slot the next cluster_or takes
+  uint4* rec;     // [M][F] this cluster's records
 };
+
+template <int F>
+__device__ __forceinline__ int slot_of() {
+  return (int)(threadIdx.x / F);
+}
+
+template <int F>
+__device__ __forceinline__ int lane_of() {
+  return (int)(threadIdx.x % F);
+}
+
+// This CTA's nodes of `total`: its share, or what is left of them.
+__device__ __forceinline__ int nodes_of(int total, int share, int rank) {
+  return max(0, min(share, total - rank * share));
+}
+
+__device__ __forceinline__ unsigned char* shared_base() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return smem;
+}
+
+template <typename T>
+__device__ __forceinline__ T* shared_at(uint32_t off) {
+  return reinterpret_cast<T*>(shared_base() + off);
+}
 
 template <typename T>
 __device__ __forceinline__ T* remote(T* local, int rank) {
   return cg::this_cluster().map_shared_rank(local, (unsigned)rank);
 }
 
-// The shared::cluster address of byte `off` past `sa` in CTA `rank`, read
-// through the generic window whose upper word is win_hi (the compiler's own
-// lowering of ld.shared::cluster rebuilds it with a special-register read
-// per access).
-__device__ __forceinline__ const void* cluster_ptr(const Cta& c, uint32_t sa,
-                                                   uint32_t rank,
-                                                   uint32_t off) {
+// The shared::cluster address of byte `off` past byte `at` of CTA `rank`'s
+// shared memory.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t at, uint32_t rank,
+                                                 uint32_t off) {
+  const uint32_t sa = (uint32_t)__cvta_generic_to_shared(shared_base()) + at;
   uint32_t a;
   asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(sa), "r"(rank));
-  return reinterpret_cast<const void*>((uint64_t)c.win_hi << 32 | (a + off));
+  return a + off;
 }
 
-// The lane's total of the bit a check edge's word names: the F lanes of a
-// node read F neighbouring floats, one request.
+// A 32-bit load from the cluster's shared memory; the second form loads only
+// where `on` (else 0). Volatile: it is ordered with the cluster barriers, and
+// the compiler forms each address just before its load rather than holding
+// the addresses of every load in flight.
+__device__ __forceinline__ uint32_t cluster_load(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t cluster_load(uint32_t addr, bool on) {
+  uint32_t v = 0u;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %2, 0;\n\t"
+      "@p ld.shared::cluster.u32 %0, [%1];\n\t}"
+      : "+r"(v)
+      : "r"(addr), "r"((uint32_t)on));
+  return v;
+}
+
+// The lane's total of the bit a check edge's word names (the second form:
+// where `on`, else 0): the F lanes of a node read F neighbouring floats, one
+// request.
 template <int F>
-__device__ __forceinline__ float edge_total(const Cta& c, uint32_t w) {
-  return *static_cast<const float*>(
-      cluster_ptr(c, c.tot_sa, w >> kLocalBits,
-                  4u * ((w & kLocalMask) * F + (uint32_t)c.lane)));
+__device__ __forceinline__ float edge_total(const Params& p, uint32_t w,
+                                            bool on) {
+  return __uint_as_float(cluster_load(
+      cluster_addr(p.totals, w >> kLocalBits,
+                   4u * ((w & kLocalMask) * F + (uint32_t)lane_of<F>())),
+      on));
+}
+
+template <int F>
+__device__ __forceinline__ float edge_total(const Params& p, uint32_t w) {
+  return __uint_as_float(cluster_load(
+      cluster_addr(p.totals, w >> kLocalBits,
+                   4u * ((w & kLocalMask) * F + (uint32_t)lane_of<F>()))));
 }
 
 // The lane's Alice bit of the bit a check edge's word names: the F lanes of
 // a node read one word.
 template <int F>
-__device__ __forceinline__ int edge_alice(const Cta& c, uint32_t w) {
-  const uint32_t b = (w & kLocalMask) * F + (uint32_t)c.lane;
-  const uint32_t word = *static_cast<const uint32_t*>(
-      cluster_ptr(c, c.alice_sa, w >> kLocalBits, 4u * (b >> 5)));
+__device__ __forceinline__ int edge_alice(const Params& p, uint32_t w) {
+  const uint32_t b = (w & kLocalMask) * F + (uint32_t)lane_of<F>();
+  const uint32_t word = cluster_load(
+      cluster_addr(p.alice_bits, w >> kLocalBits, 4u * (b >> 5)));
   return (word >> (b & 31)) & 1;
 }
 
@@ -289,19 +355,19 @@ __device__ __forceinline__ int packed_bit(const uint32_t* words, int j) {
 // The OR of v over every thread of the cluster; a cluster barrier. Two
 // slots in turn: a slot is read right after its barrier and written again
 // only after the next one.
-__device__ unsigned cluster_or(Cta& c, unsigned v) {
+__device__ unsigned cluster_or(const Params& p, Cta& c, unsigned v) {
   v = __reduce_or_sync(0xffffffffu, v);
-  int* slot = c.votes + c.vote_slot * kMaxCluster;
-  if (c.tid == 0) slot[c.rank] = 0;
+  int* slot = shared_at<int>(kVotesAt) + c.vote_slot * kMaxCluster;
+  if (threadIdx.x == 0) slot[c.rank] = 0;
   __syncthreads();
-  if ((c.tid & 31) == 0 && v != 0) atomicOr(&slot[c.rank], (int)v);
+  if ((threadIdx.x & 31) == 0 && v != 0) atomicOr(&slot[c.rank], (int)v);
   __syncthreads();
-  if (c.tid == 0)
-    for (int k = 0; k < c.C; ++k)
+  if (threadIdx.x == 0)
+    for (int k = 0; k < p.cluster; ++k)
       if (k != c.rank) remote(slot, k)[c.rank] = slot[c.rank];
   cg::this_cluster().sync();
   unsigned out = 0;
-  for (int k = 0; k < c.C; ++k) out |= (unsigned)slot[k];
+  for (int k = 0; k < p.cluster; ++k) out |= (unsigned)slot[k];
   c.vote_slot ^= 1;
   return out;
 }
@@ -358,15 +424,15 @@ struct TwoMin {
 
 // A check's new record from its chain and edge words.
 template <bool OFFSET>
-__device__ __forceinline__ uint4 new_record(const Cta& c, const TwoMin& tm,
+__device__ __forceinline__ uint4 new_record(const Params& p, const TwoMin& tm,
                                             int deg, int sbit, float f,
                                             uint32_t w0, uint32_t w1) {
   const float rs = tm.row_sign(sbit);
   return make_uint4(
-      __float_as_uint(clamp_to(minsum_from<OFFSET>(tm.min1, rs, f), c.values)),
+      __float_as_uint(clamp_to(minsum_from<OFFSET>(tm.min1, rs, f), p.values)),
       __float_as_uint(
-          clamp_to(minsum_from<OFFSET>(tm.second(deg), rs, f), c.values)),
-      w0 | c.fill, w1 | c.fill);
+          clamp_to(minsum_from<OFFSET>(tm.second(deg), rs, f), p.values)),
+      w0 | p.fill, w1 | p.fill);
 }
 
 // The two bits of slot k of a new check.
@@ -390,82 +456,93 @@ __device__ __forceinline__ int with_run(int deg, Fn&& f) {
   return f(Run<kRun>{});
 }
 
-// One check of at most R edges for the thread's lane (internal check c_int,
-// its edges at row): loads all its totals before using any (slots past deg
-// read slot 0's), turns each into its message clamp(t - v) (slots past deg:
-// +inf, which moves no minimum, sign or parity) and writes the check's new
-// record. Returns the decision parity of the totals it read.
-template <int R, bool ADAPTIVE, bool OFFSET, int F>
+// One check of at most R edges for the thread's lane (the CTA's check q,
+// its edges at row): loads its table words, its old record, its syndrome bit
+// and its totals before it uses any, turns each total into its message
+// t - v (slots past deg: +inf, which moves no minimum, sign or parity) and
+// writes the check's new record. Returns the decision parity of the totals
+// it read. Slots past deg read slot 0's total again, but the last slot,
+// past deg, loads nothing: with runs of 6, 8, ..., 16 it is the only slot
+// past deg of every check over 5 edges (a third of the 100k code's checks
+// have 9 edges in the 10-slot run).
+template <int R, bool ADAPTIVE, bool OFFSET, bool CLAMP, int F>
 __device__ __forceinline__ int minsum_run(const Params& p, const Cta& c,
-                                          int c_int, Row row, int sbit,
-                                          Bounds msg) {
-  const int deg = row.deg;
-  uint4* rec = c.rec + (size_t)c_int * F + c.lane;
+                                          int q, Row row) {
+  const int deg = row.deg, lane = lane_of<F>();
+  uint4* rec = c.rec + (size_t)(c.rank * p.check_share + q) * F + lane;
+  uint32_t w[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    w[k] = k + 1 < R || k < deg ? __ldg(p.cedge + row.at(k < deg ? k : 0))
+                                : 0u;
   const uint4 old = __ldcg(rec);
+  const int sbit = packed_bit(shared_at<uint32_t>(kSynAt), q * F + lane);
   float m[R];
 #pragma unroll
   for (int k = 0; k < R; ++k)
-    m[k] = edge_total<F>(c, __ldg(c.cedge + row.at(k < deg ? k : 0)));
+    m[k] = k + 1 < R ? edge_total<F>(p, w[k])
+                     : edge_total<F>(p, w[k], k < deg);
   TwoMin tm;
   int par = sbit;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     if (k < deg && m[k] <= 0.f) par ^= 1;
-    m[k] = k < deg ? clamp_to(m[k] - stored_value(old, k), msg) : INFINITY;
+    m[k] = k < deg ? message<CLAMP>(p, m[k] - stored_value(old, k))
+                   : INFINITY;
     tm.add(k, m[k]);
   }
   const float fac = (ADAPTIVE && par) ? p.secondary : p.primary;
   uint32_t nw = 0u;
 #pragma unroll
   for (int k = 0; k < R; ++k) nw |= edge_bits(m[k], tm.min1, k);
-  *rec = new_record<OFFSET>(c, tm, deg, sbit, fac, nw, 0u);
+  *rec = new_record<OFFSET>(p, tm, deg, sbit, fac, nw, 0u);
   return par;
 }
 
 // One check of kRun + 1 .. kMaxDegree edges: two passes over its edges.
-template <bool ADAPTIVE, bool OFFSET, int F>
-__device__ int long_check(const Params& p, const Cta& c, int c_int, Row row,
-                          int sbit, Bounds msg) {
-  const int deg = row.deg;
-  uint4* rec = c.rec + (size_t)c_int * F + c.lane;
+template <bool ADAPTIVE, bool OFFSET, bool CLAMP, int F>
+__device__ int long_check(const Params& p, const Cta& c, int q, Row row) {
+  const int deg = row.deg, lane = lane_of<F>();
+  uint4* rec = c.rec + (size_t)(c.rank * p.check_share + q) * F + lane;
   const uint4 old = __ldcg(rec);
+  const int sbit = packed_bit(shared_at<uint32_t>(kSynAt), q * F + lane);
   TwoMin tm;
   int par = sbit;
   for (int k = 0; k < deg; ++k) {
-    const float t = edge_total<F>(c, __ldg(c.cedge + row.at(k)));
+    const float t = edge_total<F>(p, __ldg(p.cedge + row.at(k)));
     if (t <= 0.f) par ^= 1;
-    tm.add(k, clamp_to(t - stored_value(old, k), msg));
+    tm.add(k, message<CLAMP>(p, t - stored_value(old, k)));
   }
   const float fac = (ADAPTIVE && par) ? p.secondary : p.primary;
   uint32_t nw0 = 0u, nw1 = 0u;
   for (int k = 0; k < deg; ++k) {
-    const float t = edge_total<F>(c, __ldg(c.cedge + row.at(k)));
+    const float t = edge_total<F>(p, __ldg(p.cedge + row.at(k)));
     const uint32_t bits =
-        edge_bits(clamp_to(t - stored_value(old, k), msg), tm.min1, k);
+        edge_bits(message<CLAMP>(p, t - stored_value(old, k)), tm.min1, k);
     if (k < 16) nw0 |= bits;
     else nw1 |= bits;
   }
-  *rec = new_record<OFFSET>(c, tm, deg, sbit, fac, nw0, nw1);
+  *rec = new_record<OFFSET>(p, tm, deg, sbit, fac, nw0, nw1);
   return par;
 }
 
-// The check pass over this CTA's checks for the thread's lane. Returns the
-// OR of the decision parities of the totals it read.
-template <bool ADAPTIVE, bool OFFSET, int F>
-__device__ int check_pass(const Params& p, const Cta& c, Bounds msg) {
-  const int check0 = c.rank * c.Sc;
+// The check pass over this CTA's checks for the thread's lane, messages
+// clamped where CLAMP. Returns the OR of the decision parities of the
+// totals it read.
+template <bool ADAPTIVE, bool OFFSET, bool CLAMP, int F>
+__device__ int check_pass(const Params& p, const Cta& c) {
+  const int checks = nodes_of(p.m, p.check_share, c.rank);
+  const int check0 = c.rank * p.check_share;
+  const int4* groups = shared_at<int4>(kCheckGroupsAt);
   int bad = 0, g = 0;
-  for (int q = c.slot; q < c.checks; q += c.P) {
-    const Row row = row_of(c.cgroups, p.check_groups, check0 + q, g);
-    const int sbit = packed_bit(c.syn, q * F + c.lane);
+  for (int q = slot_of<F>(); q < checks; q += p.sweep) {
+    const Row row = row_of(groups, p.check_groups, check0 + q, g);
     if (row.deg > kRun) {
-      bad |= long_check<ADAPTIVE, OFFSET, F>(p, c, check0 + q, row, sbit,
-                                             msg);
+      bad |= long_check<ADAPTIVE, OFFSET, CLAMP, F>(p, c, q, row);
     } else {
       bad |= with_run(row.deg, [&](auto run) {
         constexpr int R = decltype(run)::value;
-        return minsum_run<R, ADAPTIVE, OFFSET, F>(p, c, check0 + q, row,
-                                                  sbit, msg);
+        return minsum_run<R, ADAPTIVE, OFFSET, CLAMP, F>(p, c, q, row);
       });
     }
   }
@@ -474,14 +551,15 @@ __device__ int check_pass(const Params& p, const Cta& c, Bounds msg) {
 
 // The decision parity of check c over the lane's current totals.
 template <int F>
-__device__ __forceinline__ int check_parity(const Cta& c, Row row, int sbit) {
+__device__ __forceinline__ int check_parity(const Params& p, Row row,
+                                            int sbit) {
   int par = sbit;
   for (int k0 = 0; k0 < row.deg; k0 += kBitRun) {  // loads in flight together
     float t[kBitRun];
 #pragma unroll
     for (int k = 0; k < kBitRun; ++k)
       if (k0 + k < row.deg)
-        t[k] = edge_total<F>(c, __ldg(c.cedge + row.at(k0 + k)));
+        t[k] = edge_total<F>(p, __ldg(p.cedge + row.at(k0 + k)));
 #pragma unroll
     for (int k = 0; k < kBitRun; ++k)
       if (k0 + k < row.deg && t[k] <= 0.f) par ^= 1;
@@ -493,8 +571,9 @@ __device__ __forceinline__ int check_parity(const Cta& c, Row row, int sbit) {
 // slot): the F lanes of a node read F neighbouring records, one request.
 template <int F>
 __device__ __forceinline__ float edge_value(const Cta& c, uint32_t w) {
-  return stored_value(__ldcg(c.rec + (size_t)(w >> kSlotBits) * F + c.lane),
-                      (int)(w & ((1u << kSlotBits) - 1u)));
+  return stored_value(
+      __ldcg(c.rec + (size_t)(w >> kSlotBits) * F + lane_of<F>()),
+      (int)(w & ((1u << kSlotBits) - 1u)));
 }
 
 // The lane's total of this CTA's bit l (its edges at row): ((llr + v_0) +
@@ -503,13 +582,16 @@ __device__ __forceinline__ float edge_value(const Cta& c, uint32_t w) {
 template <int F>
 __device__ __forceinline__ float bit_total(const Params& p, const Cta& c,
                                            int l, Row row) {
-  float total = packed_bit(c.bob, l * F + c.lane) ? -p.log_p : p.log_p;
+  float total =
+      packed_bit(shared_at<uint32_t>(p.bob_bits), l * F + lane_of<F>())
+          ? -p.log_p
+          : p.log_p;
   for (int k0 = 0; k0 < row.deg; k0 += kBitRun) {
     float v[kBitRun];
 #pragma unroll
     for (int k = 0; k < kBitRun; ++k)
       if (k0 + k < row.deg)
-        v[k] = edge_value<F>(c, __ldg(c.bedge + row.at(k0 + k)));
+        v[k] = edge_value<F>(c, __ldg(p.bedge + row.at(k0 + k)));
 #pragma unroll
     for (int k = 0; k < kBitRun; ++k)
       if (k0 + k < row.deg) total = total + v[k];
@@ -523,19 +605,22 @@ __device__ __forceinline__ float bit_total(const Params& p, const Cta& c,
 template <int F>
 __device__ void bit_pass(const Params& p, const Cta& c, bool act) {
   if (!act) return;
-  const int base = c.rank * c.S;
-  int g = 0, l = c.slot;
-  for (; l + c.P < c.count; l += 2 * c.P) {
-    const Row r0 = row_of(c.bgroups, p.bit_groups, base + l, g);
-    const Row r1 = row_of(c.bgroups, p.bit_groups, base + l + c.P, g);
+  const int base = c.rank * p.share, P = p.sweep, lane = lane_of<F>();
+  const int count = nodes_of(p.n, p.share, c.rank);
+  const int4* groups = shared_at<int4>(kBitGroupsAt);
+  float* tot = shared_at<float>(p.totals);
+  int g = 0, l = slot_of<F>();
+  for (; l + P < count; l += 2 * P) {
+    const Row r0 = row_of(groups, p.bit_groups, base + l, g);
+    const Row r1 = row_of(groups, p.bit_groups, base + l + P, g);
     const float t0 = bit_total<F>(p, c, l, r0);
-    const float t1 = bit_total<F>(p, c, l + c.P, r1);
-    c.tot[l * F + c.lane] = t0;
-    c.tot[(l + c.P) * F + c.lane] = t1;
+    const float t1 = bit_total<F>(p, c, l + P, r1);
+    tot[l * F + lane] = t0;
+    tot[(l + P) * F + lane] = t1;
   }
-  if (l < c.count)
-    c.tot[l * F + c.lane] = bit_total<F>(
-        p, c, l, row_of(c.bgroups, p.bit_groups, base + l, g));
+  if (l < count)
+    tot[l * F + lane] =
+        bit_total<F>(p, c, l, row_of(groups, p.bit_groups, base + l, g));
 }
 
 // ---------------------------------------------------------------------------
@@ -546,9 +631,10 @@ __device__ void bit_pass(const Params& p, const Cta& c, bool act) {
 // threads, k = tid) where `mask` holds k.
 __device__ __forceinline__ void record(const Params& p, const Cta& c, int f0,
                                        unsigned mask, int conv, int iters) {
-  if (c.rank == 0 && c.tid < 32 && ((mask >> c.tid) & 1)) {
-    p.conv[f0 + c.tid] = (int8_t)conv;
-    p.iters[f0 + c.tid] = iters;
+  const int tid = threadIdx.x;
+  if (c.rank == 0 && tid < 32 && ((mask >> tid) & 1)) {
+    p.conv[f0 + tid] = (int8_t)conv;
+    p.iters[f0 + tid] = iters;
   }
 }
 
@@ -556,16 +642,20 @@ template <bool ADAPTIVE, bool OFFSET, int F>
 __device__ void decode_group(const Params& p, Cta& c, int f0) {
   const int nf = min(F, p.batch - f0);
   const unsigned all = (1u << nf) - 1u;
-  const bool live = c.lane < nf;
-  const int bit0 = c.rank * c.S, check0 = c.rank * c.Sc;
+  const int tid = threadIdx.x, lane = lane_of<F>();
+  const bool live = lane < nf;
+  const int bit0 = c.rank * p.share, check0 = c.rank * p.check_share;
+  const int count = nodes_of(p.n, p.share, c.rank);
+  float* tot = shared_at<float>(p.totals);
+  uint32_t* alice = shared_at<uint32_t>(p.alice_bits);
   // This CTA's key bits and the first totals, the channel LLRs: thread tid
   // serves node l0 + tid for every frame of the group (neighbouring threads
   // read neighbouring bytes of a frame's row); the 32 / F nodes of a word
   // gather their F-bit chunks (whole warps: S and T are multiples of 32).
-  for (int l0 = 0; l0 < c.S; l0 += c.T) {
-    const int l = l0 + c.tid;
-    const bool in = l < c.count;
-    const int j = in ? __ldg(c.bit_ext + bit0 + l) : 0;
+  for (int l0 = 0; l0 < p.share; l0 += blockDim.x) {
+    const int l = l0 + tid;
+    const bool in = l < count;
+    const int j = in ? __ldg(p.bit_ext + bit0 + l) : 0;
     uint32_t a = 0u, b = 0u;
 #pragma unroll
     for (int k = 0; k < F; ++k) {
@@ -574,20 +664,20 @@ __device__ void decode_group(const Params& p, Cta& c, int f0) {
         const bool one = p.bob[at] == 1;
         a |= (uint32_t)(p.alice[at] & 1) << k;
         b |= (uint32_t)one << k;
-        c.tot[l * F + k] = one ? -p.log_p : p.log_p;
+        tot[l * F + k] = one ? -p.log_p : p.log_p;
       }
     }
     constexpr int kNodes = 32 / F;  // nodes a word holds
-    a <<= F * (c.tid % kNodes);
-    b <<= F * (c.tid % kNodes);
+    a <<= F * (tid % kNodes);
+    b <<= F * (tid % kNodes);
 #pragma unroll
     for (int s = 1; s < kNodes; s <<= 1) {
       a |= __shfl_xor_sync(0xffffffffu, a, s);
       b |= __shfl_xor_sync(0xffffffffu, b, s);
     }
-    if (c.tid % kNodes == 0 && l < c.S) {
-      c.alice[l / kNodes] = a;
-      c.bob[l / kNodes] = b;
+    if (tid % kNodes == 0 && l < p.share) {
+      alice[l / kNodes] = a;
+      shared_at<uint32_t>(p.bob_bits)[l / kNodes] = b;
     }
   }
   cg::this_cluster().sync();  // Alice's bits, read across the cluster
@@ -595,55 +685,59 @@ __device__ void decode_group(const Params& p, Cta& c, int f0) {
   // each, and every check stored as a message-free one, whose values
   // rebuild as +0 (a -0 pair, negated; +0 where the fill keeps the sign).
   // Thread tid of sweep q0 serves bit q0 * F + tid of the [Sc][F] plane.
-  const float zero = c.fill ? 0.f : -0.f;
+  const int checks = nodes_of(p.m, p.check_share, c.rank);
+  const int4* cgroups = shared_at<int4>(kCheckGroupsAt);
+  uint32_t* syn = shared_at<uint32_t>(kSynAt);
+  const float zero = p.fill ? 0.f : -0.f;
   int g = 0;
-  for (int q0 = 0; q0 < c.Sc; q0 += c.P) {
-    const int q = q0 + c.slot;
+  for (int q0 = 0; q0 < p.check_share; q0 += p.sweep) {
+    const int q = q0 + slot_of<F>();
     int bit = 0;
-    if (q < c.checks) {
-      const Row row = row_of(c.cgroups, p.check_groups, check0 + q, g);
+    if (q < checks) {
+      const Row row = row_of(cgroups, p.check_groups, check0 + q, g);
       if (live)
         for (int k = 0; k < row.deg; ++k)
-          bit ^= edge_alice<F>(c, __ldg(c.cedge + row.at(k)));
-      c.rec[(size_t)(check0 + q) * F + c.lane] = make_uint4(
-          __float_as_uint(zero), __float_as_uint(zero), c.fill, c.fill);
+          bit ^= edge_alice<F>(p, __ldg(p.cedge + row.at(k)));
+      c.rec[(size_t)(check0 + q) * F + lane] = make_uint4(
+          __float_as_uint(zero), __float_as_uint(zero), p.fill, p.fill);
     }
     const uint32_t w = __ballot_sync(0xffffffffu, bit);
-    const int b0 = q0 * F + (c.tid & ~31);
-    if ((c.tid & 31) == 0 && b0 < c.Sc * F) c.syn[b0 >> 5] = w;
+    const int b0 = q0 * F + (tid & ~31);
+    if ((tid & 31) == 0 && b0 < p.check_share * F) syn[b0 >> 5] = w;
   }
   __syncthreads();
 
   unsigned active = all;
   for (int it = 0; it < p.max_iter; ++it) {
     // The first sweep reads the channel LLRs unclamped.
-    const Bounds msg = bounds(p.use_threshold && it > 0, p);
-    const int bad = (active >> c.lane) & 1
-                        ? check_pass<ADAPTIVE, OFFSET, F>(p, c, msg)
-                        : 0;
+    int bad = 0;
+    if ((active >> lane) & 1)
+      bad = p.use_threshold && it > 0
+                ? check_pass<ADAPTIVE, OFFSET, true, F>(p, c)
+                : check_pass<ADAPTIVE, OFFSET, false, F>(p, c);
     // The adaptive pair: converged on the decisions before this sweep. The
     // others: on the decisions of the previous sweep (none before the
     // first). Either way the totals read are kept. The vote's barrier also
     // orders the pass's reads of totals and writes of records before the
     // bit pass.
-    const unsigned unsat = cluster_or(c, bad ? 1u << c.lane : 0u);
+    const unsigned unsat = cluster_or(p, c, bad ? 1u << lane : 0u);
     const unsigned stay = active & ((ADAPTIVE || it > 0) ? unsat : all);
     record(p, c, f0, active & ~stay, 1, ADAPTIVE ? it + 1 : it);
     active = stay;
     if (active == 0) break;
-    bit_pass<F>(p, c, (active >> c.lane) & 1);
+    bit_pass<F>(p, c, (active >> lane) & 1);
     cg::this_cluster().sync();
   }
   if (!ADAPTIVE && active != 0 && p.max_iter > 0) {
     int bad = 0;
-    if ((active >> c.lane) & 1) {
+    if ((active >> lane) & 1) {
       g = 0;
-      for (int q = c.slot; q < c.checks; q += c.P)
+      for (int q = slot_of<F>(); q < checks; q += p.sweep)
         bad |= check_parity<F>(
-            c, row_of(c.cgroups, p.check_groups, check0 + q, g),
-            packed_bit(c.syn, q * F + c.lane));
+            p, row_of(cgroups, p.check_groups, check0 + q, g),
+            packed_bit(syn, q * F + lane));
     }
-    const unsigned unsat = cluster_or(c, bad ? 1u << c.lane : 0u);
+    const unsigned unsat = cluster_or(p, c, bad ? 1u << lane : 0u);
     record(p, c, f0, active & ~unsat, 1, p.max_iter);
     active &= unsat;
   }
@@ -652,70 +746,37 @@ __device__ void decode_group(const Params& p, Cta& c, int f0) {
   // The key compare: every decision of a frame equals Alice's bit.
   int wrong = 0;
   if (live)
-    for (int l = c.slot; l < c.count; l += c.P)
-      wrong |= (c.tot[l * F + c.lane] <= 0.f ? 1 : 0) !=
-               packed_bit(c.alice, l * F + c.lane);
-  const unsigned bad = cluster_or(c, wrong ? 1u << c.lane : 0u);
-  if (c.rank == 0 && c.tid < nf)
-    p.keys[f0 + c.tid] = (int8_t)(((bad >> c.tid) & 1) == 0);
+    for (int l = slot_of<F>(); l < count; l += p.sweep)
+      wrong |= (tot[l * F + lane] <= 0.f ? 1 : 0) !=
+               packed_bit(alice, l * F + lane);
+  const unsigned bad = cluster_or(p, c, wrong ? 1u << lane : 0u);
+  if (c.rank == 0 && tid < nf)
+    p.keys[f0 + tid] = (int8_t)(((bad >> tid) & 1) == 0);
 }
 
 template <bool ADAPTIVE, bool OFFSET, int F>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     generic_stream_kernel_cluster(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const SharedLayout lay = shared_layout(p.n, p.m, F, p.cluster);
-  int4* cgroups = reinterpret_cast<int4*>(smem);
-  int4* bgroups = reinterpret_cast<int4*>(smem + lay.bit_groups);
-  const int4* tgroups = reinterpret_cast<const int4*>(p.table);
+  int4* groups = shared_at<int4>(kCheckGroupsAt);
   for (int i = threadIdx.x; i < p.check_groups + p.bit_groups;
-       i += blockDim.x) {
-    if (i < p.check_groups) cgroups[i] = tgroups[i];
-    else bgroups[i - p.check_groups] = tgroups[i];
-  }
+       i += blockDim.x)
+    groups[i < p.check_groups ? i : kMaxGroups + i - p.check_groups] =
+        p.groups[i];
   Cta c;
   c.rank = (int)cluster.block_rank();
-  c.C = p.cluster;
-  c.S = share_of(p.n, p.cluster);
-  c.Sc = share_of(p.m, p.cluster);
-  c.T = blockDim.x;
-  c.P = c.T / F;
-  c.tid = threadIdx.x;
-  c.slot = c.tid / F;
-  c.lane = c.tid % F;
-  c.count = max(0, min(c.S, p.n - c.rank * c.S));
-  c.checks = max(0, min(c.Sc, p.m - c.rank * c.Sc));
-  c.tot = reinterpret_cast<float*>(smem + lay.totals);
-  c.alice = reinterpret_cast<uint32_t*>(smem + lay.alice);
-  c.bob = reinterpret_cast<uint32_t*>(smem + lay.bob);
-  c.syn = reinterpret_cast<uint32_t*>(smem + lay.syn);
-  c.votes = reinterpret_cast<int*>(smem + lay.votes);
-  c.next = reinterpret_cast<int*>(smem + lay.next);
   c.vote_slot = 0;
-  c.tot_sa = (uint32_t)__cvta_generic_to_shared(c.tot);
-  c.alice_sa = (uint32_t)__cvta_generic_to_shared(c.alice);
-  c.win_hi = (uint32_t)(reinterpret_cast<uintptr_t>(smem) >> 32);
-  c.cgroups = cgroups;
-  c.bgroups = bgroups;
-  c.cedge = reinterpret_cast<const uint32_t*>(
-      p.table + 4 * (p.check_groups + p.bit_groups));
-  c.bedge = c.cedge + p.e;
-  c.bit_ext = reinterpret_cast<const int*>(c.bedge + p.e);
-  c.rec = p.records + (size_t)(blockIdx.x / p.cluster) *
-                          (record_bytes(p.m, F) / sizeof(uint4));
-  const bool neg_same = p.use_threshold && p.threshold < 0.f;
-  c.fill = neg_same ? 0x55555555u : 0u;
-  c.values = bounds(p.use_threshold, p);
+  c.rec = p.records + (size_t)(blockIdx.x / p.cluster) * p.cluster_records;
+  int* next = shared_at<int>(kNextAt);
   __syncthreads();
 
   for (;;) {
-    if (c.rank == 0 && c.tid == 0) {
+    if (c.rank == 0 && threadIdx.x == 0) {
       const int f0 = atomicAdd(p.next, F);
-      for (int k = 0; k < c.C; ++k) *remote(c.next, k) = f0;
+      for (int k = 0; k < p.cluster; ++k) *remote(next, k) = f0;
     }
     cluster.sync();  // also: the last group's shares are no longer read
-    const int f0 = *c.next;
+    const int f0 = *next;
     if (f0 >= p.batch) break;
     decode_group<ADAPTIVE, OFFSET, F>(p, c, f0);
   }
@@ -827,7 +888,8 @@ int generic_cluster_resident(int n, int m, int flags, int frames,
 
 // A trial launch over `clusters` clusters of `cluster` CTAs, each decoding
 // groups of `frames` frames. scratch: 256 bytes for the frame counter, then
-// each cluster's records (generic_cluster_record_bytes).
+// each cluster's records (generic_cluster_record_bytes). Everything the
+// threads read but do not change is formed here, once.
 int generic_cluster_trial(const int8_t* alice, const int8_t* bob, int batch,
                           const int32_t* table, int n, int m, int e,
                           int check_groups, int bit_groups, int flags,
@@ -839,25 +901,38 @@ int generic_cluster_trial(const int8_t* alice, const int8_t* bob, int batch,
   if (!shape_ok(n, m, e, check_groups, bit_groups, frames, cluster) ||
       batch < 1 || clusters < 1 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
+  const SharedLayout lay = shared_layout(n, m, frames, cluster);
   Params p{};
   p.alice = alice;
   p.bob = bob;
-  p.table = table;
+  p.groups = reinterpret_cast<const int4*>(table);
+  p.cedge = reinterpret_cast<const uint32_t*>(
+      table + 4 * (check_groups + bit_groups));
+  p.bedge = p.cedge + e;
+  p.bit_ext = reinterpret_cast<const int*>(p.bedge + e);
   p.next = static_cast<int*>(scratch);
   p.records = reinterpret_cast<uint4*>(static_cast<char*>(scratch) + 256);
   p.n = n;
   p.m = m;
-  p.e = e;
   p.check_groups = check_groups;
   p.bit_groups = bit_groups;
   p.cluster = cluster;
   p.batch = batch;
   p.max_iter = max_iter;
   p.use_threshold = use_threshold;
+  p.share = share_of(n, cluster);
+  p.check_share = share_of(m, cluster);
+  p.sweep = threads_for(n, m, frames, cluster) / frames;
+  p.totals = (uint32_t)lay.totals;
+  p.alice_bits = (uint32_t)lay.alice;
+  p.bob_bits = (uint32_t)lay.bob;
+  p.cluster_records = (uint32_t)(record_bytes(m, frames) / sizeof(uint4));
   p.log_p = log_p;
   p.primary = primary;
   p.secondary = secondary;
-  p.threshold = threshold;
+  p.fill = use_threshold && threshold < 0.f ? 0x55555555u : 0u;
+  p.values = use_threshold ? Bounds{-threshold, threshold}
+                           : Bounds{-INFINITY, INFINITY};
   p.conv = conv;
   p.keys = keys;
   p.iters = iters;

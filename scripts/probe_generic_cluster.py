@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The streamed generic trial's two kernels side by side, on one card.
 
-    python3 scripts/probe_generic_cluster.py [FRAMES]
+    python3 scripts/probe_generic_cluster.py [FRAMES] [--against DIR]
 
 For the N=102400 alist code (NMSA alpha 0.8; Alice's and Bob's keys from
 ``default_key_source`` with exact error counts) it prints the cluster
@@ -15,13 +15,20 @@ at each of the benchmark's points (QBER 0.020-0.035), times FRAMES frames
 (default 4096) through the batch-minor kernel (its own group size) and the
 cluster kernel at each group size in turns, beside the chunk's bound, and
 the plan's cluster kernel at iteration caps 0, 1 and 2 (the staging and the
-key compare; one iteration of every frame). It needs one CUDA device and
-prints the card's name and power limit first; it exits 1 where a
-comparison differs.
+key compare; one iteration of every frame). With ``--against DIR`` it
+also builds DIR's ``qkd_ldpc_v_tpu_torch/csrc/generic_cluster.cu`` alone
+(another checkout, e.g. the parent commit unpacked with ``git archive``;
+its C entry ``generic_cluster_trial`` must take this one's arguments),
+prints its compiler report, and at each point times the plan's cluster
+kernel of both builds in turns (DIR, this, this, DIR), their outputs held
+equal. It needs one CUDA device and prints the card's name and power limit
+first; it exits 1 where a comparison differs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import subprocess
 import sys
 import time
@@ -52,6 +59,34 @@ def same(got, want) -> bool:
     return all(bool((g.cpu() == w.cpu()).all()) for g, w in zip(got, want))
 
 
+def cluster_report(log: str) -> None:
+    for line in log.splitlines():
+        if "generic_stream_kernel_cluster" in line or "spill" in line:
+            print("ptxas:", line.strip())
+
+
+def build_against(tree: Path):
+    """DIR's cluster kernel alone, built with the library's flags into a
+    shared library under build/, with its trial entry declared as this
+    tree's; prints the compiler's report."""
+    from qkd_ldpc_v_tpu_torch import kernels
+
+    src = tree / "qkd_ldpc_v_tpu_torch" / "csrc" / "generic_cluster.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = ROOT / "build" / "probe_against" / f"generic_cluster-{digest}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas",
+                           "-v", "-shared", "-o", str(out), str(src)],
+                          capture_output=True, text=True, check=True)
+    print(f"against {tree}:", flush=True)
+    cluster_report(proc.stdout + proc.stderr)
+    lib = ctypes.CDLL(str(out))
+    args, res = kernels.SIGNATURES["generic_cluster_trial"]
+    lib.generic_cluster_trial.argtypes = args
+    lib.generic_cluster_trial.restype = res
+    return lib
+
+
 def main() -> int:
     import torch
 
@@ -67,7 +102,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    frames = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
+    argv = sys.argv[1:]
+    against = None
+    if "--against" in argv:
+        at = argv.index("--against")
+        against = Path(argv[at + 1]).resolve()
+        del argv[at:at + 2]
+    frames = int(argv[0]) if argv else 4096
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -76,10 +117,9 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels.library()
     print(f"kernels built in {kernels.build_seconds:.1f} s", flush=True)
-    for line in kernels.build_log.splitlines():
-        if "generic_stream_kernel_cluster" in line or "spill" in line:
-            print("ptxas:", line.strip())
+    cluster_report(kernels.build_log)
     matrix = read_sparse_matrix_alist(ALIST100K)
+    other = build_against(against) if against else None
     n, e = matrix.num_bit_nodes, matrix.num_edges
     lib = kernels.library()
     ok = True
@@ -107,8 +147,9 @@ def main() -> int:
         return alice, inject_errors(bits, alice, ne, wide=True), \
             log_ratio(ne / n)
 
-    def launcher(algorithm, frames):
-        """The cluster kernel at ``frames`` frames a cluster, as a trial."""
+    def launcher(algorithm, frames, lib=None):
+        """The cluster kernel at ``frames`` frames a cluster (the plan's
+        where None), as a trial; ``lib``: another build's entry."""
         flags = fused_generic.generic_flags(algorithm)
         plan = generic_stream._Launch(matrix, flags, dev, None, frames)
 
@@ -116,9 +157,20 @@ def main() -> int:
             outs = tuple(torch.empty(alice.shape[0], dtype=t, device=dev)
                          for t in (torch.int8, torch.int8, torch.int32))
             batch = alice.shape[0]
-            err = plan.launch("trial", batch,
-                              (alice.data_ptr(), bob.data_ptr(), batch),
-                              (flags, 0, CAP, lp, f1, f2, thr), outs)
+            inputs = (alice.data_ptr(), bob.data_ptr(), batch)
+            scalars = (flags, 0, CAP, lp, f1, f2, thr)
+            if lib is None:
+                err = plan.launch("trial", batch, inputs, scalars, outs)
+            else:
+                cp = plan.cluster
+                clusters = min(-(-batch // cp.frames), plan.clusters)
+                scratch = torch.empty(256 + clusters * cp.record_bytes,
+                                      dtype=torch.uint8, device=dev)
+                err = lib.generic_cluster_trial(
+                    *inputs, *plan.cluster_shape, *scalars,
+                    scratch.data_ptr(), cp.frames, cp.cluster, clusters,
+                    *(o.data_ptr() for o in outs),
+                    torch.cuda.current_stream().cuda_stream)
             assert err == 0, err
             return outs[0].bool(), outs[1].bool(), outs[2]
         return plan, run
@@ -160,6 +212,9 @@ def main() -> int:
     minor = generic_stream.make_generic_stream_trial(
         matrix, DecodingAlgorithm.NMSA, CAP, False,
         generic_stream.group_for(frames, plan.resident))
+    if other is not None:
+        mine = launcher(DecodingAlgorithm.NMSA, None)[1]
+        theirs = launcher(DecodingAlgorithm.NMSA, None, other)[1]
     for qber in POINTS:
         alice, bob, lp = keys(qber, frames, seed=int(qber * 1000))
         args = (lp, 0.8, 1.0, 0.0)
@@ -174,6 +229,21 @@ def main() -> int:
                                                          *args))[1]))
         its = int(ref[2].sum())
         b = bound(frames, n, e, its, "flooding")
+        if other is not None:
+            eq = same(theirs(alice, bob, *args), ref)
+            ok &= eq
+            turns = {"against": [], "this": []}
+            for name, fn in (("against", theirs), ("this", mine),
+                             ("this", mine), ("against", theirs)):
+                turns[name].append(timed(torch, lambda: fn(alice, bob,
+                                                           *args))[1])
+            a, t = (sum(v) / 2 for v in turns.values())
+            print(f"QBER {qber}: the plan's cluster kernel, against / this "
+                  f"(in turns A B B A): "
+                  + ", ".join(f"{x:.2f}" for x in turns["against"]) + " / "
+                  + ", ".join(f"{x:.2f}" for x in turns["this"])
+                  + f" ms; this / against {t / a:.4f}; equal outputs: {eq}"
+                  f" ({card})", flush=True)
         waste = []
         for f in runs:
             pad = -frames % f

@@ -99,6 +99,28 @@ def stream_sized_code():
                                  column_weight=3, seed=5)
 
 
+def mixed_degree_code():
+    """N=3000, M=1600: checks of 3 (100), 6 (500), 9 (400), 10 (400), 12
+    (100) and 30 (100) edges, each on the bits of least weight so far
+    (column weights 5 and 6). One CTA holds every group size. Its checks
+    fill the cluster kernel's register runs of 6, 10 and 12 slots exactly,
+    leave the last slot of the 10-slot run unused (9 edges), leave three
+    slots of the 6-slot run unused (3 edges: two read slot 0's total again,
+    the last loads nothing), and take the two-pass path (30 edges)."""
+    rng = np.random.default_rng(21)
+    degrees = ([3] * 100 + [6] * 500 + [9] * 400 + [10] * 400 + [12] * 100
+               + [30] * 100)
+    n = 3000
+    dense = np.zeros((len(degrees), n), dtype=np.int8)
+    weight = np.zeros(n, dtype=np.int64)
+    for row in rng.permutation(len(degrees)):
+        order = rng.permutation(n)
+        pick = order[np.argsort(weight[order], kind="stable")[:degrees[row]]]
+        dense[row, pick] = 1
+        weight[pick] += 1
+    return from_dense(dense)
+
+
 def _jax_matrix(matrix):
     from qkd_ldpc_v_tpu.models.hmatrix import HMatrix as JHMatrix
 
@@ -893,6 +915,21 @@ def test_cluster_schedule_model_equals_plain(irregular, alg, f1, f2, use_thr):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("frames", generic_stream.CLUSTER_FRAMES)
+def test_mixed_degree_code_plans(frames):
+    """The mixed-degree code's shape, on which the card's test of the
+    cluster kernel at every group size runs: each check degree as asked,
+    column weights 4 and 5, and one CTA of 1024 threads for each group
+    size."""
+    layout = layout_for(mixed_degree_code())
+    assert [(g.degree, g.count) for g in layout.check_groups] == [
+        (3, 100), (6, 500), (9, 400), (10, 400), (12, 100), (30, 100)]
+    assert [(g.degree, g.count) for g in layout.bit_groups] == [
+        (5, 2900), (6, 100)]
+    plan = generic_stream._layout_plan(layout, "trial", False, frames)
+    assert (plan.frames, plan.cluster, plan.threads) == (frames, 1, 1024)
+
+
 # ---------------------------------------------------------------------------
 # On the card: kernel == plain, exactly.
 # ---------------------------------------------------------------------------
@@ -1271,3 +1308,51 @@ def test_cluster_route_counter_on_card(cuda_device):
         alice, bob, lp, 0.8)
     torch.cuda.synchronize()
     assert generic_stream.counts() == (4, 0, 1, frames)
+
+
+def _cluster_at(matrix, alg, frames, device):
+    """The cluster kernel's trial at ``frames`` frames a cluster: (plan,
+    run), run(alice, bob, lp, f1, f2, use_thr, thr) -> (conv, keys,
+    iterations)."""
+    flags = launch.generic_flags(TAlg[alg])
+    plan = generic_stream._Launch(matrix, flags, device, None, frames)
+
+    def run(alice, bob, lp, f1, f2, use_thr, thr):
+        batch = alice.shape[0]
+        outs = tuple(torch.empty(batch, dtype=t, device=device)
+                     for t in (torch.int8, torch.int8, torch.int32))
+        err = plan.launch("trial", batch,
+                          (alice.data_ptr(), bob.data_ptr(), batch),
+                          (flags, int(use_thr), CAP, lp, f1, f2, thr), outs)
+        assert err == 0, err
+        torch.cuda.synchronize()
+        return outs[0].bool(), outs[1].bool(), outs[2]
+    return plan, run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", generic_stream.CLUSTER_FRAMES)
+@pytest.mark.parametrize("use_thr", [False, True])
+@pytest.mark.parametrize("alg,f1,f2", ALGS)
+def test_cluster_mixed_degrees_on_card(cuda_device, alg, f1, f2, use_thr,
+                                       frames):
+    """The cluster kernel at each group size (one CTA, P = 1024 / F slots)
+    on the mixed-degree code: checks that fill their register run, runs
+    with slots past the check's degree (the last loads nothing, the others
+    read slot 0's total again), 12-edge checks and 30-edge checks (two
+    passes) in one pass; 45 frames in the waterfall (a ragged last group;
+    some converge, some run to the cap), the clamp off and on. Conv, keys
+    and iterations equal the plain version bit for bit."""
+    matrix = mixed_degree_code()
+    n = matrix.num_bit_nodes
+    ne = int(n * 0.068)
+    alice, bob = _card_keys(n, 45, ne, seed=frames, device=cuda_device)
+    lp, thr = log_ratio(ne / n), THRESHOLD if use_thr else 0.0
+    plan, run = _cluster_at(matrix, alg, frames, cuda_device)
+    assert (plan.cluster.frames, plan.cluster.cluster) == (frames, 1)
+    got = run(alice, bob, lp, f1, f2, use_thr, thr)
+    want = generic_stream.make_generic_stream_trial(
+        matrix, TAlg[alg], CAP, use_thr).plain(alice, bob, lp, f1, f2, thr)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert 0 < int(got[0].sum()) < 45
